@@ -1,0 +1,114 @@
+"""Weights carried into the port: a ``state_dict`` from the reference's
+variable tree or from its reference-named array archive.
+
+- ``from_flax_variables(tree)``: the ``{params, batch_stats}`` tree of
+  numpy arrays that ``jax.device_get(variables)`` gives. Flax paths map
+  onto module names (``encoder/conv1/dense/kernel`` ->
+  ``encoder.conv1.dense.weight``); dense kernels go from (in, out) to the
+  port's (out, in); BN ``gamma``/``beta`` come from params and
+  ``mean``/``var`` from batch_stats.
+- ``from_reference_arrays(npz)``: the flat archive written by the JAX
+  package's ``cli.export --format reference_npz``, keyed by the reference
+  TF stack's variable names (``conv1/weights`` (1,3,1,64),
+  ``conv2/weights`` (1,1,64,64), ``fc1/weights`` (in,out), ``*/biases``,
+  ``*/bn/{beta,gamma,moving_mean,moving_variance}``), with ``/`` or ``__``
+  as the separator. Optimizer slots and the global step are skipped.
+
+This is how a model trained by the JAX package (or by the reference)
+reaches the port without JAX. Orbax bundles and training checkpoints are
+not readable here.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Dict, Mapping, Union
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+# Optimizer and bookkeeping variables a reference training checkpoint holds
+# besides the model (Adam/Momentum slots, beta powers, the global step).
+_SKIP_EXACT = {"batch", "beta1_power", "beta2_power", "global_step"}
+_SKIP_SLOT = re.compile(r"/(Adam|Adam_1|Momentum)(/|$)")
+# BN variables under the explicit 'bn' scope or contrib's default
+# 'BatchNorm' sub-scope.
+_BN = re.compile(r"^(?P<scope>.+?)/(?:bn/(?:BatchNorm/)?|BatchNorm/)"
+                 r"(?P<var>beta|gamma|moving_mean|moving_variance)$")
+_BN_NAMES = {"beta": "beta", "gamma": "gamma", "moving_mean": "mean",
+             "moving_variance": "var"}
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def from_flax_variables(tree: Mapping) -> StateDict:
+    """``{params, batch_stats}`` tree of arrays -> the port's state_dict."""
+    out: StateDict = {}
+
+    def walk(node, path, collection):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + (str(k),), collection)
+            return
+        arr = np.asarray(node, dtype=np.float32)
+        *mods, leaf = path
+        if collection == "params" and leaf == "kernel" and mods[-1] == "dense":
+            if arr.ndim != 2:
+                raise ValueError(f"{'/'.join(path)}: expected a 2-D dense "
+                                 f"kernel, got {arr.shape}")
+            out[".".join(mods + ["weight"])] = _tensor(arr.T)
+        elif leaf in ("bias", "gamma", "beta", "mean", "var"):
+            out[".".join(path)] = _tensor(arr)
+        else:
+            raise ValueError(f"no port counterpart for {collection}/"
+                             f"{'/'.join(path)}")
+
+    walk(tree["params"], (), "params")
+    walk(tree.get("batch_stats", {}), (), "batch_stats")
+    return out
+
+
+def _module(scope: str) -> str:
+    # The reference's encoder scopes are conv1..conv5; the fc decoder's
+    # are fc1..fc3 (tf_import._ref_scope, reversed).
+    return f"encoder.{scope}" if re.fullmatch(r"conv\d+", scope) \
+        else f"decoder.{scope}"
+
+
+def from_reference_arrays(
+        npz: Union[str, os.PathLike, Mapping[str, np.ndarray]]) -> StateDict:
+    """Reference-named arrays (an ``.npz`` path or a mapping) -> the port's
+    state_dict. Raises on a name that is neither a model variable nor
+    optimizer state."""
+    if isinstance(npz, (str, os.PathLike)):
+        with np.load(npz) as data:
+            arrays = {k: data[k] for k in data.files}
+    else:
+        arrays = dict(npz)
+    out: StateDict = {}
+    for key, value in arrays.items():
+        name = key.replace("__", "/")
+        if name in _SKIP_EXACT or _SKIP_SLOT.search(name):
+            continue
+        arr = np.asarray(value, dtype=np.float32)
+        bn = _BN.match(name)
+        scope, _, var = name.rpartition("/")
+        if bn:
+            out[f"{_module(bn['scope'])}.bn.{_BN_NAMES[bn['var']]}"] = \
+                _tensor(arr)
+        elif var == "weights":
+            # conv2d (kh,kw,cin,cout) / conv1d (k,cin,cout) / fc (in,out):
+            # flattening keeps the contraction order (tf_import._dense_kernel).
+            out[f"{_module(scope)}.dense.weight"] = _tensor(
+                arr.reshape(-1, arr.shape[-1]).T)
+        elif var == "biases":
+            out[f"{_module(scope)}.dense.bias"] = _tensor(arr)
+        else:
+            raise ValueError(f"no port counterpart for reference variable "
+                             f"{key!r}")
+    return out
