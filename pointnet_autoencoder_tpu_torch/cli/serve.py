@@ -5,8 +5,9 @@
         --batch_size 32 --port 7433 [--bf16] [--device cuda]
 
 ``--model_path`` is a reference-named ``.npz`` (written by the JAX
-package's ``cli.export --format reference_npz``) or a ``.pt`` state_dict
-saved from the port. Protocol and client (``PointClient``) are in
+package's ``cli.export --format reference_npz``), a ``.pt`` state_dict
+saved from the port, or a training checkpoint of the port's
+``cli/train.py`` (``model.ckpt``, ``best_model_epoch_NNN.ckpt``). Protocol and client (``PointClient``) are in
 ``pointnet_autoencoder_tpu_torch/serve.py``. SIGTERM drains cleanly:
 queued requests get 'server shutting down' errors instead of dead sockets.
 """
@@ -22,7 +23,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", default="model")
     p.add_argument("--model_path", required=True,
-                   help="Reference-named .npz or the port's .pt state_dict")
+                   help="Reference-named .npz, the port's .pt state_dict "
+                        "or a training checkpoint of the port")
     p.add_argument("--num_point", type=int, default=2048)
     p.add_argument("--batch_size", type=int, default=32,
                    help="Device batch = packing limit")

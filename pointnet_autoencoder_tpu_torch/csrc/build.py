@@ -30,7 +30,7 @@ from typing import Any, Dict, Iterable, Tuple
 
 HERE = Path(__file__).resolve().parent
 BUILD_DIR = HERE / "_build"
-SOURCES = ("chamfer", "fused_encoder")
+SOURCES = ("chamfer", "fused_encoder", "fused_head")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -27,6 +27,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from pointnet_autoencoder_tpu_torch import checkpoint_file
 from pointnet_autoencoder_tpu_torch.convert import from_reference_arrays
 from pointnet_autoencoder_tpu_torch.device import resolve_device
 from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
@@ -61,15 +62,19 @@ def chunked_dispatch(run: Callable, arr: np.ndarray, chunk_size: int,
 
 
 def load_state_dict(model_path: str):
-    """A reference-named ``.npz`` archive or a ``.pt`` state_dict that the
-    port saved (``torch.save(model.state_dict(), path)``)."""
+    """A reference-named ``.npz`` archive, a ``.pt`` state_dict that the
+    port saved (``torch.save(model.state_dict(), path)``), or a training
+    checkpoint of the port (``best_model_epoch_NNN.ckpt``, ``model.ckpt``),
+    whose model state_dict is taken."""
     if model_path.endswith(".npz"):
         return from_reference_arrays(model_path)
     if model_path.endswith(".pt"):
         return torch.load(model_path, map_location="cpu", weights_only=True)
+    if checkpoint_file.is_checkpoint(model_path):
+        return checkpoint_file.load(model_path)["model"]
     raise ValueError(f"model_path must be a reference-named .npz (cli.export "
-                     f"--format reference_npz) or a .pt state_dict, got "
-                     f"{model_path!r}")
+                     f"--format reference_npz), a .pt state_dict or a "
+                     f"training checkpoint of the port, got {model_path!r}")
 
 
 class InferenceSession:
@@ -77,7 +82,8 @@ class InferenceSession:
 
     Args:
       model: registry name ('model').
-      model_path: reference-named ``.npz`` or ``.pt`` state_dict.
+      model_path: reference-named ``.npz``, ``.pt`` state_dict or a
+        training checkpoint of the port.
       num_point: points per shape the model was trained with.
       batch_size: rows per launch; inputs are padded and split to it.
       bf16: bfloat16 parameters and matmul inputs (BN statistics f32).

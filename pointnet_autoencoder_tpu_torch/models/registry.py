@@ -1,19 +1,22 @@
 """Model registry: ``--model`` names -> ModelSpec.
 
 Counterpart of ``pointnet_autoencoder_tpu/models/registry.py``. Ported so
-far: ``model`` (fc decoder, no neck). ``model_cpu`` and the other families
-follow with later slices.
+far: ``model`` (fc decoder, no neck, Chamfer x100 loss). ``model_cpu``
+and the other families follow with later slices.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from pointnet_autoencoder_tpu_torch.models.autoencoder import ModelSpec
+from pointnet_autoencoder_tpu_torch.models.autoencoder import (
+    ModelSpec,
+    chamfer_x100_loss,
+)
 
 _REGISTRY: Dict[str, ModelSpec] = {
     spec.name: spec for spec in (
-        ModelSpec(name="model", decoder="fc"),
+        ModelSpec(name="model", decoder="fc", loss_fn=chamfer_x100_loss),
     )
 }
 

@@ -31,8 +31,9 @@ class FCDecoder(nn.Module):
         self.fc2 = FC(1024, 1024, bn=True, **kw)
         self.fc3 = FC(1024, num_point * 3, relu=False, **kw)
 
-    def forward(self, feat: Tensor, train: bool = False) -> Tuple[Tensor, dict]:
-        x = self.fc1(feat, train)
-        x = self.fc2(x, train)
-        x = self.fc3(x, train)
+    def forward(self, feat: Tensor, train: bool = False,
+                bn_momentum: float = 0.9) -> Tuple[Tensor, dict]:
+        x = self.fc1(feat, train, bn_momentum)
+        x = self.fc2(x, train, bn_momentum)
+        x = self.fc3(x)  # no BN, no ReLU
         return x.reshape(feat.shape[0], self.num_point, 3), {}

@@ -1,4 +1,4 @@
-"""Layer library, eval path: Dense, BatchNorm, PointMLP and FC.
+"""Layer library: Dense, BatchNorm, PointMLP and FC, train and eval.
 
 Counterpart of ``pointnet_autoencoder_tpu/nn/layers.py``. Parameter names
 follow the reference's flax tree, so weights carry across by name:
@@ -8,10 +8,8 @@ PyTorch habit; ``convert.py`` transposes the reference's (in, out) kernels.
 
 Init follows the reference: Glorot-uniform kernels from an explicit
 ``torch.Generator``, zero biases, BN gamma 1, beta 0, mean 0, var 1,
-eps 1e-3. ``torch.nn.BatchNorm1d`` is not used: its running-variance rule
-and momentum convention differ from the reference's.
-
-Only eval runs here; ``train=True`` raises until the training slice lands.
+eps 1e-3. ``torch.nn.BatchNorm1d`` is not used: it updates its running
+variance with the unbiased variance and takes momentum as 1 - m.
 """
 
 from __future__ import annotations
@@ -23,9 +21,6 @@ from torch import nn
 from torch.nn import functional as F
 
 Tensor = torch.Tensor
-
-TRAIN_NOT_PORTED = ("training mode is not ported yet (BN batch statistics "
-                   "and the backward kernels arrive with the training slice)")
 
 
 class Dense(nn.Module):
@@ -49,11 +44,16 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch normalization on the moving statistics.
+    """Batch normalization with the momentum passed in at each call (the
+    bn_decay schedule), as the reference's nn/layers.py:64-87.
 
-    As the reference (layers.py:83-87): the per-channel affine is folded in
-    f32, ``inv = rsqrt(var + eps) * gamma`` and ``shift = beta - mean *
-    inv``, then applied in the activation's dtype."""
+    Training: the batch mean and biased variance E[x^2] - E[x]^2 in f32
+    over every axis but the last (the variance clamped at 0) normalize the
+    input, and the moving statistics move in place, under no_grad, as
+    ``moving = m * moving + (1 - m) * batch``. Eval: the moving statistics
+    normalize. Either way the per-channel affine is folded in f32,
+    ``inv = rsqrt(var + eps) * gamma`` and ``shift = beta - mean * inv``,
+    then applied in the activation's dtype."""
 
     def __init__(self, features: int, epsilon: float = 1e-3,
                  device: Optional[torch.device] = None):
@@ -64,12 +64,26 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
-    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False,
+                momentum: float = 0.9) -> Tensor:
         if train:
-            raise NotImplementedError(TRAIN_NOT_PORTED)
-        inv = torch.rsqrt(self.var.float() + self.epsilon) * self.gamma.float()
-        shift = self.beta.float() - self.mean.float() * inv
+            axes = tuple(range(x.dim() - 1))
+            xf = x.float()
+            mean = xf.mean(dim=axes)
+            var = torch.clamp_min(xf.square().mean(dim=axes) - mean.square(),
+                                  0.0)
+            self.update(mean, var, momentum)
+        else:
+            mean, var = self.mean.float(), self.var.float()
+        inv = torch.rsqrt(var + self.epsilon) * self.gamma.float()
+        shift = self.beta.float() - mean * inv
         return x * inv.to(x.dtype) + shift.to(x.dtype)
+
+    @torch.no_grad()
+    def update(self, mean: Tensor, var: Tensor, momentum: float) -> None:
+        """moving = m * moving + (1 - m) * batch, in place."""
+        self.mean.mul_(momentum).add_((1.0 - momentum) * mean.float())
+        self.var.mul_(momentum).add_((1.0 - momentum) * var.float())
 
 
 class PointMLP(nn.Module):
@@ -85,12 +99,11 @@ class PointMLP(nn.Module):
         self.bn = BatchNorm(features, device=device) if bn else None
         self.relu = relu
 
-    def forward(self, x: Tensor, train: bool = False) -> Tensor:
-        if train:
-            raise NotImplementedError(TRAIN_NOT_PORTED)
+    def forward(self, x: Tensor, train: bool = False,
+                bn_momentum: float = 0.9) -> Tensor:
         x = self.dense(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x, train, bn_momentum)
         return F.relu(x) if self.relu else x
 
 

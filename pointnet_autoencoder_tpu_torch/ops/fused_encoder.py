@@ -16,7 +16,8 @@ conv5 on chip and only the per-channel extrema reach device memory.
   applied here to the running max or min of its raw output, by the sign of
   the scale, as the reference does (fused_encoder.py:173-176).
 
-Forward only: the training forward needs batch statistics.
+Eval only: the training forward needs batch statistics, so it runs layer
+by layer with the fused conv5 head (``ops/fused_head.py``).
 """
 
 from __future__ import annotations

@@ -115,10 +115,14 @@ def test_fscore_matches_oracle_and_jax(threshold):
 
 
 def test_rejects_grad_and_bad_shapes():
+    """Inputs that require grad are no longer refused (the gradient is
+    ported; tests/test_torch_chamfer_grad.py holds its values); bad shapes
+    still are."""
     x1, x2 = _clouds(1, 4, 5)
     a = torch.from_numpy(x1).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        chamfer.nn_distance(a, torch.from_numpy(x2))
+    d1, _, d2, _ = chamfer.nn_distance(a, torch.from_numpy(x2))
+    (d1.sum() + d2.sum()).backward()
+    assert a.grad.shape == a.shape and torch.isfinite(a.grad).all()
     with pytest.raises(ValueError, match="expected"):
         chamfer.nn_distance(torch.zeros(1, 4, 2), torch.zeros(1, 5, 3))
     with pytest.raises(ValueError, match="empty"):

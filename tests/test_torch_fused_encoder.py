@@ -146,9 +146,12 @@ def test_plain_extrema_and_fold():
 
 
 def test_train_mode_and_cuda_paths_raise_here(monkeypatch, tmp_path):
+    """Train mode now runs (on the CPU through the plain versions; its
+    values are held to JAX in test_torch_train.py); the CUDA paths still
+    raise here."""
     enc = PointNetEncoder()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        enc(torch.zeros(1, 8, 3), train=True)
+    out = enc(torch.randn(1, 8, 3), train=True, bn_momentum=0.5)
+    assert out.shape == (1, 1024) and torch.isfinite(out).all()
     chain = enc.fold()
     with pytest.raises(ValueError, match="CUDA"):
         fe.encoder_extrema_cuda(torch.zeros(1, 8, 3), chain)

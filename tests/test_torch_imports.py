@@ -29,10 +29,15 @@ def _modules():
 
 def test_every_module_is_listed():
     mods = _modules()
-    for name in ("ops.chamfer", "ops.fused_encoder", "nn.layers",
-                 "nn.encoder", "nn.decoders", "models.autoencoder",
-                 "models.registry", "convert", "inference", "serve",
-                 "cli.serve", "csrc.build", "device"):
+    for name in ("ops.chamfer", "ops.fused_encoder", "ops.fused_head",
+                 "nn.layers", "nn.encoder", "nn.decoders",
+                 "models.autoencoder", "models.registry", "convert",
+                 "checkpoint_file",
+                 "inference", "serve", "cli.serve", "cli.train",
+                 "csrc.build", "device", "config", "data.shapenet_part",
+                 "data.synthetic", "data.pipeline", "train.schedules",
+                 "train.state", "train.checkpoint", "train.logging",
+                 "train.loop"):
         assert f"pointnet_autoencoder_tpu_torch.{name}" in mods
 
 
