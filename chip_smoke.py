@@ -29,14 +29,24 @@ line each; any failure exits non-zero before the final line:
             kernel of the training path (its eval epoch included) must have
             run. Then one f32 train step on the card against the same step
             on the CPU from the same weights and batch, with the card's
-            argmin/argmax choices: loss, every gradient, BN statistics.
-7. timings: CUDA-event medians of each kernel, its plain version and the
+            argmin/argmax choices and ReLU masks: loss, every gradient, BN
+            statistics; on two batches.
+7. train_emd: the EMD training path (``--model model_emd``, otherwise as
+            phase 6) on the same fixture for 2 epochs: finite losses, a
+            falling EMD loss, a best checkpoint and a ``model_emd`` session
+            on it. Launch counters are zeroed before it and read after it:
+            K6, K3, K4, K1 and K5 must have run. Then one f32 step on the
+            card against the CPU's at B=8 (the CPU's dense EMD), the CPU
+            taking the card's choices and EMD outputs; K6 is held to its
+            plain version on the step's own inputs, and the CPU's own EMD
+            to K6, at K6's tolerances.
+8. timings: CUDA-event medians of each kernel, its plain version and the
             library yardstick; the host time of one full reconstruct and of
-            one train step, and one torch.profiler trace of each (device
-            busy time, idle share, device time by kernel).
+            one train step of each model, and one torch.profiler trace of
+            each (device busy time, idle share, device time by kernel).
 
-The last two lines are the kernels JSON line (before it, the nvidia-smi
-line), and then the device JSON line.
+The last three lines are the kernels JSON line, the nvidia-smi line and
+the device JSON line.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -81,12 +92,36 @@ HEAD_BWD_TOL = {"f32": (1e-5, 1e-6), "bf16": (1e-2, 1e-6)}
 # Chamfer gradient (K2): f32 atomic adds in a varying order.
 CHAMFER_GRAD_TOL = (1e-5, 1e-6)
 # One f32 train step, card against CPU with the same argmin/argmax
-# choices: each leaf's relative gradient error norm. The two differ in
-# every product's and reduction's summation order (cuBLAS against the
-# CPU's BLAS, the kernels' atomics); the largest reading on an H100 was
-# 4.3e-4 (fc1's BN gamma).
+# choices and ReLU masks: each leaf's relative gradient error norm. The
+# two differ in every product's and reduction's summation order (cuBLAS
+# against the CPU's BLAS, the kernels' atomics); the largest reading on an
+# H100 was 4.3e-4 (fc1's BN gamma).
 GRAD_REL_TOL = 1e-3
 TRAIN_EPOCHS = 2
+# EMD (K6) against its plain version, same inputs, same card: the JAX
+# package's hardware tolerances (ops/hwcheck.py:95-102), cost within 2e-3
+# of the largest cost, gradients within 5e-3 -- here by each batch
+# element's relative error norm, not by the largest entry: the f32 function
+# is ill-conditioned at a few points, where any two f32 evaluations differ
+# by up to a few percent of the largest gradient. The kernels phase prints
+# how far the kernel and the plain version each sit from the plain version
+# evaluated in float64, by both measures.
+EMD_COST_TOL = 2e-3
+EMD_GRAD_TOL = 5e-3
+EMD_LEVELS = 10
+# K6's bound counts the function's work once: per pair d2 (3 sub, 3 mul,
+# 2 add), sqrt, max and rsqrt; per pair and annealed level one exp2 on the
+# SFUs and 19 f32 operations (level * d2; the two products of pass A and
+# their sums, 4; w = (K * ratioL) * ratioR reusing pass A's product, 1;
+# its row sum; wr; the cost term, 2; three gradient terms of 3 each). The
+# last level has K = 1: no exp2, no level * d2 and no K products, 16.
+EMD_PAIR_OPS = 11
+EMD_LEVEL_OPS = 19
+EMD_LAST_LEVEL_OPS = 16
+# SFU rate of one H100 SXM: 16 results per SM per clock, 132 SMs at the
+# 1980 MHz boost clock.
+PEAK_SFU_PER_S = 16 * 132 * 1.98e9
+EMD_STEP_BATCH = 8
 
 
 class PhaseError(RuntimeError):
@@ -196,6 +231,21 @@ def head_inputs(torch, rng, b, n, dtype):
     t = [torch.from_numpy(np.asarray(v, np.float32)).to(dev)
          for v in (x, w, scale, shift)]
     return t[0].to(dtype), t[1].to(dtype), t[2], t[3]
+
+
+def emd_gaps(got, want):
+    """(cost error over the largest cost (at least 1), the largest of each
+    batch element's relative gradient error norm, the largest gradient
+    entry's error over the largest gradient) of two (cost, grad1, grad2)."""
+    cost = max_err(got[0], want[0]) / max(float(np.abs(want[0]).max()), 1.0)
+    diff = [np.asarray(g, np.float64) - np.asarray(w, np.float64)
+            for g, w in zip(got[1:], want[1:])]
+    num = np.sqrt(sum((d * d).sum(axis=(1, 2)) for d in diff))
+    den = np.sqrt(sum((np.asarray(w, np.float64) ** 2).sum(axis=(1, 2))
+                      for w in want[1:]))
+    scale = max(float(np.abs(w).max()) for w in want[1:])
+    entry = max(float(np.abs(d).max()) for d in diff) / scale
+    return cost, float(np.max(num / den)), entry
 
 
 def phase_kernels(torch, fe, ch, fh, rng) -> dict:
@@ -337,6 +387,82 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
     return errs
 
 
+def phase_emd_kernel(torch, em, rng) -> float:
+    """K6 against its plain version at the EMD training path's shape and
+    at N != M, ragged and coincident-point shapes; returns the main shape's
+    max abs error."""
+    dev = torch.device("cuda")
+
+    def emd_case(x1, x2, label, f64=False):
+        a = torch.from_numpy(x1).to(dev)
+        b = torch.from_numpy(x2).to(dev)
+        k = [t.cpu().numpy() for t in em.emd_forward_cuda(a, b)]
+        again = [t.cpu().numpy() for t in em.emd_forward_cuda(a, b)]
+        p = [t.cpu().numpy() for t in em.emd_forward_plain(a, b)]
+        torch.cuda.synchronize()
+        require(all(np.all(np.isfinite(t)) for t in k),
+                f"emd {label}: non-finite output")
+        require(all(np.array_equal(t, u) for t, u in zip(k, again)),
+                f"emd {label}: two calls differ")
+        cost_err, grad_err, entry = emd_gaps(k, p)
+        require(cost_err <= EMD_COST_TOL and grad_err <= EMD_GRAD_TOL,
+                f"emd {label}: cost error {cost_err:.3e} (tolerance "
+                f"{EMD_COST_TOL}), gradient error norm {grad_err:.3e} "
+                f"(tolerance {EMD_GRAD_TOL})")
+        err = max(max_err(kk, pp) for kk, pp in zip(k, p))
+        say("kernels", f"emd {label}: cost error {cost_err:.3e} of the "
+            f"largest cost, gradient error norm {grad_err:.3e} (largest "
+            f"entry {entry:.3e} of the largest gradient), max_abs_err "
+            f"{err:.3e}; two calls bit-equal ok")
+        if f64:
+            # Both f32 evaluations against the plain version in float64.
+            q = [t.cpu().numpy() for t in em.emd_forward_plain(
+                a.double(), b.double())]
+            kq, pq = emd_gaps(k, q), emd_gaps(p, q)
+            say("kernels", f"emd {label} against the plain version in "
+                f"float64 (cost, gradient error norm, largest entry): "
+                f"kernel {kq[0]:.3e}, {kq[1]:.3e}, {kq[2]:.3e}; plain f32 "
+                f"{pq[0]:.3e}, {pq[1]:.3e}, {pq[2]:.3e}")
+        return err
+
+    err = emd_case(
+        clouds(rng, BATCH, NUM_POINT), clouds(rng, BATCH, NUM_POINT),
+        f"B={BATCH} N=M={NUM_POINT}", f64=True)
+    emd_case(clouds(rng, BATCH, NUM_POINT), clouds(rng, BATCH, 1000),
+             f"B={BATCH} N={NUM_POINT} M=1000")
+    emd_case(clouds(rng, BATCH, 1000), clouds(rng, BATCH, NUM_POINT),
+             f"B={BATCH} N=1000 M={NUM_POINT}")
+    emd_case(clouds(rng, BATCH, NUM_POINT - 1), clouds(rng, BATCH, NUM_POINT),
+             f"B={BATCH} N={NUM_POINT - 1} M={NUM_POINT}")
+    emd_case(clouds(rng, 4, 37), clouds(rng, 4, 50), "B=4 N=37 M=50")
+    # Coincident points (d2 = 0): half of xyz2 copies points of xyz1.
+    x1 = clouds(rng, 4, 500)
+    x2 = np.concatenate([x1[:, rng.permutation(500)[:250]],
+                         clouds(rng, 4, 250)], axis=1)
+    emd_case(x1, x2, "coincident B=4 N=M=500")
+
+    # Large clouds: the kernel allocates its outputs and O(B (N + M))
+    # scratch, whatever N * M is (the dense plain version holds about six
+    # 1 GiB buffers here).
+    b, n = 1, 16384
+    x1, x2 = clouds(rng, b, n), clouds(rng, b, n)
+    a, c = torch.from_numpy(x1).to(dev), torch.from_numpy(x2).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    em.emd_forward_cuda(a, c)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    want = 4 * b * (1 + 6 * n + 5 * n)  # cost, grads, scratch
+    require(peak <= want + 65536,
+            f"emd B={b} N=M={n}: {peak} bytes allocated, outputs and "
+            f"scratch are {want}")
+    say("kernels", f"emd B={b} N=M={n}: {peak} bytes allocated during the "
+        f"call (outputs and scratch {want})")
+    emd_case(x1, x2, f"B={b} N=M={n}")
+    return err
+
+
 def phase_session(torch, InferenceSession, weights, rng):
     gpu = InferenceSession("model", weights, NUM_POINT, batch_size=BATCH,
                            device="cuda")
@@ -441,46 +567,62 @@ def phase_server(weights, rng):
         f"{stats['mean_batch_ms']} ms ok")
 
 
-def kernel_counters(ch, fe, fh):
+def kernel_counters(ch, fe, fh, em):
     """Name -> the wrapper whose ``launches`` counts that kernel."""
     return {"fused_encoder_eval": fe.encoder_extrema_cuda,
             "nn_distance": ch.nn_distance_cuda,
             "fused_head_fwd": fh.head_max_cuda,
             "fused_head_bwd": fh.head_bwd_cuda,
-            "nn_distance_grad": ch.nn_distance_grad_cuda}
+            "nn_distance_grad": ch.nn_distance_grad_cuda,
+            "emd_forward": em.emd_forward_cuda}
 
 
-def phase_train(torch, counters, tmp, rng):
-    """Train through ``cli.train``'s own build; returns (trainer, logger,
-    launches, summary). The trainer stays open for the timings."""
-    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+# The kernels each training path must launch (its eval epoch included):
+# --model model trains on Chamfer (K1, K2) and --model model_emd on EMD
+# (K6), reporting Chamfer without its gradient.
+MODEL_PATH_KERNELS = ("fused_encoder_eval", "nn_distance", "fused_head_fwd",
+                      "fused_head_bwd", "nn_distance_grad")
+EMD_PATH_KERNELS = ("emd_forward", "fused_head_fwd", "fused_head_bwd",
+                    "nn_distance", "fused_encoder_eval")
+
+
+def write_chair_fixture(tmp):
+    """A fixture of 384 Chair shapes, 320 trainval (10 batches of 32) and
+    64 test (2 batches); returns (its path, seconds to write it)."""
     from pointnet_autoencoder_tpu_torch.data import synthetic
-    from pointnet_autoencoder_tpu_torch.inference import InferenceSession
-    from pointnet_autoencoder_tpu_torch.train import checkpoint
 
     data = os.path.join(tmp, "chair")
     t0 = time.perf_counter()
-    # 384 shapes: 320 trainval (10 batches of 32), 64 test (2 batches).
     synthetic.write_fixture(data, shapes_per_category=384,
                             points_per_shape=NUM_POINT, seed=SEED,
                             categories=["Chair"])
-    fixture_s = time.perf_counter() - t0
-    log_dir = os.path.join(tmp, "train_log")
-    argv = ["--model", "model", "--category", "Chair", "--num_point",
+    return data, time.perf_counter() - t0
+
+
+def train_argv(model, data, log_dir):
+    return ["--model", model, "--category", "Chair", "--num_point",
             str(NUM_POINT), "--batch_size", str(BATCH), "--no_rotation",
             "--device", "cuda", "--data_path", data, "--log_dir", log_dir,
             "--log_every", "5"]
-    parser = cli_train.build_parser()
+
+
+def train_run(torch, counters, argv, required):
+    """``TRAIN_EPOCHS`` epochs through ``cli.train``'s own build, with the
+    launch counters zeroed before and read after. Requires every kernel in
+    ``required`` to have launched, every step taken, finite losses and a
+    best checkpoint. Returns a dict: trainer, logger (both left open),
+    launches, train records, best loss, steps, seconds, best checkpoint."""
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
 
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    trainer, logger = cli_train.build_trainer(parser.parse_args(
-        argv + ["--max_epoch", str(TRAIN_EPOCHS)]))
+    trainer, logger = cli_train.build_trainer(cli_train.build_parser(
+    ).parse_args(argv + ["--max_epoch", str(TRAIN_EPOCHS)]))
     best = trainer.train()
     torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    seconds = time.perf_counter() - t0
+    launches = {name: counters[name].launches for name in required}
     require(all(n > 0 for n in launches.values()),
             f"a kernel of the training path never launched: {launches}")
     steps = trainer.state.step
@@ -488,21 +630,38 @@ def phase_train(torch, counters, tmp, rng):
             and steps == TRAIN_EPOCHS * len(trainer.train_pipe),
             f"{steps} steps in {TRAIN_EPOCHS} epochs of "
             f"{len(trainer.train_pipe)} batches")
+    log_dir = trainer.config.log_dir
     with open(os.path.join(log_dir, "scalars.jsonl")) as f:
         recs = [json.loads(line) for line in f]
-    pcloss = [r["pcloss"] for r in recs if r["split"] == "train"]
-    require(len(pcloss) == steps // 5 and all(
+    train = [r for r in recs if r["split"] == "train"]
+    require(len(train) == steps // 5 and all(
         np.isfinite(r["loss"]) for r in recs), f"train records {recs}")
-    require(pcloss[-1] < pcloss[0], f"pcloss did not fall: {pcloss}")
     bests = sorted(n for n in os.listdir(log_dir)
                    if n.startswith("best_model_epoch_"))
     require(bool(bests), f"no best checkpoint in {os.listdir(log_dir)}")
-    best_path = os.path.join(log_dir, bests[-1])
+    return dict(trainer=trainer, logger=logger, launches=launches,
+                train=train, best=best, steps=steps, seconds=seconds,
+                best_path=os.path.join(log_dir, bests[-1]))
+
+
+def phase_train(torch, counters, data, fixture_s, tmp, rng):
+    """Train ``--model model`` through ``cli.train``'s own build; returns
+    (trainer, logger, launches). The trainer stays open for the timings."""
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+    from pointnet_autoencoder_tpu_torch.train import checkpoint
+
+    log_dir = os.path.join(tmp, "train_log")
+    argv = train_argv("model", data, log_dir)
+    run = train_run(torch, counters, argv, MODEL_PATH_KERNELS)
+    steps, launches = run["steps"], run["launches"]
+    pcloss = [r["pcloss"] for r in run["train"]]
+    require(pcloss[-1] < pcloss[0], f"pcloss did not fall: {pcloss}")
     latest = checkpoint.CheckpointManager(log_dir).latest()
     stored = checkpoint.load(latest)
 
-    resumed, rlogger = cli_train.build_trainer(parser.parse_args(
-        argv + ["--max_epoch", str(TRAIN_EPOCHS + 1), "--resume"]))
+    resumed, rlogger = cli_train.build_trainer(cli_train.build_parser(
+    ).parse_args(argv + ["--max_epoch", str(TRAIN_EPOCHS + 1), "--resume"]))
     try:
         require(resumed.start_epoch == stored["epoch"]
                 and resumed.state.step == stored["step"],
@@ -515,35 +674,84 @@ def phase_train(torch, counters, tmp, rng):
     finally:
         resumed.close()
         rlogger.close()
-    session = InferenceSession("model", best_path, NUM_POINT,
+    session = InferenceSession("model", run["best_path"], NUM_POINT,
                                batch_size=BATCH, bf16=True, device="cuda")
     x = clouds(rng, BATCH, NUM_POINT)
     rec = session.reconstruct(x)
     require(rec.shape == x.shape and np.all(np.isfinite(rec)),
             "session on the best checkpoint")
     say("train", f"fixture of 384 Chair shapes written in {fixture_s:.1f} s; "
-        f"{TRAIN_EPOCHS} epochs, {steps} steps in {train_s:.1f} s (data "
-        f"loading included); train pcloss by 5-step window "
-        f"{[round(v, 6) for v in pcloss]}; best eval loss {best:.6f} in "
-        f"{bests[-1]}; resumed from {os.path.basename(latest)} at epoch "
-        f"{resumed.start_epoch}, step {resumed.state.step}; a session on "
-        f"the best reconstructs (chamfer to input "
-        f"{float(session.chamfer(rec, x).mean()):.4f})")
+        f"{TRAIN_EPOCHS} epochs, {steps} steps in {run['seconds']:.1f} s "
+        f"(data loading included); train pcloss by 5-step window "
+        f"{[round(v, 6) for v in pcloss]}; best eval loss {run['best']:.6f} "
+        f"in {os.path.basename(run['best_path'])}; resumed from "
+        f"{os.path.basename(latest)} at epoch {resumed.start_epoch}, step "
+        f"{resumed.state.step}; a session on the best reconstructs (chamfer "
+        f"to input {float(session.chamfer(rec, x).mean()):.4f})")
     say("train", f"main-path launches {launches}")
+    # Besides loss and pcloss (the forward), each leaf's gradient (the
+    # backward through K2, K3's closed form and K4) and the new BN moving
+    # statistics; on two batches, the second one where the CPU's own ReLU
+    # masks fall otherwise at near-zero inputs.
+    step_card_vs_cpu(torch, argv, tmp, x, "train")
+    step_card_vs_cpu(torch, argv, tmp, clouds(
+        np.random.RandomState(SEED + 3), BATCH, NUM_POINT), "train")
+    return run["trainer"], run["logger"], launches
 
-    # One f32 step on the card and the same step on the CPU: same seed, so
-    # the same initial weights, and the same batch. Besides loss and
-    # pcloss (the forward), each leaf's gradient (the backward through K2,
-    # K3's closed form and K4) and the new BN moving statistics. The CPU
-    # step takes the card's discrete choices (see shared_choices), so the
-    # two differ in rounding only.
+
+def phase_train_emd(torch, counters, data, tmp, rng):
+    """Train ``--model model_emd`` through ``cli.train``'s own build on the
+    same fixture; returns (trainer, logger, launches). The trainer stays
+    open for the timings."""
+    from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+
+    argv = train_argv("model_emd", data, os.path.join(tmp, "emd_log"))
+    run = train_run(torch, counters, argv, EMD_PATH_KERNELS)
+    loss = [r["loss"] for r in run["train"]]
+    require(loss[-1] < loss[0], f"the EMD loss did not fall: {loss}")
+    session = InferenceSession("model_emd", run["best_path"], NUM_POINT,
+                               batch_size=BATCH, bf16=True, device="cuda")
+    x = clouds(rng, BATCH, NUM_POINT)
+    rec = session.reconstruct(x)
+    require(rec.shape == x.shape and np.all(np.isfinite(rec)),
+            "model_emd session on the best checkpoint")
+    say("train_emd", f"{TRAIN_EPOCHS} epochs, {run['steps']} steps in "
+        f"{run['seconds']:.1f} s (data loading included); train EMD loss "
+        f"by 5-step window {[round(v, 4) for v in loss]}, pcloss "
+        f"{[round(r['pcloss'], 6) for r in run['train']]}; best eval loss "
+        f"{run['best']:.4f} in {os.path.basename(run['best_path'])}; a "
+        f"model_emd session on the best reconstructs (chamfer to input "
+        f"{float(session.chamfer(rec, x).mean()):.4f})")
+    say("train_emd", f"main-path launches {run['launches']}")
+    # The CPU's dense EMD keeps about six (B, N, M) buffers: B=8 keeps its
+    # step to seconds. Besides loss and pcloss, each leaf's gradient (the
+    # backward from K6's gradients through K3's closed form and K4) and
+    # the new BN moving statistics.
+    step_card_vs_cpu(torch, argv, tmp, x[:EMD_STEP_BATCH], "train_emd")
+    return run["trainer"], run["logger"], run["launches"]
+
+
+def step_card_vs_cpu(torch, argv, tmp, x, phase):
+    """One f32 step on the card and the same step on the CPU: same seed, so
+    the same initial weights, and the same batch ``x``. Holds loss, pcloss,
+    each leaf's gradient and the new BN moving statistics. The CPU step
+    takes the card's discrete choices (see shared_choices), so the two
+    differ in rounding only. A third step, on the CPU with its own ReLU
+    masks, is reported and not held: it shows what the shared masks
+    remove."""
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+
+    parser = cli_train.build_parser()
     steps_out, choices = [], {}
-    for device in ("cuda", "cpu"):
+    for run, device, masks in ((0, "cuda", True), (1, "cpu", True),
+                               (2, "cpu", False)):
         tr, lg = cli_train.build_trainer(parser.parse_args(
             argv + ["--no-bf16", "--device", device, "--log_dir",
-                    os.path.join(tmp, f"step_{device}")]))
+                    os.path.join(tmp, f"{phase}_step_{run}")]))
+        store = choices if run < 2 else dict(
+            choices, differed=0, made=0, relu_differed=0, relu_made=0)
         try:
-            with shared_choices(choices, replay=device == "cpu"):
+            with shared_choices(store, replay=run > 0, masks=masks):
                 m = tr.train_step(torch.from_numpy(x).to(tr.device))
             steps_out.append((
                 {k: float(v) for k, v in m.items()},
@@ -553,54 +761,102 @@ def phase_train(torch, counters, tmp, rng):
         finally:
             tr.close()
             lg.close()
-    (gpu, ggrads, gbufs), (cpu, cgrads, cbufs) = steps_out
+    (gpu, ggrads, gbufs), (cpu, cgrads, cbufs), (_, ograds, _) = steps_out
     for key in ("loss", "pcloss"):
         require(close(np.float64(gpu[key]), np.float64(cpu[key]), 1e-4, 0.0),
                 f"train step {key}: card {gpu[key]} vs CPU {cpu[key]}")
     # A choice differs only at a near-tie; the kernels' own checks above
     # hold the choices at clear margins.
-    require(choices["differed"] <= 1e-3 * choices["made"],
-            f"train step: the CPU chose otherwise at {choices['differed']} "
-            f"of {choices['made']} argmin/argmax choices")
+    for what, key in (("argmin/argmax", "differed"), ("ReLU", "relu_differed")):
+        made = choices[key.replace("differed", "made")]
+        require(choices[key] <= 1e-3 * made,
+                f"train step: the CPU chose otherwise at {choices[key]} of "
+                f"{made} {what} choices")
+    emd_note = ""
+    if "emd_gaps" in choices:
+        # K6 against its plain version on the card, on the step's own
+        # (label, prediction): the kernel's error on these inputs. The
+        # CPU's own EMD, on its own rounding of the prediction, adds what
+        # that rounding moves.
+        for what, (cost_err, grad_err, entry) in (
+                ("K6 against the plain version on the card's inputs",
+                 choices["emd_kernel_gaps"]),
+                ("the CPU's own EMD against K6 (replaced by K6's)",
+                 choices["emd_gaps"])):
+            require(cost_err <= EMD_COST_TOL and grad_err <= EMD_GRAD_TOL,
+                    f"train step EMD, {what}: cost error {cost_err:.3e} "
+                    f"(tolerance {EMD_COST_TOL}), gradient error norm "
+                    f"{grad_err:.3e} (tolerance {EMD_GRAD_TOL})")
+            emd_note += (f"; {what}: cost error {cost_err:.3e}, gradient "
+                         f"error norm {grad_err:.3e}, largest entry "
+                         f"{entry:.3e}")
+        emd_note += f" (tolerances {EMD_COST_TOL}, {EMD_GRAD_TOL})"
     gaps, noise = grad_gaps(ggrads, cgrads)
     worst, worst_name = gaps[0]
     require(worst < GRAD_REL_TOL,
             f"train step gradient of {worst_name}: relative error norm "
             f"{worst:.3e} over {GRAD_REL_TOL}")
+    own, _ = grad_gaps(ggrads, ograds, hold=False)
+    # A BN beta's gradient is a batch sum that the next training BN makes
+    # zero in exact arithmetic on a channel whose ReLU passes every row.
+    rows = [m for m in choices["relu"] if m.dim() == 2]
+    all_on = sum(int(m.all(dim=0).sum()) for m in rows)
     buf_err = max(max_err(gbufs[n], cbufs[n]) for n in cbufs)
     require(all(close(gbufs[n], cbufs[n], 1e-4, 1e-5) for n in cbufs),
             f"train step BN moving statistics: max abs err {buf_err:.3e}")
-    say("train", f"one f32 step, card vs CPU: loss {gpu['loss']:.6f} vs "
-        f"{cpu['loss']:.6f} (rtol 1e-4); the CPU's own argmin/argmax "
-        f"differed at {choices['differed']} of {choices['made']} choices "
-        f"(replaced by the card's); relative gradient error norm, largest "
-        f"three: " + ", ".join(f"{n} {r:.3e}" for r, n in gaps[:3])
-        + f" (tolerance {GRAD_REL_TOL}); {len(noise)} leaves zero in exact "
-        f"arithmetic read under 1e-5 of the gradient's norm on both sides; "
-        f"BN moving statistics max abs err {buf_err:.3e} (rtol 1e-4, atol "
-        f"1e-5) ok")
-    summary = {"pcloss": pcloss, "best_eval_loss": best, "steps": steps}
-    return trainer, logger, launches, summary
+    say(phase, f"one f32 step at B={len(x)}, card vs CPU: loss "
+        f"{gpu['loss']:.6f} vs {cpu['loss']:.6f} (rtol 1e-4); the CPU's own "
+        f"argmin/argmax differed at {choices['differed']} of "
+        f"{choices['made']} choices and its own ReLU masks at "
+        f"{choices['relu_differed']} of {choices['relu_made']} (replaced by "
+        f"the card's); relative gradient error norm, largest three: "
+        + ", ".join(f"{n} {r:.3e}" for r, n in gaps[:3])
+        + f" (tolerance {GRAD_REL_TOL}); with the CPU's own ReLU masks "
+        f"(not held): " + ", ".join(f"{n} {r:.3e}" for r, n in own[:3])
+        + f"; decoder channels active on every row: {all_on} of "
+        f"{sum(m.shape[1] for m in rows)}; {len(noise)} leaves zero in "
+        f"exact arithmetic read under 1e-5 "
+        f"of the gradient's norm on both sides; BN moving statistics max "
+        f"abs err {buf_err:.3e} (rtol 1e-4, atol 1e-5){emd_note} ok")
 
 
 @contextlib.contextmanager
-def shared_choices(store: dict, replay: bool):
+def shared_choices(store: dict, replay: bool, masks: bool = True):
     """Within the block, the discrete choices of a train step's forward
-    (the Chamfer argmins, the head's argmax) are recorded from the card's
-    kernels into ``store``; with ``replay``, the CPU's plain versions
-    return the recorded choices in place of their own, counting in
-    ``store["differed"]`` where their own differed. A near-tie can fall
-    either way under different rounding, and one changed choice moves a
-    whole row of a gradient: sharing the choices leaves rounding as the
-    only difference between the two steps' gradients."""
+    (the Chamfer argmins, the head's argmax, every ReLU mask) are recorded
+    from the card's run into ``store``; with ``replay``, the CPU's run
+    takes the recorded choices in place of its own, counting in
+    ``store["differed"]`` (``store["relu_differed"]`` for the masks) where
+    its own differed. A near-tie can fall either way under different
+    rounding, and one changed choice moves a whole row of a gradient: a
+    ReLU input within a few 1e-6 of zero that falls the other way moves
+    the batch sums of every BN beta and gamma behind it by up to a few
+    percent. Sharing the choices leaves rounding as the only difference
+    between the two steps' gradients. ``masks=False`` replays the argmins
+    and argmaxes but lets the CPU keep its own ReLU masks (still counted).
+
+    The EMD's outputs (cost, grad1, grad2) are shared the same way:
+    ``store["emd_kernel_gaps"]`` gets K6 against its plain version on the
+    card's own inputs, and ``store["emd_gaps"]`` the CPU's own EMD against
+    K6's (see emd_gaps): at level -4^7 the matching turns on differences
+    of d2 in the last bits, so the two forwards' rounding of the
+    prediction moves the plan itself."""
+    from pointnet_autoencoder_tpu_torch.nn import layers
     from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
     from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
 
     nn_name = "nn_distance_plain" if replay else "nn_distance_cuda"
     head_name = "head_max_plain" if replay else "head_max_cuda"
+    emd_name = "emd_forward_plain" if replay else "emd_forward_cuda"
     nn_fn, head_fn = getattr(ch, nn_name), getattr(fh, head_name)
-    store.setdefault("differed", 0)
-    store.setdefault("made", 0)
+    emd_fn, emd_plain = getattr(em, emd_name), em.emd_forward_plain
+    functional = layers.F
+    for key in ("differed", "made", "relu_differed", "relu_made"):
+        store.setdefault(key, 0)
+    if not replay:
+        store["relu"] = []
+    relu_calls = []
 
     def take(key, own):
         if not replay:
@@ -619,33 +875,65 @@ def shared_choices(store: dict, replay: bool):
         maxout, argmax = head_fn(x, w, scale, shift)
         return maxout, take("argmax", argmax)
 
+    def emd(x1, x2):
+        own = emd_fn(x1, x2)
+        if not replay:
+            store["emd"] = [t.cpu() for t in own]
+            plain = emd_plain(x1, x2)
+            store["emd_kernel_gaps"] = emd_gaps(
+                [t.cpu().numpy() for t in own],
+                [t.cpu().numpy() for t in plain])
+            return own
+        store["emd_gaps"] = emd_gaps([t.numpy() for t in own],
+                                     [t.numpy() for t in store["emd"]])
+        return tuple(t.to(own[0].device) for t in store["emd"])
+
+    def relu(x):
+        mask = x > 0
+        if not replay:
+            store["relu"].append(mask.cpu())
+            return functional.relu(x)
+        card = store["relu"][len(relu_calls)].to(x.device)
+        relu_calls.append(None)
+        store["relu_differed"] += int((mask != card).sum())
+        store["relu_made"] += mask.numel()
+        return x * card.to(x.dtype) if masks else functional.relu(x)
+
+    # The layers reach ReLU through their module's ``F``: a copy of
+    # torch.nn.functional whose relu is the stand-in.
+    stand_in_f = types.SimpleNamespace(**vars(functional))
+    stand_in_f.relu = relu
+    layers.F = stand_in_f
     # A kernel wrapper counts its launches on the function its module's
     # name holds: the stand-in carries the count meanwhile.
-    patched = ((ch, nn_name, nn_fn, nn), (fh, head_name, head_fn, head))
+    patched = ((ch, nn_name, nn_fn, nn), (fh, head_name, head_fn, head),
+               (em, emd_name, emd_fn, emd))
     for mod, name, fn, stand_in in patched:
         stand_in.launches = getattr(fn, "launches", 0)
         setattr(mod, name, stand_in)
     try:
         yield
     finally:
+        layers.F = functional
         for mod, name, fn, stand_in in patched:
             setattr(mod, name, fn)
             if hasattr(fn, "launches"):
                 fn.launches = stand_in.launches
 
 
-def grad_gaps(got: dict, want: dict):
+def grad_gaps(got: dict, want: dict, hold: bool = True):
     """Each leaf's ||got - want|| / ||want||, as a list of (value, leaf),
     largest first, and the leaves left out. The biases before a training
     BN (and conv5's beta, which fc1's BN cancels) have a gradient that is
-    zero in exact arithmetic: both sides must read under 1e-5 of the whole
-    gradient's norm, and they are not held by a relative error."""
+    zero in exact arithmetic: with ``hold``, both sides must read under
+    1e-5 of the whole gradient's norm, and they are not held by a relative
+    error."""
     total = np.sqrt(sum(float(np.sum(g * g)) for g in want.values()))
     gaps, noise = [], []
     for name, w in want.items():
         g = got[name]
         if np.linalg.norm(w) < 1e-5 * total:
-            require(np.linalg.norm(g) < 1e-5 * total,
+            require(not hold or np.linalg.norm(g) < 1e-5 * total,
                     f"train step gradient of {name}: norm "
                     f"{np.linalg.norm(g):.3e} where the CPU's is rounding "
                     f"noise ({np.linalg.norm(w):.3e})")
@@ -671,8 +959,8 @@ def cuda_ms(torch, fn, reps=20, warmup=3) -> float:
     return statistics.median(times)
 
 
-def phase_timings(torch, fe, ch, fh, session, trainer, rng, launches,
-                  errs) -> list:
+def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
+                  launches, errs) -> list:
     dev = torch.device("cuda")
     pts = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to(dev)
     chain = session.model.encoder.fold()
@@ -799,6 +1087,14 @@ def phase_timings(torch, fe, ch, fh, session, trainer, rng, launches,
     terms = torch.randn(2 * BATCH * NUM_POINT, 3, device=dev)
     out = torch.zeros(2 * BATCH * NUM_POINT, 3, device=dev)
     l_ms = cuda_ms(torch, lambda: out.index_add_(0, rows_idx, terms))
+    # The CUDA-event time of a call this short holds the launch latency:
+    # the device time of each call, from one trace each.
+    for what, fn in (("nn_distance_grad", lambda: ch.nn_distance_grad_cuda(
+            x1, x2, i1, i2, g1, g2)), ("index_add_", lambda: out.index_add_(
+                0, rows_idx, terms))):
+        say("timings", f"{what} alone traced: " + device_trace(
+            torch, lambda: (fn(), torch.cuda.synchronize()),
+            f"chip_smoke.{what}"))
     pts = 2 * BATCH * NUM_POINT
     rows.append(dict(
         name="nn_distance_grad", route="cuda",
@@ -807,6 +1103,36 @@ def phase_timings(torch, fe, ch, fh, session, trainer, rng, launches,
         launches=launches["nn_distance_grad"],
         max_abs_err=errs["nn_distance_grad"], ms=k_ms, plain_ms=p_ms,
         **bound(13.0 * pts, 32.0 * pts), library_ms=l_ms))
+
+    # K6 at the training path's shapes (xyz1 the label, xyz2 the
+    # prediction). Bound: operations, counted once for the function (see
+    # EMD_PAIR_OPS): the larger of the f32 operations over the f32 peak and
+    # the exp2, sqrt and rsqrt over the SFU rate; its bytes are both clouds
+    # read once and cost and gradients written once. No single PyTorch
+    # call computes the function.
+    x1 = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to(dev)
+    x2 = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to(dev)
+    pairs = float(BATCH * NUM_POINT * NUM_POINT)
+    flops = (EMD_PAIR_OPS + (EMD_LEVELS - 1) * EMD_LEVEL_OPS
+             + EMD_LAST_LEVEL_OPS) * pairs
+    k6 = bound(flops, BATCH * (4 + 2 * 2 * NUM_POINT * 3 * 4))
+    sfu = (EMD_LEVELS - 1 + 2) * pairs  # exp2 per annealed level, sqrt, rsqrt
+    sfu_ms = sfu / PEAK_SFU_PER_S * 1e3
+    if sfu_ms > k6["bound_ms"]:
+        k6 = {"bound_ms": sfu_ms, "bound_by": "operations"}
+    rows.append(dict(
+        name="emd_forward", route="cuda",
+        source="pointnet_autoencoder_tpu_torch/csrc/emd.cu",
+        replaces="pointnet_autoencoder_tpu/ops/emd_pallas.py:116",
+        launches=launches["emd_forward"], max_abs_err=errs["emd_forward"],
+        ms=cuda_ms(torch, lambda: em.emd_forward_cuda(x1, x2)),
+        plain_ms=cuda_ms(torch, lambda: em.emd_forward_plain(x1, x2),
+                         reps=5, warmup=1),
+        **k6, library_ms=None))
+    say("timings", f"emd_forward bound: {EMD_LEVELS * pairs:.4g} "
+        f"pair-levels, {flops:.4g} f32 operations "
+        f"({flops / PEAK_F32_FLOPS * 1e3:.4f} ms), {sfu:.4g} SFU results "
+        f"({sfu_ms:.4f} ms)")
 
     # One served batch: host time of reconstruct, then one torch.profiler
     # trace of the same call.
@@ -829,31 +1155,34 @@ def phase_timings(torch, fe, ch, fh, session, trainer, rng, launches,
         f"copies included): median {host_ms:.3f} ms")
     say("timings", f"reconstruct traced: {trace}")
 
-    # One train step of the trained bf16 trainer on a batch already on the
-    # card: host clock to the loss on the host, median of 10, then traced.
+    # One train step of each trained bf16 trainer on a batch already on
+    # the card: host clock to the loss on the host, median of 10, then
+    # traced.
     tb = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to(dev)
+    for model, tr in (("model", trainer), ("model_emd", emd_trainer)):
 
-    def step():
-        trainer.train_step(tb)["loss"].item()
+        def step():
+            tr.train_step(tb)["loss"].item()
 
-    step()
-    host = []
-    for _ in range(10):
-        t0 = time.perf_counter()
         step()
-        host.append(1e3 * (time.perf_counter() - t0))
-    say("timings", f"train step, bf16, B={BATCH} N={NUM_POINT} (host "
-        f"clock, to the loss on the host): median "
-        f"{statistics.median(host):.3f} ms, min {min(host):.3f}, max "
-        f"{max(host):.3f}")
-    say("timings", f"train step traced: "
-        f"{device_trace(torch, step, 'chip_smoke.train_step', top=10, own=True)}")
+        host = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            step()
+            host.append(1e3 * (time.perf_counter() - t0))
+        say("timings", f"{model} train step, bf16, B={BATCH} N={NUM_POINT} "
+            f"(host clock, to the loss on the host): median "
+            f"{statistics.median(host):.3f} ms, min {min(host):.3f}, max "
+            f"{max(host):.3f}")
+        trace = device_trace(torch, step, f"chip_smoke.{model}.train_step",
+                             top=10, own=True)
+        say("timings", f"{model} train step traced: {trace}")
     return rows
 
 
 # Substrings of the device-side names of the port's kernels and memsets.
 OWN_KERNELS = ("encoder_tile", "reduce_tiles", "nn_distance", "head_",
-               "f32_to_bf16", "Memset")
+               "f32_to_bf16", "emd_", "Memset")
 
 
 def device_trace(torch, fn, label, top=6, own=False) -> str:
@@ -935,6 +1264,7 @@ def main() -> int:
         from pointnet_autoencoder_tpu_torch.csrc import build
         from pointnet_autoencoder_tpu_torch.inference import InferenceSession
         from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+        from pointnet_autoencoder_tpu_torch.ops import emd as em
         from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
         from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
     except ImportError as e:
@@ -964,7 +1294,11 @@ def main() -> int:
         rng = np.random.RandomState(SEED)
         phase = "kernels"
         errs = phase_kernels(torch, fe, ch, fh, rng)
-        counters = kernel_counters(ch, fe, fh)
+        # The phases of this slice draw from seeds of their own, so the
+        # earlier phases see the inputs they saw before it.
+        errs["emd_forward"] = phase_emd_kernel(
+            torch, em, np.random.RandomState(SEED + 1))
+        counters = kernel_counters(ch, fe, fh, em)
 
         with tempfile.TemporaryDirectory() as tmp:
             weights = os.path.join(tmp, "model_2048.npz")
@@ -983,19 +1317,24 @@ def main() -> int:
             say(phase, f"main-path launches {launches}")
 
             phase = "train"
-            trainer, logger, train_launches, _ = phase_train(
-                torch, counters, tmp, rng)
-            # Serving kernels keep their serving-path counts; the training
-            # kernels report the training path's.
+            data, fixture_s = write_chair_fixture(tmp)
+            trainer, logger, train_launches = phase_train(
+                torch, counters, data, fixture_s, tmp, rng)
+            phase = "train_emd"
+            emd_trainer, emd_logger, emd_launches = phase_train_emd(
+                torch, counters, data, tmp, np.random.RandomState(SEED + 2))
+            # Serving kernels keep their serving-path counts, the training
+            # kernels the training path's, and K6 the EMD training path's.
             launches.update({k: v for k, v in train_launches.items()
                              if k not in serving})
+            launches["emd_forward"] = emd_launches["emd_forward"]
             try:
                 phase = "timings"
-                rows = phase_timings(torch, fe, ch, fh, session, trainer,
-                                     rng, launches, errs)
+                rows = phase_timings(torch, fe, ch, fh, em, session, trainer,
+                                     emd_trainer, rng, launches, errs)
             finally:
-                trainer.close()
-                logger.close()
+                for closing in (trainer, logger, emd_trainer, emd_logger):
+                    closing.close()
         smi = nvidia_smi_line()
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAIL in phase {phase}: {type(e).__name__}: {e}",

@@ -7,8 +7,9 @@ the same contract:
     loss_fn(pred, label, end_points) -> (loss, metrics)
 
 where ``end_points["embedding"]`` is the published latent. Ported so far:
-the ``fc`` decoder family with no neck and the Chamfer x100 loss
-(``--model model``); the FC necks of the other families come with them.
+the ``fc`` decoder family with no neck, with the Chamfer x100 loss
+(``--model model``) or the EMD loss (``--model model_emd``); the FC
+necks of the other families come with them.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from torch import nn
 from pointnet_autoencoder_tpu_torch.nn.decoders import FCDecoder
 from pointnet_autoencoder_tpu_torch.nn.encoder import PointNetEncoder
 from pointnet_autoencoder_tpu_torch.ops.chamfer import chamfer_loss
+from pointnet_autoencoder_tpu_torch.ops.emd import emd_loss
 from pointnet_autoencoder_tpu_torch.ops.fused_encoder import FoldedChain
 
 Tensor = torch.Tensor
@@ -69,6 +71,15 @@ def chamfer_x100_loss(pred: Tensor, label: Tensor, end_points: EndPoints
     (the reference's models/model.py:77-83)."""
     pcloss = chamfer_loss(pred, label)
     return pcloss * 100.0, {"pcloss": pcloss}
+
+
+def emd_loss_fn(pred: Tensor, label: Tensor, end_points: EndPoints
+                ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """loss = mean_b EMD(label -> pred), unscaled; Chamfer is still
+    reported as the 'pcloss' metric (the reference's
+    models/model_emd.py:79-89)."""
+    pcloss = chamfer_loss(pred, label)
+    return emd_loss(pred, label), {"pcloss": pcloss}
 
 
 LossFn = Callable[[Tensor, Tensor, EndPoints],

@@ -57,14 +57,22 @@ def _prepare(xyz1: Tensor, xyz2: Tensor) -> Tuple[Tensor, Tensor]:
     return xyz1.float(), xyz2.float()
 
 
-def nn_distance_plain(xyz1: Tensor, xyz2: Tensor):
-    """Plain PyTorch version: (B,N,3) f32, (B,M,3) f32 -> dist1 (B,N) f32,
-    idx1 (B,N) int32, dist2 (B,M) f32, idx2 (B,M) int32."""
+def sqdist_matrix(xyz1: Tensor, xyz2: Tensor) -> Tensor:
+    """(B,N,3), (B,M,3) -> (B,N,M) squared distances from the outer
+    differences, summed ((dx*dx + dy*dy) + dz*dz) as the reference's
+    ``sqdist_matrix`` does; the kernels round d2 the same way."""
     d2 = None
     for c in range(3):
         diff = xyz1[:, :, None, c] - xyz2[:, None, :, c]
         sq = diff * diff
         d2 = sq if d2 is None else d2 + sq
+    return d2
+
+
+def nn_distance_plain(xyz1: Tensor, xyz2: Tensor):
+    """Plain PyTorch version: (B,N,3) f32, (B,M,3) f32 -> dist1 (B,N) f32,
+    idx1 (B,N) int32, dist2 (B,M) f32, idx2 (B,M) int32."""
+    d2 = sqdist_matrix(xyz1, xyz2)
     dist1, idx1 = d2.min(dim=2)  # first minimum wins, like argmin
     dist2, idx2 = d2.min(dim=1)
     return dist1, idx1.int(), dist2, idx2.int()

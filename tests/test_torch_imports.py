@@ -29,7 +29,8 @@ def _modules():
 
 def test_every_module_is_listed():
     mods = _modules()
-    for name in ("ops.chamfer", "ops.fused_encoder", "ops.fused_head",
+    for name in ("ops.chamfer", "ops.emd", "ops.fused_encoder",
+                 "ops.fused_head",
                  "nn.layers", "nn.encoder", "nn.decoders",
                  "models.autoencoder", "models.registry", "convert",
                  "checkpoint_file",

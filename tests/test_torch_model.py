@@ -177,6 +177,17 @@ def test_session_bf16_stays_near_f32(session, npz_path):
     np.testing.assert_allclose(got, ref, rtol=0, atol=5e-2 * scale)
 
 
+def test_model_emd_session_reads_the_model_weights(session, npz_path):
+    """model_emd is model's network trained on another loss: its session
+    reads the same reference-named weights and serves the same outputs."""
+    emd_session = InferenceSession("model_emd", npz_path, NUM_POINT,
+                                   batch_size=BATCH, device="cpu")
+    pts = _clouds(3, seed=8)
+    np.testing.assert_array_equal(emd_session.reconstruct(pts),
+                                  session.reconstruct(pts))
+    np.testing.assert_array_equal(emd_session.embed(pts), session.embed(pts))
+
+
 def test_session_rejects_bad_inputs_and_weights(session, npz_path, tmp_path):
     with pytest.raises(ValueError, match="expected"):
         session.reconstruct(np.zeros((2, NUM_POINT + 1, 3), np.float32))
@@ -184,8 +195,8 @@ def test_session_rejects_bad_inputs_and_weights(session, npz_path, tmp_path):
         session.embed(np.zeros((0, NUM_POINT, 3), np.float32))
     with pytest.raises(ValueError, match="num_point"):
         InferenceSession("model", npz_path, NUM_POINT * 2, device="cpu")
-    with pytest.raises(KeyError, match="model_emd"):
-        InferenceSession("model_emd", npz_path, NUM_POINT, device="cpu")
+    with pytest.raises(KeyError, match="model_upconv"):
+        InferenceSession("model_upconv", npz_path, NUM_POINT, device="cpu")
     pt = str(tmp_path / "w.pt")
     torch.save(session.model.state_dict(), pt)
     again = InferenceSession("model", pt, NUM_POINT, batch_size=BATCH,

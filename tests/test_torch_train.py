@@ -10,8 +10,9 @@ Tolerances, each the JAX package's own for the same comparison:
   5e-3, atol 2e-3 (tests/test_fused_head.py:275: the statistics come from
   moments on one side and directly on the other, and bias-type gradients
   through BN are pure cancellation, rounding noise at the 1e-3 scale);
-- train step: loss and pcloss rtol 1e-4; gradients of pcloss (the loss
-  is pcloss x 100) as the encoder's; new BN moving statistics rtol 1e-4,
+- train step (``model`` and ``model_emd``): loss and pcloss rtol 1e-4;
+  gradients of the loss, each leaf by its relative error norm, under
+  1e-3; new BN moving statistics rtol 1e-4,
   atol 1e-5 (the decoder's statistics see the encoder feature, which the
   two heads round differently by up to the head's 1e-5); learning_rate
   and bn_decay equal in f32;
@@ -181,7 +182,18 @@ def _trainer(tmp_path, fixture_root, **overrides):
 
 @pytest.mark.parametrize("optimizer", ["adam", "momentum"])
 def test_one_train_step_matches_jax(tmp_path, fixture_root, optimizer):
-    spec = jspec("model")
+    _check_train_step(tmp_path, fixture_root, "model", optimizer)
+
+
+def test_model_emd_train_step_matches_jax(tmp_path, fixture_root):
+    """--model model_emd: the loss is the EMD cost of the plain dense scan
+    on both sides (the JAX package's 'xla' route on the CPU), pcloss the
+    Chamfer metric; the same tolerances as --model model."""
+    _check_train_step(tmp_path, fixture_root, "model_emd", "adam")
+
+
+def _check_train_step(tmp_path, fixture_root, model, optimizer):
+    spec = jspec(model)
     module, variables = spec.init_variables(jax.random.PRNGKey(0), NUM_POINT)
     variables = _perturbed(variables)
     batch = np.random.RandomState(3).randn(BATCH, NUM_POINT, 3).astype(
@@ -201,7 +213,8 @@ def test_one_train_step_matches_jax(tmp_path, fixture_root, optimizer):
     jgrads = from_flax_variables({"params": jax.grad(jloss)(
         variables["params"])})
 
-    trainer = _trainer(tmp_path, fixture_root, optimizer=optimizer)
+    trainer = _trainer(tmp_path, fixture_root, model=model,
+                       optimizer=optimizer)
     _load(trainer.model, variables)
     got = trainer.train_step(torch.from_numpy(batch))
     trainer.close()

@@ -127,6 +127,34 @@ def test_chamfer_falls_over_a_few_dozen_steps(fixture_root, tmp_path):
     assert train[-1]["pcloss"] < 0.5 * train[0]["pcloss"]
 
 
+def test_model_emd_cli_run_and_session(fixture_root, tmp_path):
+    """--model model_emd for 2 epochs (12 bf16 steps): the logged loss is
+    the EMD cost (not 100 x pcloss), it falls, and a model_emd session on
+    the best checkpoint serves the stored weights."""
+    log_dir = str(tmp_path / "log")
+    assert cli.main(_argv(fixture_root, log_dir, "--model", "model_emd",
+                          "--max_epoch", "2")) == 0
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    train = [r for r in recs if r["split"] == "train"]
+    assert [r["step"] for r in train] == [3, 6, 9, 12]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["pcloss"])
+               for r in recs)
+    assert train[0]["loss"] != pytest.approx(100 * train[0]["pcloss"])
+    assert train[-1]["loss"] < train[0]["loss"]
+    bests = sorted(n for n in os.listdir(log_dir)
+                   if n.startswith("best_model_epoch_"))
+    best = os.path.join(log_dir, bests[-1])
+    session = InferenceSession("model_emd", best, NUM_POINT,
+                               batch_size=BATCH, device="cpu")
+    stored = checkpoint.load(best)["model"]
+    for k, v in session.model.state_dict().items():
+        assert torch.equal(v, stored[k]), k
+    pts = np.random.RandomState(1).randn(3, NUM_POINT, 3).astype(np.float32)
+    rec = session.reconstruct(pts)
+    assert rec.shape == pts.shape and np.all(np.isfinite(rec))
+
+
 def test_parser_has_the_reference_flags_and_device():
     ours = {a.dest for a in cli.build_parser()._actions} - {"help"}
     theirs = {a.dest for a in jcli.build_parser()._actions} - {"help"}
