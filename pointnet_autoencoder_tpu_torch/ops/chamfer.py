@@ -15,7 +15,8 @@ as the reference op's registered gradient.
   ((dx*dx + dy*dy) + dz*dz), which the kernel reproduces bit for bit.
 - ``nn_distance_grad_plain`` is the reference's scatter form
   (chamfer.py:392-402): a gather, then ``index_add_`` of -t into zeros,
-  plus t.
+  plus t. On the CPU ``index_add_`` adds in index order, which is the
+  kernel's order, so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ _SIGNATURES = {
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         ctypes.c_int),
     "pcae_nn_distance_grad": (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         ctypes.c_int),
+    "pcae_nn_distance_grad_scratch": ([ctypes.c_int] * 3, ctypes.c_longlong),
 }
 
 
@@ -132,13 +134,22 @@ def nn_distance_grad_plain(xyz1: Tensor, xyz2: Tensor, idx1: Tensor,
     return gx1, gx2
 
 
+def nn_distance_grad_scratch_words(b: int, n: int, m: int) -> int:
+    """int32 words of scratch the gradient kernel needs at these shapes:
+    0 while each block's workspace fits its shared memory."""
+    lib = _build.load("chamfer", _SIGNATURES)
+    return int(lib.pcae_nn_distance_grad_scratch(b, n, m))
+
+
 def nn_distance_grad_cuda(xyz1: Tensor, xyz2: Tensor, idx1: Tensor,
                           idx2: Tensor, g1: Tensor, g2: Tensor):
-    """The CUDA gradient kernel (both directions in one launch, f32
-    atomics); same outputs as ``nn_distance_grad_plain`` up to the order
-    of each row's sum. ``idx1``/``idx2`` are the indices ``nn_distance``
-    returned for these clouds. Adds one to
-    ``nn_distance_grad_cuda.launches`` per launch."""
+    """The CUDA gradient kernel (both directions in one launch, a
+    deterministic segment sum: every output row written once, its terms
+    added in ascending source index, the order of ``index_add_`` on the
+    CPU). ``idx1``/``idx2`` are the indices ``nn_distance`` returned for
+    these clouds. Shapes whose per-block workspace exceeds shared memory
+    get a scratch buffer. Adds one to ``nn_distance_grad_cuda.launches``
+    per launch."""
     tensors = (xyz1, xyz2, idx1, idx2, g1, g2)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("nn_distance_grad_cuda takes CUDA tensors")
@@ -155,10 +166,14 @@ def nn_distance_grad_cuda(xyz1: Tensor, xyz2: Tensor, idx1: Tensor,
     gx1 = torch.empty_like(xyz1)
     gx2 = torch.empty_like(xyz2)
     lib = _build.load("chamfer", _SIGNATURES)
+    words = nn_distance_grad_scratch_words(b, n, m)
+    scratch = (torch.empty(words, dtype=torch.int32, device=xyz1.device)
+               if words else None)
     err = lib.pcae_nn_distance_grad(
         xyz1.data_ptr(), xyz2.data_ptr(), idx1.data_ptr(), idx2.data_ptr(),
-        g1.data_ptr(), g2.data_ptr(), gx1.data_ptr(), gx2.data_ptr(), b, n,
-        m, torch.cuda.current_stream(xyz1.device).cuda_stream)
+        g1.data_ptr(), g2.data_ptr(), gx1.data_ptr(), gx2.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, n, m,
+        torch.cuda.current_stream(xyz1.device).cuda_stream)
     _build.check(lib, err, "nn_distance gradient kernel")
     nn_distance_grad_cuda.launches += 1
     return gx1, gx2

@@ -239,8 +239,9 @@ def emd_forward_cuda(xyz1: Tensor, xyz2: Tensor) -> Forward:
     cost = torch.empty(b, dtype=torch.float32, device=xyz1.device)
     grad1 = torch.empty_like(xyz1)
     grad2 = torch.empty_like(xyz2)
-    # remainL, ratioL and the row costs (B, N); remainR and ratioR (B, M).
-    scratch = torch.empty(b * (3 * n + 2 * m), dtype=torch.float32,
+    # remainL, ratioL of two levels and the row costs (B, N); remainR and
+    # ratioR (B, M).
+    scratch = torch.empty(b * (4 * n + 2 * m), dtype=torch.float32,
                           device=xyz1.device)
     lib = _build.load("emd", _SIGNATURES)
     err = lib.pcae_emd_forward(

@@ -134,6 +134,82 @@ def test_chamfer_loss_grad_matches_jax():
                                atol=ATOL)
 
 
+# -- the CUDA kernel's order, emulated ----------------------------------------
+#
+# csrc/chamfer.cu writes each output row once, as its own t plus the sum,
+# from 0, of the -t of every source matched to it in ascending source
+# index. On the CPU index_add_ adds in index order too, so the emulation
+# equals nn_distance_grad_plain bit for bit; against the JAX package it is
+# held at this file's tolerance.
+
+
+def _owner_order_grad(x1, x2, i1, i2, g1, g2):
+    """numpy f32 emulation of the kernel's owner order: bucket the sources
+    by target row, then gx = t + ((0 + -t_a) + -t_b) + ... by index."""
+    f32 = np.float32
+
+    def t_of(q, r, idx, g):
+        return (f32(2) * g)[..., None] * (q - np.take_along_axis(
+            r, idx[..., None].astype(np.int64), axis=1))
+
+    t1, t2 = t_of(x1, x2, i1, g1), t_of(x2, x1, i2, g2)
+    out = []
+    for t_own, t_src, idx in ((t1, t2, i2), (t2, t1, i1)):
+        gx = np.empty_like(t_own)
+        for b in range(t_own.shape[0]):
+            buckets = [[] for _ in range(t_own.shape[1])]
+            for l, k in enumerate(idx[b]):
+                buckets[k].append(l)  # ascending l
+            for i, bucket in enumerate(buckets):
+                acc = np.zeros(3, f32)
+                for l in bucket:
+                    acc = acc + (-t_src[b, l])
+                gx[b, i] = t_own[b, i] + acc
+        out.append(gx)
+    return out
+
+
+def _crowded(seed=5):
+    """Many-to-one both ways: 60 queries in 3 tight clusters, each near
+    one of 4 targets, and targets that share their nearest query."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(2, 4, 3).astype(np.float32)
+    x1 = (centers[:, :3].repeat(20, axis=1)
+          + 1e-2 * rng.randn(2, 60, 3)).astype(np.float32)
+    return x1, centers
+
+
+def test_cpu_index_add_adds_in_index_order():
+    """What the kernel's bit-equality with the plain version rests on."""
+    rng = np.random.RandomState(3)
+    idx = torch.from_numpy(rng.randint(0, 7, 500))
+    src = torch.from_numpy(rng.randn(500, 3).astype(np.float32))
+    got = torch.zeros(7, 3).index_add_(0, idx, src).numpy()
+    want = np.zeros((7, 3), np.float32)
+    for k, row in zip(idx.numpy(), src.numpy()):
+        want[k] = want[k] + row
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind,b,n,m", CASES + [("crowded", 2, None, None)])
+def test_owner_order_equals_plain_and_matches_jax(kind, b, n, m):
+    if kind == "crowded":
+        x1, x2 = _crowded()
+        g1, g2 = _cotangents(2, x1.shape[1], x2.shape[1])
+    else:
+        x1, x2, g1, g2 = _case(kind, b, n, m)
+    _, i1, _, i2 = oracles.nn_distance_np(x1, x2)
+    if kind == "crowded":
+        assert np.bincount(i1[0]).max() >= 20
+    got = _owner_order_grad(x1, x2, i1, i2, g1, g2)
+    plain = chamfer.nn_distance_grad_plain(
+        *(torch.from_numpy(np.asarray(v)) for v in (x1, x2, i1, i2, g1, g2)))
+    for g, p in zip(got, plain):
+        np.testing.assert_array_equal(g, p.numpy())
+    for g, w in zip(got, _jax_grads(x1, x2, g1, g2, "xla")):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
+
+
 def test_grad_cuda_wrapper_refuses_cpu_tensors():
     x1, x2 = _clouds(1, 4, 5)
     i1 = torch.zeros((1, 4), dtype=torch.int32)

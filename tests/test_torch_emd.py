@@ -19,6 +19,7 @@ Tolerances:
 """
 
 import functools
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -74,6 +75,156 @@ def _assert_oracle(got, x1, x2):
                                rtol=1e-3, atol=1e-4)
     for g, w in zip(got[1:], oracles.match_cost_grad_np(x1, x2, match)):
         np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-4)
+
+
+# -- the CUDA kernel's schedule, emulated -------------------------------------
+#
+# csrc/emd.cu fuses pass B of level li with pass A of level li + 1, which
+# reorders sums but not the arithmetic, and takes K_li from the next
+# level's exp2: K_li = ((K_{li+1})^2)^2 for li <= 7, exp2 of its own for
+# li = 8, 1 for li = 9, with exp2 flushing results under 2^-126 to 0
+# (ex2.approx.ftz); d2 is fma(dz, dz, fma(dy, dy, dx*dx)), and pass B's
+# sums are factored by the owned point's ratio. _kernel_schedule is that
+# arithmetic in plain f32 PyTorch. Tolerances against emd_forward_plain and the JAX dense scan:
+# cost rtol 1e-5; gradients within 1e-4 of the largest entry, the chunked
+# form's tolerance: K moves by a few ulp, and the annealing carries that
+# to a few entries as it carries a summation order (largest reading
+# 3.0e-5 of the largest entry at 2x24x24, gradient error norm 7.7e-6).
+
+_LOG2E = 1.4426950408889634
+
+
+def _level2(li):
+    """level * log2(e) in f32 as the kernel computes it; 0 for li = 9."""
+    return np.float32(0.0 if li == 9 else -_LOG2E * 4.0 ** (7 - li))
+
+
+def _ex2_ftz(x, flush=True):
+    y = torch.exp2(x)
+    return torch.where(y < 2.0 ** -126, torch.zeros_like(y), y) if flush \
+        else y
+
+
+def _kernel_k(d2, li, flush=True):
+    """K of level li as the kernel computes it, for pass A and pass B."""
+    if li == 9:
+        return torch.ones_like(d2)
+    if li == 8:
+        return _ex2_ftz(float(_level2(8)) * d2, flush)
+    e = _ex2_ftz(float(_level2(li + 1)) * d2, flush)
+    e2 = e * e
+    return e2 * e2
+
+
+def _fma_sqdist(xyz1, xyz2):
+    """d2 as the kernel rounds it, fma(dz, dz, fma(dy, dy, dx*dx)): each
+    fma in float64 (the f32 product is exact there), then rounded to f32;
+    up to a rare double rounding, the hardware fma."""
+    dx, dy, dz = (xyz1[:, :, None, c] - xyz2[:, None, :, c] for c in range(3))
+    d2 = dx * dx
+    for d in (dy, dz):
+        d2 = (d.double() * d.double() + d2.double()).float()
+    return d2
+
+
+def _kernel_schedule(xyz1, xyz2, flush=True):
+    """emd_forward_plain's scan with the kernel's K and d2 (see above), and
+    its factoring of pass B: each orientation sums K times the streamed
+    point's ratio and multiplies the sums by the owned point's ratio."""
+    d2 = _fma_sqdist(xyz1, xyz2)
+    rinv = torch.rsqrt(torch.clamp_min(d2, 1e-20))
+    remain_l, remain_r = emd._init_remains(xyz1, xyz2)
+    cost = xyz1.new_zeros(xyz1.shape[0])
+    grad1 = torch.zeros_like(xyz1)
+    grad2 = torch.zeros_like(xyz2)
+    for li in range(10):
+        k = _kernel_k(d2, li, flush)
+        ratio_l, ratio_r, remain_r = emd._level_weights(k, remain_l, remain_r)
+        w_rows = k * ratio_r[:, None, :]  # the row kernel's sums, / ratioL
+        w_cols = k * ratio_l[:, :, None]  # the column kernel's, / ratioR
+        remain_l = torch.clamp_min(remain_l - w_rows.sum(dim=2) * ratio_l,
+                                   0.0)
+        wr_rows, wr_cols = w_rows * rinv, w_cols * rinv
+        cost = cost + torch.einsum("bnm,bnm->bn", wr_rows, d2).mul(
+            ratio_l).sum(dim=1)
+        for c in range(3):
+            diff = xyz1[:, :, None, c] - xyz2[:, None, :, c]
+            grad1[:, :, c] += (wr_rows * diff).sum(dim=2) * ratio_l
+            grad2[:, :, c] -= (wr_cols * diff).sum(dim=1) * ratio_r
+    return cost, grad1, grad2
+
+
+def test_kernel_levels_differ_by_exact_powers_of_four():
+    """The premise of K_li = ((K_{li+1})^2)^2: level2 of li is exactly 4x
+    that of li + 1 for li <= 7, and so is its f32 product with any d2."""
+    d2 = np.random.RandomState(1).rand(1000).astype(np.float32) * 3
+    for li in range(8):
+        assert _level2(li) == np.float32(4) * _level2(li + 1)
+        np.testing.assert_array_equal(_level2(li) * d2,
+                                      np.float32(4) * (_level2(li + 1) * d2))
+    assert [float(-_level2(li) / _LOG2E) for li in range(10)] == pytest.approx(
+        [-lv for lv in emd._LEVELS], rel=1e-7)
+
+
+@pytest.mark.parametrize("b,n,m", SHAPES)
+def test_kernel_schedule_matches_plain_and_jax(b, n, m):
+    x1, x2 = _clouds(b, n, m, seed=n + m)
+    got = _port_forward(_kernel_schedule, x1, x2)
+    _assert_forward(got, _port_forward(emd.emd_forward_plain, x1, x2),
+                    grad_tol=1e-4)
+    _assert_forward(got, jemd._emd_forward(jnp.asarray(x1), jnp.asarray(x2)),
+                    grad_tol=1e-4)
+
+
+def test_kernel_schedule_coincident_points():
+    x1, x2 = _coincident()
+    got = _port_forward(_kernel_schedule, x1, x2)
+    assert all(np.all(np.isfinite(t)) for t in got)
+    _assert_forward(got, _port_forward(emd.emd_forward_plain, x1, x2))
+    _assert_forward(got, jemd._emd_forward(jnp.asarray(x1), jnp.asarray(x2)))
+    _assert_oracle(got, x1, x2)
+
+
+def _exp2_each_level(d2, li, flush=False):
+    """K as exp2 of each level's own level * log2(e) times d2: one exp2
+    per level, without the squaring."""
+    if li == 9:
+        return torch.ones_like(d2)
+    return _ex2_ftz(float(_level2(li)) * d2, flush)
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 64, 64), (3, 37, 29), (4, 128, 128)])
+def test_kernel_k_shortcuts_cost_no_accuracy(b, n, m, monkeypatch):
+    """exp2 results under 2^-126 flushed to 0 or kept: the early levels
+    make many such K, and they move cost and gradients by under 1e-6 of
+    their scale. And K_li from the next level's K squared twice is as far
+    from the float64 plain scan as exp2 of each level's own exponent,
+    within 2x: the f32 exponent level * log2(e) * d2, not the squaring,
+    sets that error (the plain f32 scan's level * d2 is exact, so at small
+    shapes it sits closer to float64 than either)."""
+    x1, x2 = _clouds(b, n, m, seed=3 * n + m)
+    a, c = torch.from_numpy(x1), torch.from_numpy(x2)
+    d2 = emd.sqdist_matrix(a, c)
+    small = torch.exp2(float(_level2(1)) * d2)
+    assert bool(((small > 0) & (small < 2.0 ** -126)).any())
+    fused = _kernel_schedule(a, c)
+    kept = _kernel_schedule(a, c, flush=False)
+    _assert_forward([t.numpy() for t in fused], kept, cost_rtol=1e-6,
+                    grad_tol=1e-6)
+    monkeypatch.setattr(sys.modules[__name__], "_kernel_k", _exp2_each_level)
+    each = _kernel_schedule(a, c)
+    exact = [t.numpy() for t in emd.emd_forward_plain(a.double(), c.double())]
+
+    def gap(got):
+        got = [t.numpy() for t in got]
+        cost = np.abs(got[0] - exact[0]).max() / np.abs(exact[0]).max()
+        num = sum(np.sum((g.astype(np.float64) - e) ** 2)
+                  for g, e in zip(got[1:], exact[1:]))
+        den = sum(np.sum(e ** 2) for e in exact[1:])
+        return cost, np.sqrt(num / den)
+
+    (f_cost, f_grad), (e_cost, e_grad) = gap(fused), gap(each)
+    assert f_cost <= 2 * e_cost + 1e-7 and f_grad <= 2 * e_grad + 1e-7
 
 
 # -- the fused forward --------------------------------------------------------
