@@ -9,10 +9,14 @@ line each; any failure exits non-zero before the final line:
 1. card:    device name, power limit.
 2. build:   nvcc builds every kernel source in csrc/, all at once.
 3. kernels: each kernel against its plain PyTorch version on the card,
-            at the main paths' shapes and at ragged shapes. K2 and K6 are
-            also held bit-equal over two calls, K2 bit-equal to its plain
+            at the main paths' shapes and at ragged shapes. K1, K2, K3 and
+            K6 are also held bit-equal over two calls; K1 bit-equal to its
+            plain version (distances and indices, ties and B=1, N=M=65536
+            included); K3 in bf16 (tensor cores) at N=2048, 2047 and 100,
+            with duplicated points (the lower copy wins every tie) and
+            all-zero channels (point 0 wins); K2 bit-equal to its plain
             version on the CPU (and at B=1, N=M=65536, past one block's
-            shared memory), K6 against float64 no worse than 2x the plain
+            shared memory); K6 against float64 no worse than 2x the plain
             f32 version.
 4. session: the serving path (``--model model``, full width, num_point
             2048, batch 32, random weights from a numpy seed written as a
@@ -45,8 +49,9 @@ line each; any failure exits non-zero before the final line:
             plain version on the step's own inputs, and the CPU's own EMD
             to K6, at K6's tolerances.
 8. timings: CUDA-event medians of each kernel, its plain version and the
-            library yardstick; K2's and index_add_'s device time (median of
-            50 traced calls; no memset for K2); the host time of one full
+            library yardstick; the device time per call (median of 50
+            traced calls) of K1, K3 (both types), K2 and index_add_ (no
+            memset for K2); the host time of one full
             reconstruct and of one train step of each model, and one
             torch.profiler trace of each (device busy time, idle share,
             device time by kernel).
@@ -245,6 +250,25 @@ def head_inputs(torch, rng, b, n, dtype):
     return t[0].to(dtype), t[1].to(dtype), t[2], t[3]
 
 
+def nn_plain_chunked(torch, ch, a, b, rows=4096):
+    """``nn_distance_plain`` over row chunks of ``a``, one (B, rows, M) d2
+    at a time: the same d2 bits; each column's first minimum over the
+    chunks in order (strict '<', so an earlier chunk keeps a tie)."""
+    parts1, best2, arg2 = [], None, None
+    for r0 in range(0, a.shape[1], rows):
+        d1, i1, d2, i2 = ch.nn_distance_plain(a[:, r0:r0 + rows], b)
+        parts1.append((d1, i1))
+        i2 = i2 + r0
+        if best2 is None:
+            best2, arg2 = d2, i2
+        else:
+            take = d2 < best2
+            best2 = torch.where(take, d2, best2)
+            arg2 = torch.where(take, i2, arg2)
+    return (torch.cat([d for d, _ in parts1], dim=1),
+            torch.cat([i for _, i in parts1], dim=1), best2, arg2)
+
+
 def emd_gaps(got, want):
     """(cost error over the largest cost (at least 1), the largest of each
     batch element's relative gradient error norm, the largest gradient
@@ -292,20 +316,23 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
     encoder_case(BATCH, 100, "f32")
     encoder_case(3, 37, "bf16")
 
-    def chamfer_case(x1, x2, label):
+    def chamfer_case(x1, x2, label, plain=None):
         a = torch.from_numpy(x1).to(dev)
         b = torch.from_numpy(x2).to(dev)
         k = [t.cpu().numpy() for t in ch.nn_distance_cuda(a, b)]
-        p = [t.cpu().numpy() for t in ch.nn_distance_plain(a, b)]
+        again = [t.cpu().numpy() for t in ch.nn_distance_cuda(a, b)]
+        require(all(np.array_equal(t, u) for t, u in zip(k, again)),
+                f"nn_distance {label}: two calls differ")
+        p = [t.cpu().numpy() for t in (plain or ch.nn_distance_plain)(a, b)]
         err = max(max_err(k[0], p[0]), max_err(k[2], p[2]))
-        require(close(k[0], p[0], 1e-6, 0.0) and close(k[2], p[2], 1e-6, 0.0),
-                f"nn_distance {label}: distances off, max abs err {err:.3e}")
-        require(np.array_equal(k[1], p[1]) and np.array_equal(k[3], p[3]),
-                f"nn_distance {label}: indices differ at "
-                f"{int((k[1] != p[1]).sum()) + int((k[3] != p[3]).sum())} "
-                f"points")
-        say("kernels", f"nn_distance {label}: max_abs_err {err:.3e} "
-            f"(rtol 1e-6), indices equal ok")
+        # The kernel computes each pair's d2 as the plain version does.
+        differ = sum(int((kk.view(np.int32) != pp.view(np.int32)).sum())
+                     for kk, pp in zip(k, p))
+        require(differ == 0, f"nn_distance {label}: {differ} distances or "
+                f"indices differ from the plain version (max abs err "
+                f"{err:.3e})")
+        say("kernels", f"nn_distance {label}: distances and indices "
+            f"bit-equal to the plain version and over two calls ok")
         return err
 
     errs["nn_distance"] = chamfer_case(
@@ -319,12 +346,25 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
     x2 = np.concatenate([half, half], axis=1)
     x1 = np.concatenate([half[:, ::3], clouds(rng, 4, 300)], axis=1)
     chamfer_case(x1, x2, "ties B=4 N=467 M=1000")
+    # Many query tiles combined per column (256 here); the plain version in
+    # row chunks of xyz1. Its own seed, so the cases after it keep theirs.
+    big = np.random.RandomState(SEED + 5)
+    chamfer_case(clouds(big, 1, 65536), clouds(big, 1, 65536),
+                 "B=1 N=M=65536", plain=lambda a, b: nn_plain_chunked(
+                     torch, ch, a, b))
 
-    def head_case(b, n, dtype_name):
+    def head_case(b, n, dtype_name, x=None, shift=None, label="",
+                  gen=rng):
         dtype = torch.float32 if dtype_name == "f32" else torch.bfloat16
-        x, w, scale, shift = head_inputs(torch, rng, b, n, dtype)
+        x0, w, scale, shift0 = head_inputs(torch, gen, b, n, dtype)
+        x = x0 if x is None else x
+        shift = shift0 if shift is None else shift
         kmax, karg = fh.head_max_cuda(x, w, scale, shift)
+        kmax2, karg2 = fh.head_max_cuda(x, w, scale, shift)
         pmax, parg = fh.head_max_plain(x, w, scale, shift)
+        what = f"B={b} N={n} {dtype_name}{label}"
+        require(torch.equal(kmax, kmax2) and torch.equal(karg, karg2),
+                f"head forward {what}: two calls differ")
         # The plain version's best and second-best value per channel.
         o = torch.clamp_min(torch.matmul(x.float(), w.float()) * scale
                             + shift, 0.0)
@@ -334,17 +374,17 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
         k, p = kmax.cpu().numpy(), pmax.cpu().numpy()
         err = max_err(k, p)
         require(np.all(np.isfinite(k)) and close(k, p, rtol, atol),
-                f"head forward B={b} N={n} {dtype_name}: max abs err "
+                f"head forward {what}: max abs err "
                 f"{err:.3e} over rtol {rtol} atol {atol}")
         v1, v2 = top2[:, 0].cpu().numpy(), top2[:, 1].cpu().numpy()
         clear = (v1 - v2) > atol + rtol * np.abs(v1)
         wrong = (karg.cpu().numpy() != parg.cpu().numpy()) & clear
-        require(not wrong.any(), f"head forward B={b} N={n} {dtype_name}: "
-                f"argmax differs at {int(wrong.sum())} clear maxima")
+        require(not wrong.any(), f"head forward {what}: argmax "
+                f"differs at {int(wrong.sum())} clear maxima")
         # K4 given the plain version's argmax; gvals at the scale of a
         # training step's (loss x100 over B*F outputs).
         gvals = torch.from_numpy(
-            (1e-3 * rng.randn(b, 1024)).astype(np.float32)).to(dev)
+            (1e-3 * gen.randn(b, 1024)).astype(np.float32)).to(dev)
         kdx, kdw = fh.head_bwd_cuda(x, w, gvals, parg)
         pdx, pdw = fh.head_bwd_plain(x, w, gvals, parg)
         torch.cuda.synchronize()
@@ -352,23 +392,44 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
         kdx, pdx = kdx.float().cpu().numpy(), pdx.float().cpu().numpy()
         kdw, pdw = kdw.cpu().numpy(), pdw.cpu().numpy()
         require(kdx.dtype == pdx.dtype and close(kdx, pdx, brtol, batol),
-                f"head backward dx B={b} N={n} {dtype_name}: max abs err "
+                f"head backward dx {what}: max abs err "
                 f"{max_err(kdx, pdx):.3e}")
         require(close(kdw, pdw, *HEAD_BWD_TOL["f32"]),
-                f"head backward dw B={b} N={n} {dtype_name}: max abs err "
+                f"head backward dw {what}: max abs err "
                 f"{max_err(kdw, pdw):.3e}")
         berr = max(max_err(kdx, pdx), max_err(kdw, pdw))
-        say("kernels", f"fused_head B={b} N={n} {dtype_name}: forward "
-            f"max_abs_err {err:.3e}, argmax equal at {int(clear.sum())} "
-            f"clear maxima; backward max_abs_err {berr:.3e} (dx rtol "
-            f"{brtol}) ok")
-        return err, berr
+        say("kernels", f"fused_head {what}: forward max_abs_err {err:.3e}, "
+            f"argmax equal at {int(clear.sum())} clear maxima, two calls "
+            f"bit-equal; backward max_abs_err {berr:.3e} (dx rtol {brtol}) "
+            f"ok")
+        return err, berr, karg, kmax
 
-    errs["head_f32"] = head_case(BATCH, NUM_POINT, "f32")
-    errs["head_bf16"] = head_case(BATCH, NUM_POINT, "bf16")
+    errs["head_f32"] = head_case(BATCH, NUM_POINT, "f32")[:2]
+    errs["head_bf16"] = head_case(BATCH, NUM_POINT, "bf16")[:2]
     head_case(BATCH, NUM_POINT - 1, "f32")
     head_case(BATCH, 100, "bf16")
     head_case(3, 37, "f32")
+    # The cases below draw from a seed of their own, so the phases after
+    # them see the inputs they saw before these cases.
+    extra = np.random.RandomState(SEED + 6)
+    head_case(BATCH, NUM_POINT - 1, "bf16", gen=extra)
+    # Exact ties: the second half of the points copies the first, so the
+    # lower copy must win every channel; and channels whose every output
+    # is 0 (shift far below zero), where the first point wins.
+    half = head_inputs(torch, extra, BATCH, NUM_POINT // 2,
+                       torch.bfloat16)[0]
+    shift = 0.1 * extra.randn(1024)
+    shift[::8] = -1e4
+    shift = torch.from_numpy(shift.astype(np.float32)).to(dev)
+    _, _, karg, kmax = head_case(BATCH, NUM_POINT, "bf16",
+                                 x=torch.cat([half, half], dim=1),
+                                 shift=shift, label=" ties", gen=extra)
+    require(bool((karg < NUM_POINT // 2).all()),
+            "head forward bf16 ties: a later copy won a tie")
+    require(bool((kmax[:, ::8] == 0).all() and (karg[:, ::8] == 0).all()),
+            "head forward bf16: an all-zero channel did not pick point 0")
+    say("kernels", "fused_head bf16 ties: the lower copy won every channel; "
+        "all-zero channels picked point 0 ok")
 
     def chamfer_grad_case(x1, x2, label, gen=rng):
         a = torch.from_numpy(x1).to(dev)
@@ -1045,6 +1106,14 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
         return d.min(dim=2), d.min(dim=1)
 
     l_ms = cuda_ms(torch, cdist_min)
+    # The CUDA-event time of one call also holds the wrapper's host time
+    # before the launch: the device time per call (both kernels), the
+    # median over 50 traced calls.
+    dev_ms, counts = median_device_ms(torch, lambda: ch.nn_distance_cuda(
+        x1, x2))
+    say("timings", f"nn_distance alone, device time per call, median of 50 "
+        f"traced calls: {dev_ms:.5f} ms; device events "
+        f"{_event_counts(counts)}")
     rows.append(dict(
         name="nn_distance", route="cuda",
         source="pointnet_autoencoder_tpu_torch/csrc/chamfer.cu",
@@ -1069,6 +1138,8 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
         _, arg = fh.head_max_cuda(x, w, scale, shift)
         gvals = torch.from_numpy(
             (1e-3 * rng.randn(b, f)).astype(np.float32)).to(dev)
+        fwd_dev, fwd_counts = median_device_ms(
+            torch, lambda: fh.head_max_cuda(x, w, scale, shift))
         fwd = dict(
             ms=cuda_ms(torch, lambda: fh.head_max_cuda(x, w, scale, shift)),
             plain_ms=cuda_ms(torch, lambda: fh.head_max_plain(
@@ -1086,7 +1157,9 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
                     x.numel() * es + rows_x * c * es + w.numel() * es
                     + b * f * 8 + c * f * 4, peak))
         say("timings", f"fused_head {dtype_name} B={b} N={n}: forward "
-            f"{fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, bound "
+            f"{fwd['ms']:.4f} ms (device time per call {fwd_dev:.5f}, "
+            f"median of 50 traced calls: {_event_counts(fwd_counts)}; plain "
+            f"{fwd['plain_ms']:.4f}, bound "
             f"{fwd['bound_ms']:.4f} {fwd['bound_by']}); backward "
             f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, bound "
             f"{bwd['bound_ms']:.4f} {bwd['bound_by']}; {rows_x} argmax "
@@ -1132,14 +1205,14 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
     for what, fn in (("nn_distance_grad", lambda: ch.nn_distance_grad_cuda(
             x1, x2, i1, i2, g1, g2)), ("index_add_", lambda: out.index_add_(
                 0, rows_idx, terms))):
-        dev_ms, names = median_device_ms(torch, fn)
+        dev_ms, counts = median_device_ms(torch, fn)
         say("timings", f"{what} alone, device time, median of 50 traced "
             f"calls: {dev_ms:.5f} ms; device events "
-            f"{', '.join(sorted(_short(n) for n in names))}")
+            f"{_event_counts(counts)}")
         if what == "nn_distance_grad":
             # K2 writes every output once: no memset before it.
-            require(bool(names) and not any("Memset" in n for n in names),
-                    f"K2's trace holds a memset or nothing: {sorted(names)}")
+            require(bool(counts) and not any("Memset" in n for n in counts),
+                    f"K2's trace holds a memset or nothing: {sorted(counts)}")
     pts = 2 * BATCH * NUM_POINT
     rows.append(dict(
         name="nn_distance_grad", route="cuda",
@@ -1226,9 +1299,12 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
 
 
 def median_device_ms(torch, fn, reps=50):
-    """(median device duration in ms of the device events of ``fn()`` over
-    ``reps`` traced calls, each followed by a synchronize; the set of their
-    names)."""
+    """(one call's device time in ms: over ``reps`` traced calls, each
+    followed by a synchronize, the median duration of each kernel that
+    ``fn`` launches once per call, summed over its kernels; the number of
+    events of each name). A trace may lose an event, which barely moves a
+    median; a name with more than ``reps`` or fewer than ``reps - 2``
+    events (a kernel launched more than once per call) fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1242,10 +1318,16 @@ def median_device_ms(torch, fn, reps=50):
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     if not events:
-        return float("nan"), set()
-    return (statistics.median(e.time_range.end - e.time_range.start
-                              for e in events) / 1e3,
-            {e.name for e in events})
+        return float("nan"), {}
+    by_name = {}
+    for e in events:
+        by_name.setdefault(e.name, []).append(
+            e.time_range.end - e.time_range.start)
+    counts = {name: len(v) for name, v in by_name.items()}
+    require(all(reps - 2 <= c <= reps for c in counts.values()),
+            f"not one event per call in {reps} calls: {counts}")
+    return (sum(statistics.median(v) for v in by_name.values()) / 1e3,
+            counts)
 
 
 # Substrings of the device-side names of the port's kernels and memsets.
@@ -1309,6 +1391,11 @@ def _short(kernel_name: str) -> str:
     """'void (anonymous namespace)::k<T>(args)' -> 'k<T>'."""
     name = kernel_name.replace("void ", "")
     return name.replace("(anonymous namespace)::", "").split("(")[0][:60]
+
+
+def _event_counts(counts: dict) -> str:
+    """Each kernel name of ``median_device_ms`` with its event count."""
+    return ", ".join(sorted(f"{_short(n)} x{c}" for n, c in counts.items()))
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> dict:

@@ -6,13 +6,22 @@ kernel library, to explain a kernel's time by what it issues per pair.
 
 For every kernel in each library (``cuobjdump -sass``), finds the
 innermost loops (a backward branch whose range holds no other backward
-branch) that issue an SFU instruction (``MUFU``), and prints per loop its
-instruction count, ``MUFU.EX2``, ``MUFU.RSQ``, shared-memory loads
-(``LDS``) and, per pair, instructions and MUFU. A pair is one point of
-the streamed cloud against one owned point: the loop's ``LDS.128`` count
-(one float4 per streamed point) times the owned points per thread, 1
-unless ``--points`` names the kernel (e.g. ``--points emd_step=2``).
-Needs ``cuobjdump`` from the CUDA toolkit (next to ``nvcc``).
+branch) that issue an SFU instruction (``MUFU``) or a tensor-core
+instruction (``HMMA``, ``HGMMA``), and every innermost loop of a kernel
+that ``--points`` names. Prints per loop its instruction count,
+``MUFU.EX2``, ``MUFU.RSQ``, ``HMMA``, ``HGMMA``, ``SHFL``, shared-memory
+loads (``LDS``) and, where the loop streams points, per pair its
+instructions and MUFU. A pair is one point of the streamed cloud against
+one owned point: the loop's ``LDS.128`` count (one float4 per streamed
+point) times the owned points per thread, 1 unless ``--points`` names the
+kernel (e.g. ``--points emd_step=2``; ``--points nn_distance_kernel=8``
+for the Chamfer forward, whose lanes own 8 queries); ``--ops N`` adds each
+loop's N most frequent opcodes. Needs ``cuobjdump`` from the CUDA toolkit
+(next to ``nvcc``).
+
+    python -m pointnet_autoencoder_tpu_torch.csrc.sass \
+        csrc/_build/chamfer-*.so csrc/_build/fused_head-*.so \
+        --points nn_distance_kernel=8
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import os
 import re
 import subprocess
 import sys
+from collections import Counter
 from typing import Dict, List, Tuple
 
 from pointnet_autoencoder_tpu_torch.csrc.build import find_nvcc
@@ -87,12 +97,20 @@ def innermost_loops(instrs: List[Tuple[int, str]]):
                        for c, d in loops)]
 
 
+def loop_ops(instrs, start, end) -> List[str]:
+    """Opcodes (predicate stripped) of the instructions in [start, end]."""
+    return [re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+            for addr, text in instrs if start <= addr <= end]
+
+
 def loop_counts(instrs, start, end) -> Dict[str, int]:
-    body = [text for addr, text in instrs if start <= addr <= end]
-    ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for t in body]
-    return {"instructions": len(body),
+    ops = loop_ops(instrs, start, end)
+    return {"instructions": len(ops),
             "MUFU.EX2": ops.count("MUFU.EX2"),
             "MUFU.RSQ": ops.count("MUFU.RSQ"),
+            "HMMA": sum(o.startswith("HMMA") for o in ops),
+            "HGMMA": sum(o.startswith("HGMMA") for o in ops),
+            "SHFL": sum(o.startswith("SHFL") for o in ops),
             "LDS": sum(o.startswith("LDS") for o in ops),
             "LDS.128": ops.count("LDS.128")}
 
@@ -113,6 +131,8 @@ def main(argv=None) -> int:
     p.add_argument("libs", nargs="+")
     p.add_argument("--points", action="append", default=[],
                    help="KERNEL_SUBSTRING=N owned points per thread")
+    p.add_argument("--ops", type=int, default=0,
+                   help="print each loop's N most frequent opcodes")
     args = p.parse_args(argv)
     points = dict((k, int(v)) for k, v in
                   (s.split("=", 1) for s in args.points))
@@ -120,11 +140,12 @@ def main(argv=None) -> int:
         print(f"== {lib}")
         for name, instrs in sorted(disassemble(lib).items()):
             pretty = demangled(name)
-            per_thread = next((v for k, v in points.items() if k in pretty),
-                              1)
+            named = [v for k, v in points.items() if k in pretty]
+            per_thread = named[0] if named else 1
             for start, end in innermost_loops(instrs):
                 c = loop_counts(instrs, start, end)
-                if not (c["MUFU.EX2"] or c["MUFU.RSQ"]):
+                if not (named or c["MUFU.EX2"] or c["MUFU.RSQ"] or c["HMMA"]
+                        or c["HGMMA"]):
                     continue
                 pairs = c["LDS.128"] * per_thread
                 per_pair = (f"; per pair {c['instructions'] / pairs:.2f} "
@@ -133,6 +154,10 @@ def main(argv=None) -> int:
                             f"MUFU ({pairs} pairs)" if pairs else "")
                 print(f"{pretty[:90]} loop "
                       f"{start:#x}-{end:#x}: {c}{per_pair}")
+                if args.ops:
+                    top = Counter(loop_ops(instrs, start, end)).most_common(
+                        args.ops)
+                    print("    " + ", ".join(f"{o} {k}" for o, k in top))
     return 0
 
 

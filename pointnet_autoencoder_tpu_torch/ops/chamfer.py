@@ -33,8 +33,9 @@ Tensor = torch.Tensor
 # C entry points of csrc/chamfer.cu: (argtypes, restype).
 _SIGNATURES = {
     "pcae_nn_distance": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         ctypes.c_int),
+    "pcae_nn_distance_scratch": ([ctypes.c_int] * 3, ctypes.c_longlong),
     "pcae_nn_distance_grad": (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         ctypes.c_int),
@@ -81,9 +82,11 @@ def nn_distance_plain(xyz1: Tensor, xyz2: Tensor):
 
 
 def nn_distance_cuda(xyz1: Tensor, xyz2: Tensor):
-    """The CUDA kernel (both directions in one launch) on contiguous f32
-    CUDA tensors; same outputs as ``nn_distance_plain``. Adds one to
-    ``nn_distance_cuda.launches`` per launch."""
+    """The CUDA kernel (both directions from one d2 per pair, and a small
+    kernel that combines each xyz2 point's minima over the query tiles) on
+    f32 CUDA tensors; same outputs as ``nn_distance_plain``, bit for bit.
+    Allocates a scratch of 8 * B * ceil(N/256) * M bytes. Adds one to
+    ``nn_distance_cuda.launches`` per call."""
     if not (xyz1.is_cuda and xyz2.is_cuda):
         raise ValueError("nn_distance_cuda takes CUDA tensors")
     if xyz1.dtype != torch.float32 or xyz2.dtype != torch.float32:
@@ -91,15 +94,18 @@ def nn_distance_cuda(xyz1: Tensor, xyz2: Tensor):
     xyz1, xyz2 = xyz1.contiguous(), xyz2.contiguous()
     b, n, _ = xyz1.shape
     m = xyz2.shape[1]
-    dist1 = torch.empty((b, n), dtype=torch.float32, device=xyz1.device)
-    idx1 = torch.empty((b, n), dtype=torch.int32, device=xyz1.device)
-    dist2 = torch.empty((b, m), dtype=torch.float32, device=xyz1.device)
-    idx2 = torch.empty((b, m), dtype=torch.int32, device=xyz1.device)
+    dev = xyz1.device
+    dist1 = torch.empty((b, n), dtype=torch.float32, device=dev)
+    idx1 = torch.empty((b, n), dtype=torch.int32, device=dev)
+    dist2 = torch.empty((b, m), dtype=torch.float32, device=dev)
+    idx2 = torch.empty((b, m), dtype=torch.int32, device=dev)
     lib = _build.load("chamfer", _SIGNATURES)
+    scratch = torch.empty(int(lib.pcae_nn_distance_scratch(b, n, m)),
+                          dtype=torch.int64, device=dev)
     err = lib.pcae_nn_distance(
         xyz1.data_ptr(), xyz2.data_ptr(), dist1.data_ptr(), idx1.data_ptr(),
-        dist2.data_ptr(), idx2.data_ptr(), b, n, m,
-        torch.cuda.current_stream(xyz1.device).cuda_stream)
+        dist2.data_ptr(), idx2.data_ptr(), scratch.data_ptr(), b, n, m,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "nn_distance kernel")
     nn_distance_cuda.launches += 1
     return dist1, idx1, dist2, idx2

@@ -92,6 +92,13 @@ def _load_for(x: Tensor, w: Tensor, tensors, what: str):
     return lib
 
 
+def _aligned(t: Tensor) -> Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary (a copy if a
+    view starts elsewhere)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def head_max_plain(x: Tensor, w: Tensor, scale: Tensor,
                    shift: Tensor) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of K3: (max (B, F) f32, argmax (B, F) int32)
@@ -108,30 +115,38 @@ def head_max_cuda(x: Tensor, w: Tensor, scale: Tensor,
                   shift: Tensor) -> Tuple[Tensor, Tensor]:
     """K3 on CUDA tensors: x (B, N, 128) and w (128, F) both f32 or both
     bf16, F a multiple of 256, scale/shift (F,) f32; same outputs as
-    ``head_max_plain``. Adds one to ``head_max_cuda.launches`` per launch
-    (the tile kernel and its reduction over tiles)."""
+    ``head_max_plain``. bf16 runs the tensor-core kernel (one launch, no
+    scratch), f32 the CUDA-core tile kernel and its reduction over a
+    (B, ceil(N/64), F) scratch. Adds one to ``head_max_cuda.launches``
+    per call."""
     lib = _load_for(x, w, (scale, shift), "head_max_cuda")
     if scale.shape != (w.shape[1],) or shift.shape != (w.shape[1],):
         raise ValueError(f"head_max_cuda: expected scale and shift of shape "
                          f"{(w.shape[1],)}, got {tuple(scale.shape)} and "
                          f"{tuple(shift.shape)}")
-    x, w = x.contiguous(), w.contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    # The bf16 kernel copies x and w in 16-byte pieces.
+    x, w = (_aligned(t) if bf16 else t.contiguous() for t in (x, w))
     scale = scale.float().contiguous()
     shift = shift.float().contiguous()
     b, n, _ = x.shape
     f = w.shape[1]
     dev = x.device
-    tiles = -(-n // lib.pcae_head_tile_n())
-    part_max = torch.empty((b, tiles, f), dtype=torch.float32, device=dev)
-    part_arg = torch.empty((b, tiles, f), dtype=torch.int32, device=dev)
+    part_max = part_arg = None
+    if not bf16:
+        tiles = -(-n // lib.pcae_head_tile_n())
+        part_max = torch.empty((b, tiles, f), dtype=torch.float32,
+                               device=dev)
+        part_arg = torch.empty((b, tiles, f), dtype=torch.int32, device=dev)
     out_max = torch.empty((b, f), dtype=torch.float32, device=dev)
     out_arg = torch.empty((b, f), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.pcae_fused_head_fwd(
-            int(x.dtype == torch.bfloat16), x.data_ptr(), w.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), part_max.data_ptr(),
-            part_arg.data_ptr(), out_max.data_ptr(), out_arg.data_ptr(), b,
-            n, f, torch.cuda.current_stream(dev).cuda_stream)
+            int(bf16), x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), None if bf16 else part_max.data_ptr(),
+            None if bf16 else part_arg.data_ptr(), out_max.data_ptr(),
+            out_arg.data_ptr(), b, n, f,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "fused head forward kernel")
     head_max_cuda.launches += 1
     return out_max, out_arg
