@@ -9,15 +9,17 @@ line each; any failure exits non-zero before the final line:
 1. card:    device name, power limit.
 2. build:   nvcc builds every kernel source in csrc/, all at once.
 3. kernels: each kernel against its plain PyTorch version on the card,
-            at the main paths' shapes and at ragged shapes. K1, K2, K3 and
-            K6 are also held bit-equal over two calls; K1 bit-equal to its
-            plain version (distances and indices, ties and B=1, N=M=65536
-            included); K3 in bf16 (tensor cores) at N=2048, 2047 and 100,
-            with duplicated points (the lower copy wins every tie) and
-            all-zero channels (point 0 wins); K2 bit-equal to its plain
-            version on the CPU (and at B=1, N=M=65536, past one block's
-            shared memory); K6 against float64 no worse than 2x the plain
-            f32 version.
+            at the main paths' shapes and at ragged shapes. K1, K2, K3, K4,
+            K5 bf16 and K6 are also held bit-equal over two calls; K1
+            bit-equal to its plain version (distances and indices, ties and
+            B=1, N=M=65536 included); K3 in bf16 (tensor cores) at N=2048,
+            2047 and 100, with duplicated points (the lower copy wins every
+            tie) and all-zero channels (point 0 wins); K4's dx bit-equal to
+            its plain version on the CPU, in f32 and bf16, also where many
+            channels share a row; K5 f32 and bf16 (tensor cores) at N=2048
+            and 2047; K2 bit-equal to its plain version on the CPU (and at
+            B=1, N=M=65536, past one block's shared memory); K6 against
+            float64 no worse than 2x the plain f32 version.
 4. session: the serving path (``--model model``, full width, num_point
             2048, batch 32, random weights from a numpy seed written as a
             reference-named .npz) through ``InferenceSession(device="cuda")``,
@@ -50,8 +52,9 @@ line each; any failure exits non-zero before the final line:
             to K6, at K6's tolerances.
 8. timings: CUDA-event medians of each kernel, its plain version and the
             library yardstick; the device time per call (median of 50
-            traced calls) of K1, K3 (both types), K2 and index_add_ (no
-            memset for K2); the host time of one full
+            traced calls) of K5, K3 and K4 (both types), K1, K2 and
+            index_add_ (no memset for K2, only K4's own kernels in its
+            trace); the host time of one full
             reconstruct and of one train step of each model, and one
             torch.profiler trace of each (device busy time, idle share,
             device time by kernel).
@@ -95,11 +98,11 @@ TOL = {"f32": (1e-5, 1e-4), "bf16": (3e-2, 3e-2)}  # (rtol, atol)
 # order; an argmax is held only where the best and second-best values
 # differ by more than this.
 HEAD_FWD_TOL = (1e-5, 1e-5)
-# Head backward (K4) given the same argmax: dw sums over b in order; dx's
-# atomic adds land in a varying order, f32 rounding; in bf16 mode dx is
-# that f32 sum rounded to bf16, so an order difference can move it by one
-# bf16 step (2^-8 relative).
-HEAD_BWD_TOL = {"f32": (1e-5, 1e-6), "bf16": (1e-2, 1e-6)}
+# Head backward (K4) given the same argmax: dx is held bit-equal to the
+# plain version on the CPU (both add each row's products in ascending
+# channel, index_add_'s order there) and over two calls; dw sums over b in
+# order, the plain version on the card by another product's order.
+HEAD_DW_TOL = (1e-5, 1e-6)
 # Chamfer gradient (K2) against its plain version on the card, whose
 # index_add_ adds with f32 atomics in a varying order. (On the CPU the plain
 # version adds in index order, the kernel's order, and is held bit-equal.)
@@ -288,14 +291,18 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
     dev = torch.device("cuda")
     errs = {}
 
-    def encoder_case(b, n, dtype_name):
+    def encoder_case(b, n, dtype_name, gen=rng):
         dtype = torch.float32 if dtype_name == "f32" else torch.bfloat16
         layers = [tuple(torch.from_numpy(x).to(dev) for x in layer)
-                  for layer in random_layers(rng)]
+                  for layer in random_layers(gen)]
         chain = fe.fold_layers(layers, eps=EPS, dtype=dtype)
-        pts = torch.from_numpy(clouds(rng, b, n)).to(dev)
+        pts = torch.from_numpy(clouds(gen, b, n)).to(dev)
         kmax, kmin = fe.encoder_extrema_cuda(pts, chain)
         pmax, pmin = fe.encoder_extrema_plain(pts, chain)
+        if dtype_name == "bf16":  # the tensor-core route
+            again = fe.encoder_extrema_cuda(pts, chain)
+            require(torch.equal(kmax, again[0]) and torch.equal(kmin, again[1]),
+                    f"fused encoder B={b} N={n} bf16: two calls differ")
         torch.cuda.synchronize()
         k = np.concatenate([kmax.cpu().numpy(), kmin.cpu().numpy()])
         p = np.concatenate([pmax.cpu().numpy(), pmin.cpu().numpy()])
@@ -306,8 +313,9 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
         require(close(k, p, rtol, atol),
                 f"fused encoder B={b} N={n} {dtype_name}: max abs err "
                 f"{err:.3e} over rtol {rtol} atol {atol}")
+        twice = ", two calls bit-equal" if dtype_name == "bf16" else ""
         say("kernels", f"fused_encoder B={b} N={n} {dtype_name}: max_abs_err "
-            f"{err:.3e} (rtol {rtol}, atol {atol}) ok")
+            f"{err:.3e} (rtol {rtol}, atol {atol}){twice} ok")
         return err
 
     errs["fused_encoder"] = encoder_case(BATCH, NUM_POINT, "f32")
@@ -315,6 +323,10 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
     encoder_case(BATCH, NUM_POINT - 1, "f32")
     encoder_case(BATCH, 100, "f32")
     encoder_case(3, 37, "bf16")
+    # A ragged last 256-point tile of the bf16 route; its own seed, so the
+    # cases after it keep their inputs.
+    encoder_case(BATCH, NUM_POINT - 1, "bf16",
+                 gen=np.random.RandomState(SEED + 7))
 
     def chamfer_case(x1, x2, label, plain=None):
         a = torch.from_numpy(x1).to(dev)
@@ -381,28 +393,46 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
         wrong = (karg.cpu().numpy() != parg.cpu().numpy()) & clear
         require(not wrong.any(), f"head forward {what}: argmax "
                 f"differs at {int(wrong.sum())} clear maxima")
-        # K4 given the plain version's argmax; gvals at the scale of a
-        # training step's (loss x100 over B*F outputs).
-        gvals = torch.from_numpy(
-            (1e-3 * gen.randn(b, 1024)).astype(np.float32)).to(dev)
-        kdx, kdw = fh.head_bwd_cuda(x, w, gvals, parg)
-        pdx, pdw = fh.head_bwd_plain(x, w, gvals, parg)
-        torch.cuda.synchronize()
-        brtol, batol = HEAD_BWD_TOL[dtype_name]
-        kdx, pdx = kdx.float().cpu().numpy(), pdx.float().cpu().numpy()
-        kdw, pdw = kdw.cpu().numpy(), pdw.cpu().numpy()
-        require(kdx.dtype == pdx.dtype and close(kdx, pdx, brtol, batol),
-                f"head backward dx {what}: max abs err "
-                f"{max_err(kdx, pdx):.3e}")
-        require(close(kdw, pdw, *HEAD_BWD_TOL["f32"]),
-                f"head backward dw {what}: max abs err "
-                f"{max_err(kdw, pdw):.3e}")
-        berr = max(max_err(kdx, pdx), max_err(kdw, pdw))
+        berr = head_bwd_case(x, w, parg, what, gen)
         say("kernels", f"fused_head {what}: forward max_abs_err {err:.3e}, "
             f"argmax equal at {int(clear.sum())} clear maxima, two calls "
-            f"bit-equal; backward max_abs_err {berr:.3e} (dx rtol {brtol}) "
-            f"ok")
+            f"bit-equal ok")
         return err, berr, karg, kmax
+
+    def head_bwd_case(x, w, arg, what, gen):
+        """K4 given ``arg``; gvals at the scale of a training step's (loss
+        x100 over B*F outputs). dx bit-equal over two calls and to the
+        plain version on the CPU; dw within HEAD_DW_TOL of the plain
+        version on the card. Returns the max abs error against the plain
+        version on the card."""
+        b = x.shape[0]
+        gvals = torch.from_numpy(
+            (1e-3 * gen.randn(b, 1024)).astype(np.float32)).to(dev)
+        kdx, kdw = fh.head_bwd_cuda(x, w, gvals, arg)
+        kdx2, kdw2 = fh.head_bwd_cuda(x, w, gvals, arg)
+        pdx, pdw = fh.head_bwd_plain(x, w, gvals, arg)
+        cdx, _ = fh.head_bwd_plain(*(t.cpu() for t in (x, w, gvals, arg)))
+        torch.cuda.synchronize()
+        require(kdx.dtype == x.dtype and torch.equal(kdx, kdx2)
+                and torch.equal(kdw, kdw2),
+                f"head backward {what}: two calls differ")
+        bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+        differ = int((kdx.cpu().view(bits) != cdx.view(bits)).sum())
+        require(differ == 0, f"head backward dx {what}: {differ} entries "
+                f"differ from the plain version on the CPU")
+        kdx, pdx = kdx.float().cpu().numpy(), pdx.float().cpu().numpy()
+        kdw, pdw = kdw.cpu().numpy(), pdw.cpu().numpy()
+        require(close(kdw, pdw, *HEAD_DW_TOL),
+                f"head backward dw {what}: max abs err "
+                f"{max_err(kdw, pdw):.3e}")
+        rows = arg.long() + x.shape[1] * torch.arange(b, device=dev)[:, None]
+        most = int(torch.bincount(rows.reshape(-1)).max())
+        berr = max(max_err(kdx, pdx), max_err(kdw, pdw))
+        say("kernels", f"fused_head backward {what}: dx bit-equal to the "
+            f"plain version on the CPU and over two calls (up to {most} "
+            f"channels on one row); dw max_abs_err {max_err(kdw, pdw):.3e} "
+            f"(rtol {HEAD_DW_TOL[0]}, atol {HEAD_DW_TOL[1]}) ok")
+        return berr
 
     errs["head_f32"] = head_case(BATCH, NUM_POINT, "f32")[:2]
     errs["head_bf16"] = head_case(BATCH, NUM_POINT, "bf16")[:2]
@@ -430,6 +460,19 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
             "head forward bf16: an all-zero channel did not pick point 0")
     say("kernels", "fused_head bf16 ties: the lower copy won every channel; "
         "all-zero channels picked point 0 ok")
+    head_case(3, 37, "bf16", gen=extra)
+    # Many channels on one row: four points of a large norm take the
+    # argmax of most channels whose scaled product grows with them, so K4's
+    # dx sums many products into each of those rows.
+    for dtype_name in ("f32", "bf16"):
+        dtype = torch.float32 if dtype_name == "f32" else torch.bfloat16
+        x = head_inputs(torch, extra, BATCH, NUM_POINT, dtype)[0]
+        x[:, :4] *= 30.0
+        karg = head_case(BATCH, NUM_POINT, dtype_name, x=x,
+                         label=" shared rows", gen=extra)[2]
+        most = int(torch.bincount(karg[0].long()).max())
+        require(most >= 64, f"head shared rows {dtype_name}: at most {most} "
+                f"channels share a row")
 
     def chamfer_grad_case(x1, x2, label, gen=rng):
         a = torch.from_numpy(x1).to(dev)
@@ -1085,10 +1128,22 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
     bf16_chain = fe.fold_layers(
         [tuple(torch.from_numpy(x).to(dev) for x in layer)
          for layer in random_layers(rng)], eps=EPS, dtype=torch.bfloat16)
-    kb_ms = cuda_ms(torch, lambda: fe.encoder_extrema_cuda(pts, bf16_chain))
-    say("timings", f"fused_encoder_eval bf16 B={BATCH} N={NUM_POINT}: "
-        f"{kb_ms:.4f} ms on CUDA cores; bf16 tensor-core bound "
-        f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms")
+    # bf16 points, so that the wrapper's cast is no copy and the traces
+    # hold the kernels alone.
+    pts16 = pts.to(torch.bfloat16)
+    kb_ms = cuda_ms(torch, lambda: fe.encoder_extrema_cuda(pts16, bf16_chain))
+    for name, c5, p5 in (("f32", chain, pts), ("bf16", bf16_chain, pts16)):
+        dev_ms, counts = median_device_ms(
+            torch, lambda p5=p5, c5=c5: fe.encoder_extrema_cuda(p5, c5))
+        bf16 = name == "bf16"
+        b5 = bound(flops, nbytes - (pts.numel() * 2 if bf16 else 0),
+                   PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+        say("timings", f"fused_encoder_eval {name} B={BATCH} N={NUM_POINT}: "
+            + (f"{kb_ms:.4f} ms by CUDA events (tensor cores); " if bf16
+               else "")
+            + f"device time per call, median of 50 traced calls: "
+            f"{dev_ms:.5f} ms ({_event_counts(counts)}); bound "
+            f"{b5['bound_ms']:.4f} ms ({b5['bound_by']})")
 
     # K1, both directions: the function needs each pair's d2 once (3 sub,
     # 3 mul, 2 add) and one compare per direction, 10 f32 operations per
@@ -1156,12 +1211,22 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
             **bound(4.0 * b * f * c,
                     x.numel() * es + rows_x * c * es + w.numel() * es
                     + b * f * 8 + c * f * 4, peak))
+        bwd_dev, bwd_counts = median_device_ms(
+            torch, lambda: fh.head_bwd_cuda(x, w, gvals, arg))
+        # K4 writes dx once in the matmul type: its trace holds its own
+        # kernels only (no memset, no cast).
+        require(bool(bwd_counts) and all("head_" in name
+                                         for name in bwd_counts),
+                f"K4's trace holds a memset, a cast or nothing: "
+                f"{sorted(bwd_counts)}")
         say("timings", f"fused_head {dtype_name} B={b} N={n}: forward "
             f"{fwd['ms']:.4f} ms (device time per call {fwd_dev:.5f}, "
             f"median of 50 traced calls: {_event_counts(fwd_counts)}; plain "
             f"{fwd['plain_ms']:.4f}, bound "
             f"{fwd['bound_ms']:.4f} {fwd['bound_by']}); backward "
-            f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, bound "
+            f"{bwd['ms']:.4f} ms (device time per call {bwd_dev:.5f}, "
+            f"median of 50 traced calls: {_event_counts(bwd_counts)}; plain "
+            f"{bwd['plain_ms']:.4f}, bound "
             f"{bwd['bound_ms']:.4f} {bwd['bound_by']}; {rows_x} argmax "
             f"rows)")
         head[dtype_name] = fwd, bwd
@@ -1298,41 +1363,50 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
     return rows
 
 
-def median_device_ms(torch, fn, reps=50):
+def median_device_ms(torch, fn, reps=50, attempts=3):
     """(one call's device time in ms: over ``reps`` traced calls, each
     followed by a synchronize, the median duration of each kernel that
     ``fn`` launches once per call, summed over its kernels; the number of
-    events of each name). A trace may lose an event, which barely moves a
-    median; a name with more than ``reps`` or fewer than ``reps - 2``
-    events (a kernel launched more than once per call) fails."""
+    events of each name). A name with more than ``reps`` events (a kernel
+    launched more than once per call) fails. A trace may lose events (on
+    an H100 a trace once kept 16 of 50 calls' and another 43): with fewer
+    than ``reps - 2`` of a name the trace is taken again, up to
+    ``attempts`` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    if not events:
-        return float("nan"), {}
-    by_name = {}
-    for e in events:
-        by_name.setdefault(e.name, []).append(
-            e.time_range.end - e.time_range.start)
-    counts = {name: len(v) for name, v in by_name.items()}
-    require(all(reps - 2 <= c <= reps for c in counts.values()),
-            f"not one event per call in {reps} calls: {counts}")
-    return (sum(statistics.median(v) for v in by_name.values()) / 1e3,
-            counts)
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        if not events:
+            return float("nan"), {}
+        by_name = {}
+        for e in events:
+            by_name.setdefault(e.name, []).append(
+                e.time_range.end - e.time_range.start)
+        counts = {name: len(v) for name, v in by_name.items()}
+        require(all(c <= reps for c in counts.values()),
+                f"more than one event per call in {reps} calls: {counts}")
+        if all(c >= reps - 2 for c in counts.values()):
+            return (sum(statistics.median(v) for v in by_name.values())
+                    / 1e3, counts)
+        seen.append(counts)
+    raise PhaseError(f"{attempts} traces of {reps} calls each lost events: "
+                     f"{seen}")
 
 
 # Substrings of the device-side names of the port's kernels and memsets.
-OWN_KERNELS = ("encoder_tile", "reduce_tiles", "nn_distance", "head_",
-               "f32_to_bf16", "emd_", "Memset")
+OWN_KERNELS = ("encoder_", "reduce_tiles", "nn_distance", "head_", "emd_",
+               "Memset")
 
 
 def device_trace(torch, fn, label, top=6, own=False) -> str:

@@ -60,14 +60,27 @@
 // per (b, channel)), so the work is B*F*C multiply-adds, not the dense
 // product the TPU runs on its matrix unit; what must move is dx, (B, N, C),
 // written once (33.5 MB in f32 at the sizes above, 0.010 ms at 3.35 TB/s).
-// - dx: zero an f32 buffer, then one thread per (b, f, c) adds
-//   gy[b,f]*w[c,f] into row argmax[b,f] with atomicAdd (several channels
-//   can share a point). Neighbouring threads take neighbouring c, so a
-//   warp's atomics land in one row. The w tile is staged through shared
-//   memory so its reads are coalesced. In bf16 mode the buffer is f32
-//   scratch cast to bf16 at the end, as the TPU kernel accumulates in f32.
-//   The atomics' order varies from run to run, so dx does too, in the last
-//   bits of each sum.
+// - dx (head_bwd_dx_kernel): every row written once, in the matmul type,
+//   zeros included; no (B, N, C) scratch, no memset, no cast, no atomics
+//   (the only scratch is w transposed, (F, C) in the matmul type). One block
+//   per (batch element, chunk of 128 rows) reads that element's F
+//   (argmax, gvals) entries and sorts the channels whose argmax row lies
+//   in its chunk into one bucket per row in shared memory, by counting,
+//   stable in f (per round of 256 channels, a channel goes after the same
+//   row's channels of earlier rounds, warps and lanes: __match_any_sync
+//   and per-warp counts). Warps then take rows one at a time from a
+//   shared counter (in training a few rows can take hundreds of channels,
+//   and a fixed row-to-warp map could give one warp several); for its row a
+//   warp walks the bucket in ascending f, 16 weight loads in flight, and
+//   each lane sums 4 of the 128 input channels: acc[c] = ((0 + p_f1) +
+//   p_f2) + ... with p_f = gy_f * w[c, f], no FMA, the order in which
+//   index_add_ adds on the CPU (head_bwd_plain), so dx is bit-equal to the
+//   plain version there and over two calls. The lanes read one channel's
+//   128 weights at once from w transposed (F, C), which
+//   head_w_transpose_kernel writes first (w is (C, F): reading a column of
+//   it directly would take one 32-byte sector per value). The sort takes
+//   32 bytes per channel of shared memory; its phases are short and few
+//   (5 barriers), since at these sizes a block's time is their latency.
 // - dw[c,f] = sum over b of x[b, argmax[b,f], c]*gy[b,f]: one thread per
 //   (c, f), a loop over b in order; deterministic.
 // gy is gvals rounded to the activation type first (fused_head.py:190).
@@ -81,6 +94,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -92,7 +106,11 @@ constexpr int kLanes = 64;           // threads along channels, 4 channels each
 constexpr int kGroups = kThreads / kLanes;  // point groups
 constexpr int kPpt = kTileN / kGroups;      // points per thread
 constexpr int kPassF = 4 * kLanes;          // channels per pass
-constexpr int kFTile = 32;                  // channels per dx block
+constexpr int kDxRows = 128;                // rows of dx per block
+constexpr int kDxThreads = 256;             // 8 warps; F % 256 == 0
+constexpr int kDxWarps = kDxThreads / 32;
+constexpr int kDxBatch = 16;                // weight loads in flight per row
+constexpr int kTrTile = 32;                 // w transpose tile
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -236,49 +254,6 @@ constexpr size_t kXStageBytes = kMmaTileN * kXPitch * 2;
 constexpr size_t kMmaSmemBytes = kMmaStages * kXStageBytes;  // 52,224
 static_assert(kC * kWPitch * 2 <= kMmaSmemBytes, "w tile fits the ring");
 static_assert(kWarpF * kMmaThreads / 32 == kMmaTileF, "warps cover F");
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte cp.async; src_bytes 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// Four 8x8 bf16 matrices from shared memory: lane l gives the address of
-// row l % 16 of a 16x16 tile at column (l / 16) * 8, which yields the A
-// fragment of mma.m16n8k16 (a0 rows 0-7 / k 0-7, a1 rows 8-15, a2 k 8-15,
-// a3 both).
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&a)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // (v, p) beats (best, best_p): a larger value, or the lower point index at
 // an equal value.
@@ -451,33 +426,191 @@ head_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// dx32[b, argmax[b,f], c] += gy[b,f] * w[c,f] for a tile of 32 channels f.
+// wt (F, C) = w (C, F) transposed, through a 32 x 32 shared tile; Bits is
+// an unsigned type of the matmul type's size (the values only move).
+template <typename Bits>
+__global__ void head_w_transpose_kernel(const Bits* __restrict__ w,
+                                        Bits* __restrict__ wt, int f_total) {
+  __shared__ Bits tile[kTrTile][kTrTile + 1];
+  const int f0 = blockIdx.x * kTrTile, c0 = blockIdx.y * kTrTile;
+  for (int i = threadIdx.y; i < kTrTile; i += blockDim.y)
+    tile[i][threadIdx.x] =
+        w[static_cast<size_t>(c0 + i) * f_total + f0 + threadIdx.x];
+  __syncthreads();
+  for (int i = threadIdx.y; i < kTrTile; i += blockDim.y)
+    wt[static_cast<size_t>(f0 + i) * kC + c0 + threadIdx.x] =
+        tile[threadIdx.x][i];
+}
+
+// Four consecutive values of the matmul type: loaded as they are stored
+// (Raw4), widened to f32 (exactly), and stored back rounded to nearest even.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-head_bwd_dx_kernel(const T* __restrict__ w, const float* __restrict__ gvals,
-                   const int* __restrict__ argmax, float* __restrict__ dx32,
-                   int n, int f_total) {
-  __shared__ float ws[kC * (kFTile + 1)];
-  __shared__ float gy[kFTile];
-  __shared__ int rows[kFTile];
-  const int f0 = blockIdx.x * kFTile, b = blockIdx.y;
-  for (int k = threadIdx.x; k < kC * kFTile; k += kThreads) {
-    const int c = k / kFTile, fl = k % kFTile;
-    ws[c * (kFTile + 1) + fl] = to_f(w[static_cast<size_t>(c) * f_total + f0 + fl]);
+struct Raw4;
+template <>
+struct Raw4<float> {
+  using type = float4;
+};
+template <>
+struct Raw4<__nv_bfloat16> {
+  using type = uint2;
+};
+__device__ __forceinline__ void unpack4(float4 q, float (&v)[4]) {
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void unpack4(uint2 q, float (&v)[4]) {
+  v[0] = __uint_as_float(q.x << 16);  // the lower address holds element 0
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v[0], v[1]);
+  q[1] = __floats2bfloat162_rn(v[2], v[3]);
+}
+
+static_assert(kC == 4 * 32, "a lane sums 4 input channels of a row");
+static_assert(kDxRows == 4 * 32, "one warp scans the rows, 4 per lane");
+
+// Dynamic shared memory of head_bwd_dx_kernel, in 4-byte words per channel:
+// its row and gy, its bucket entry (f, gy), and per round of kDxThreads
+// channels a (warp, row) table of kDxWarps * kDxRows words.
+constexpr int kDxWordsPerChannel = 4 + kDxWarps * kDxRows / kDxThreads;
+
+// One block per (chunk of kDxRows rows, batch element); grid
+// (ceil(n/kDxRows), b). wt (F, C) in the matmul type (w transposed), dx
+// (b, n, C) in the matmul type; dynamic shared memory
+// 4 * kDxWordsPerChannel * f_total bytes. dx[b, r, c] = sum over the
+// channels f with argmax[b,f] == r, in ascending f, of gy[b,f] * w[c,f],
+// from +0; every row of the chunk is written once.
+template <typename T>
+__global__ void __launch_bounds__(kDxThreads)
+head_bwd_dx_kernel(const T* __restrict__ wt, const float* __restrict__ gvals,
+                   const int* __restrict__ argmax, T* __restrict__ dx, int n,
+                   int f_total) {
+  extern __shared__ int words[];
+  int* row_of = words;  // per channel: its row in the chunk, or -1
+  float* gy = reinterpret_cast<float*>(row_of + f_total);
+  int* bucket_f = row_of + 2 * f_total;  // by row, ascending f
+  float* bucket_g = reinterpret_cast<float*>(row_of + 3 * f_total);
+  // before[(round * kDxWarps + warp) * kDxRows + k]: the count of row k's
+  // channels in that (round, warp), then the count before it.
+  int* before = row_of + 4 * f_total;
+  __shared__ int start[kDxRows + 1];  // bucket k is [start[k], start[k+1])
+  __shared__ int count[kDxRows];
+  __shared__ int next_row;
+  const int b = blockIdx.y, r0 = blockIdx.x * kDxRows;
+  const int rows = min(kDxRows, n - r0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rounds = f_total / kDxThreads;
+  const size_t bf = static_cast<size_t>(b) * f_total;
+
+  // Every channel's row and gy, all loads in flight at once.
+#pragma unroll 4
+  for (int f = threadIdx.x; f < f_total; f += kDxThreads) {
+    const int k = argmax[bf + f] - r0;
+    row_of[f] = k >= 0 && k < rows ? k : -1;
+    gy[f] = round_to<T>(gvals[bf + f]);
   }
-  if (threadIdx.x < kFTile) {
-    const size_t o = static_cast<size_t>(b) * f_total + f0 + threadIdx.x;
-    gy[threadIdx.x] = round_to<T>(gvals[o]);
-    rows[threadIdx.x] = argmax[o];
+  for (int i = threadIdx.x; i < rounds * kDxWarps * kDxRows; i += kDxThreads)
+    before[i] = 0;
+  if (threadIdx.x == 0) next_row = 0;
+  __syncthreads();
+  // Per round and warp, each row's channel count (lanes with the same row
+  // found by __match_any_sync; the lowest one writes).
+  for (int r = 0; r < rounds; ++r) {
+    const int k = row_of[r * kDxThreads + threadIdx.x];
+    const unsigned same = __match_any_sync(0xffffffffu, k);
+    if (k >= 0 && (same & ((1u << lane) - 1u)) == 0)
+      before[(r * kDxWarps + warp) * kDxRows + k] = __popc(same);
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < kC * kFTile; k += kThreads) {
-    const int fl = k / kC, c = k % kC;
-    const float gv = gy[fl];
-    const int p = rows[fl];
-    if (gv == 0.f || p < 0 || p >= n) continue;  // nothing to add / no row
-    atomicAdd(dx32 + (static_cast<size_t>(b) * n + p) * kC + c,
-              __fmul_rn(gv, ws[c * (kFTile + 1) + fl]));
+  // Per row, the counts become the count before each (round, warp), in f
+  // order; count[k] is the row's total.
+  if (threadIdx.x < kDxRows) {
+    int run = 0;
+    for (int rw = 0; rw < rounds * kDxWarps; ++rw) {
+      int* c = before + rw * kDxRows + threadIdx.x;
+      const int here = *c;
+      *c = run;
+      run += here;
+    }
+    count[threadIdx.x] = run;
+  }
+  __syncthreads();
+  // Bucket starts: an exclusive scan of the counts.
+  if (warp == 0) {
+    int c[4], sum = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      c[i] = count[4 * lane + i];
+      sum += c[i];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o *= 2) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int run = incl - sum;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      start[4 * lane + i] = run;
+      run += c[i];
+    }
+    if (lane == 31) start[kDxRows] = incl;
+  }
+  __syncthreads();
+  // Each channel at its rank in its row's bucket: after the (round, warp)s
+  // before it and the lower lanes of its own.
+  for (int r = 0; r < rounds; ++r) {
+    const int f = r * kDxThreads + threadIdx.x;
+    const int k = row_of[f];
+    const unsigned same = __match_any_sync(0xffffffffu, k);
+    if (k >= 0) {
+      const int at = start[k] + before[(r * kDxWarps + warp) * kDxRows + k] +
+                     __popc(same & ((1u << lane) - 1u));
+      bucket_f[at] = f;
+      bucket_g[at] = gy[f];
+    }
+  }
+  __syncthreads();
+
+  // Rows one at a time to whichever warp is free; a row's bucket in
+  // ascending f, kDxBatch weight loads in flight, the adds in order.
+  using Raw = typename Raw4<T>::type;
+  for (;;) {
+    int k = 0;
+    if (lane == 0) k = atomicAdd(&next_row, 1);
+    k = __shfl_sync(0xffffffffu, k, 0);
+    if (k >= rows) break;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const int end = start[k + 1];
+    for (int q0 = start[k]; q0 < end; q0 += kDxBatch) {
+      Raw raw[kDxBatch];
+#pragma unroll
+      for (int i = 0; i < kDxBatch; ++i)
+        if (q0 + i < end)
+          raw[i] = *reinterpret_cast<const Raw*>(
+              wt + static_cast<size_t>(bucket_f[q0 + i]) * kC + 4 * lane);
+#pragma unroll
+      for (int i = 0; i < kDxBatch; ++i)
+        if (q0 + i < end) {
+          float wv[4];
+          unpack4(raw[i], wv);
+          const float g = bucket_g[q0 + i];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[c] = __fadd_rn(acc[c], __fmul_rn(g, wv[c]));
+        }
+    }
+    store4(dx + (static_cast<size_t>(b) * n + r0 + k) * kC + 4 * lane, acc);
   }
 }
 
@@ -497,13 +630,6 @@ head_bwd_dw_kernel(const T* __restrict__ x, const float* __restrict__ gvals,
     acc = __fadd_rn(acc, __fmul_rn(xv, round_to<T>(gvals[o])));
   }
   dw[static_cast<size_t>(c) * f_total + f] = acc;
-}
-
-__global__ void f32_to_bf16_kernel(const float* __restrict__ src,
-                                   __nv_bfloat16* __restrict__ dst,
-                                   size_t count) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < count) dst[i] = __float2bfloat16_rn(src[i]);
 }
 
 int launch_fwd_f32(const void* x, const void* w, const void* scale,
@@ -541,26 +667,31 @@ int launch_fwd_bf16(const void* x, const void* w, const void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_bwd(const void* x, const void* w, const void* gvals,
-               const void* argmax, void* dx32, void* dx, void* dw, int b,
-               int n, int f, cudaStream_t stream) {
-  const size_t count = static_cast<size_t>(b) * n * kC;
-  cudaError_t e = cudaMemsetAsync(dx32, 0, count * sizeof(float), stream);
+// Bits: an unsigned type of T's size, for the transpose.
+template <typename T, typename Bits>
+int launch_bwd(const void* x, const void* w, void* wt, const void* gvals,
+               const void* argmax, void* dx, void* dw, int b, int n, int f,
+               cudaStream_t stream) {
+  static_assert(sizeof(Bits) == sizeof(T), "the transpose moves T's bits");
+  head_w_transpose_kernel<Bits>
+      <<<dim3(f / kTrTile, kC / kTrTile), dim3(kTrTile, 8), 0, stream>>>(
+          static_cast<const Bits*>(w), static_cast<Bits*>(wt), f);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  head_bwd_dx_kernel<T><<<dim3(f / kFTile, b), kThreads, 0, stream>>>(
-      static_cast<const T*>(w), static_cast<const float*>(gvals),
-      static_cast<const int*>(argmax), static_cast<float*>(dx32), n, f);
+  // 32 KB at F = 1024; past 48 KB only with the opt-in.
+  const int smem = kDxWordsPerChannel * f * static_cast<int>(sizeof(int));
+  e = cudaFuncSetAttribute(head_bwd_dx_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  head_bwd_dx_kernel<T>
+      <<<dim3((n + kDxRows - 1) / kDxRows, b), kDxThreads, smem, stream>>>(
+          static_cast<const T*>(wt), static_cast<const float*>(gvals),
+          static_cast<const int*>(argmax), static_cast<T*>(dx), n, f);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   head_bwd_dw_kernel<T><<<f, kC, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(gvals),
       static_cast<const int*>(argmax), static_cast<float*>(dw), b, n, f);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || dx == dx32) return static_cast<int>(e);
-  f32_to_bf16_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0,
-                       stream>>>(static_cast<const float*>(dx32),
-                                 static_cast<__nv_bfloat16*>(dx), count);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -593,17 +724,16 @@ extern "C" int pcae_fused_head_fwd(int bf16, const void* x, const void* w,
 
 // x (b, n, 128) and w (128, f) in the matmul type, gvals (b, f) f32,
 // argmax (b, f) int32 -> dx (b, n, 128) in the matmul type and dw (128, f)
-// f32. dx32 is (b, n, 128) f32: the output itself in f32 mode (pass the same
-// pointer as dx), scratch in bf16 mode. Zeroes dx32, then launches the dx,
-// dw (and, in bf16 mode, cast) kernels on `stream`; returns
-// cudaGetLastError().
+// f32; f a multiple of 256. wt is (f, 128) scratch in the matmul type (w
+// transposed); wt and dx 16-byte aligned. Launches the transpose, dx and
+// dw kernels on `stream`; returns cudaGetLastError().
 extern "C" int pcae_fused_head_bwd(int bf16, const void* x, const void* w,
-                                   const void* gvals, const void* argmax,
-                                   void* dx32, void* dx, void* dw, int b,
-                                   int n, int f, void* stream) {
+                                   void* wt, const void* gvals,
+                                   const void* argmax, void* dx, void* dw,
+                                   int b, int n, int f, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd<__nv_bfloat16>(x, w, gvals, argmax, dx32, dx, dw,
-                                          b, n, f, s)
-              : launch_bwd<float>(x, w, gvals, argmax, dx32, dx, dw, b, n, f,
-                                  s);
+  return bf16 ? launch_bwd<__nv_bfloat16, unsigned short>(
+                    x, w, wt, gvals, argmax, dx, dw, b, n, f, s)
+              : launch_bwd<float, unsigned>(x, w, wt, gvals, argmax, dx, dw,
+                                            b, n, f, s);
 }

@@ -39,7 +39,7 @@ KERNEL_WIDTHS = (3, 64, 64, 64, 128, 1024)
 
 # C entry points of csrc/fused_encoder.cu: (argtypes, restype).
 _SIGNATURES = {
-    "pcae_encoder_tile_n": ([], ctypes.c_int),
+    "pcae_encoder_tile_n": ([ctypes.c_int], ctypes.c_int),
     "pcae_fused_encoder_eval": (
         [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
         + [ctypes.c_void_p],
@@ -67,12 +67,17 @@ class FoldedChain:
       tensor.
     last_scale, last_shift: the last layer's folded f32 rows (F,), applied
       after the max.
+    transposed: bf16 only, the kernel's layout of the layers after the
+      first: each weight transposed, (F, C) contiguous, so that one output
+      channel's inputs are contiguous (the tensor-core kernel's B operand).
+      Empty for f32, whose kernel reads ``weights``.
     """
 
     weights: Tuple[Tensor, ...]
     affine: Tensor
     last_scale: Tensor
     last_shift: Tensor
+    transposed: Tuple[Tensor, ...]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -104,7 +109,9 @@ def fold_layers(layers: Sequence[LayerParams], eps: float = 1e-3,
         rows.append(tuple(t.detach()
                           for t in fold_affine(b, gamma, beta, mean, var, eps)))
     affine = torch.cat([t for pair in rows[:-1] for t in pair]).contiguous()
-    return FoldedChain(tuple(weights), affine, *rows[-1])
+    transposed = (tuple(w.t().contiguous() for w in weights[1:])
+                  if dtype == torch.bfloat16 else ())
+    return FoldedChain(tuple(weights), affine, *rows[-1], transposed)
 
 
 def encoder_extrema_plain(points: Tensor,
@@ -126,10 +133,11 @@ def encoder_extrema_plain(points: Tensor,
 
 def encoder_extrema_cuda(points: Tensor,
                          chain: FoldedChain) -> Tuple[Tensor, Tensor]:
-    """The CUDA kernel; same outputs as ``encoder_extrema_plain``. Takes
-    only the PointNet encoder's widths (``KERNEL_WIDTHS``). Adds one to
-    ``encoder_extrema_cuda.launches`` per launch (the tile kernel and its
-    reduction over tiles)."""
+    """The CUDA kernel; same outputs as ``encoder_extrema_plain`` (f32
+    bit-equal; bf16 on the tensor cores, conv2-5's sums in another f32
+    order). Takes only the PointNet encoder's widths (``KERNEL_WIDTHS``).
+    Adds one to ``encoder_extrema_cuda.launches`` per call (the route's tile
+    kernel and the reduction over tiles)."""
     dev = points.device
     if not points.is_cuda:
         raise ValueError("encoder_extrema_cuda takes CUDA tensors")
@@ -139,14 +147,19 @@ def encoder_extrema_cuda(points: Tensor,
     if points.dim() != 3 or points.shape[2] != 3 or 0 in points.shape:
         raise ValueError(f"expected (B, N, 3) points, got "
                          f"{tuple(points.shape)}")
-    tensors = chain.weights + (chain.affine,)
-    if any(t.device != dev or not t.is_contiguous() for t in tensors):
-        raise ValueError("chain tensors must be contiguous and on the "
-                         "points' device")
+    bf16 = chain.dtype == torch.bfloat16
+    # The bf16 kernel reads conv2-5 transposed (16-byte copies).
+    kernel_weights = (chain.weights[:1] + chain.transposed if bf16
+                      else chain.weights)
+    tensors = kernel_weights + (chain.affine,)
+    if any(t.device != dev or not t.is_contiguous() or t.data_ptr() % 16
+           for t in tensors):
+        raise ValueError("chain tensors must be contiguous, 16-byte "
+                         "aligned and on the points' device")
     pts = points.to(chain.dtype).contiguous()
     b, n, _ = pts.shape
     lib = _build.load("fused_encoder", _SIGNATURES)
-    tiles = -(-n // lib.pcae_encoder_tile_n())
+    tiles = -(-n // lib.pcae_encoder_tile_n(int(bf16)))
     f = KERNEL_WIDTHS[-1]
     part_max = torch.empty((b, tiles, f), dtype=torch.float32, device=dev)
     part_min = torch.empty_like(part_max)
@@ -154,8 +167,8 @@ def encoder_extrema_cuda(points: Tensor,
     ymin = torch.empty_like(ymax)
     with torch.cuda.device(dev):
         err = lib.pcae_fused_encoder_eval(
-            int(chain.dtype == torch.bfloat16), pts.data_ptr(),
-            *(w.data_ptr() for w in chain.weights), chain.affine.data_ptr(),
+            int(bf16), pts.data_ptr(),
+            *(w.data_ptr() for w in kernel_weights), chain.affine.data_ptr(),
             part_max.data_ptr(), part_min.data_ptr(), ymax.data_ptr(),
             ymin.data_ptr(), b, n, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "fused encoder kernel")

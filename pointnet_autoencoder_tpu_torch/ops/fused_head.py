@@ -159,25 +159,36 @@ def head_bwd_plain(x: Tensor, w: Tensor, gvals: Tensor,
                    argmax: Tensor) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of K4: (dx (B, N, C) in x's dtype, dw (C, F)
     f32) from the one-hot cotangent, gvals (B, F) f32 at rows argmax
-    (B, F). The dense scatter and two products of the reference's xla
-    branch; gvals is rounded to the activation type first, as the TPU
-    kernel does (fused_head.py:190)."""
-    b, n, _ = x.shape
-    gy = torch.zeros((b, n, w.shape[1]), dtype=torch.float32,
-                     device=x.device)
-    gy.scatter_(1, argmax.long()[:, None, :], gvals.float()[:, None, :])
-    gy = gy.to(x.dtype).float()
-    dx = torch.einsum("bnf,cf->bnc", gy, w.float()).to(x.dtype)
+    (B, F); gvals is rounded to the activation type first, as the TPU
+    kernel does (fused_head.py:190).
+
+    dx adds the f32 products gy[b, f] * w[:, f] into f32 zeros at row
+    b*N + argmax[b, f] with ``index_add_``, in (b, f) order, then rounds to
+    x's dtype. On the CPU ``index_add_`` adds in index order, so each row
+    is ((0 + p_f1) + p_f2) + ... in ascending f: the kernel's order, and
+    the two give the same bits. dw is the reference's xla product of the
+    dense one-hot gy."""
+    b, n, c = x.shape
+    f = w.shape[1]
+    g = gvals.to(x.dtype).float()
+    prods = g[:, :, None] * w.float().t()[None]  # (B, F, C)
+    rows = argmax.long() + n * torch.arange(b, device=x.device)[:, None]
+    dx = torch.zeros((b * n, c), dtype=torch.float32, device=x.device)
+    dx.index_add_(0, rows.reshape(-1), prods.reshape(b * f, c))
+    gy = torch.zeros((b, n, f), dtype=torch.float32, device=x.device)
+    gy.scatter_(1, argmax.long()[:, None, :], g[:, None, :])
     dw = torch.einsum("bnc,bnf->cf", x.float(), gy)
-    return dx, dw
+    return dx.reshape(b, n, c).to(x.dtype), dw
 
 
 def head_bwd_cuda(x: Tensor, w: Tensor, gvals: Tensor,
                   argmax: Tensor) -> Tuple[Tensor, Tensor]:
     """K4 on CUDA tensors (shapes and types as ``head_max_cuda``; gvals
     (B, F) f32, argmax (B, F) int32 from K3); same outputs as
-    ``head_bwd_plain``, dx up to the order of its atomic sums. Adds one to
-    ``head_bwd_cuda.launches`` per launch."""
+    ``head_bwd_plain``, dx in the plain version's order of sums (bit-equal
+    to it on the CPU). Three launches: w transposed into an (F, C) scratch
+    of the matmul type, dx, dw; no (B, N, C) f32 buffer. Adds one to
+    ``head_bwd_cuda.launches`` per call."""
     lib = _load_for(x, w, (gvals, argmax), "head_bwd_cuda")
     b, n, _ = x.shape
     c, f = w.shape
@@ -190,14 +201,13 @@ def head_bwd_cuda(x: Tensor, w: Tensor, gvals: Tensor,
     gvals = gvals.float().contiguous()
     argmax = argmax.contiguous()
     dev = x.device
+    wt = torch.empty((f, c), dtype=x.dtype, device=dev)
     dx = torch.empty((b, n, c), dtype=x.dtype, device=dev)
-    dx32 = dx if x.dtype == torch.float32 else torch.empty(
-        (b, n, c), dtype=torch.float32, device=dev)
     dw = torch.empty((c, f), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.pcae_fused_head_bwd(
             int(x.dtype == torch.bfloat16), x.data_ptr(), w.data_ptr(),
-            gvals.data_ptr(), argmax.data_ptr(), dx32.data_ptr(),
+            wt.data_ptr(), gvals.data_ptr(), argmax.data_ptr(),
             dx.data_ptr(), dw.data_ptr(), b, n, f,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "fused head backward kernel")
