@@ -18,8 +18,10 @@ line each; any failure exits non-zero before the final line:
             its plain version on the CPU, in f32 and bf16, also where many
             channels share a row; K5 f32 and bf16 (tensor cores) at N=2048
             and 2047; K2 bit-equal to its plain version on the CPU (and at
-            B=1, N=M=65536, past one block's shared memory); K6 against
-            float64 no worse than 2x the plain f32 version.
+            B=1, N=M=65536, past one block's shared memory); K1 and K2
+            also at model_hierachy's center term, B=32 with (N, M) =
+            (64, 2048) and (2048, 64), bit-equal; K6 against float64 no
+            worse than 2x the plain f32 version.
 4. session: the serving path (``--model model``, full width, num_point
             2048, batch 32, random weights from a numpy seed written as a
             reference-named .npz) through ``InferenceSession(device="cuda")``,
@@ -58,6 +60,18 @@ line each; any failure exits non-zero before the final line:
             reconstruct and of one train step of each model, and one
             torch.profiler trace of each (device busy time, idle share,
             device time by kernel).
+9. families: ``--model`` model_cpu, model_hierachy, model_upconv and
+            model_fc_upconv, each trained as phase 6 (bf16, 2 epochs, the
+            same fixture): finite losses, a falling eval pcloss, a best
+            checkpoint and a bf16 session on it (reconstruct, embed,
+            decode at B=32). Launch counters are zeroed before each run
+            and read after it, and must equal what the path needs: K3 and
+            K4 once per step, K5 once per eval batch, K1 and K2 once per
+            Chamfer call (two per batch for model_hierachy, none for
+            model_cpu, whose loss is the dense Chamfer). The host median
+            and a trace of one bf16 train step of each; one f32 step at
+            B=8 on the card against the CPU's, as in phase 6, for the
+            three families with Chamfer kernels.
 
 The last three lines are the kernels JSON line, the nvidia-smi line and
 the device JSON line.
@@ -142,6 +156,9 @@ EMD_LAST_LEVEL_OPS = 16
 # 1980 MHz boost clock.
 PEAK_SFU_PER_S = 16 * 132 * 1.98e9
 EMD_STEP_BATCH = 8
+# model_hierachy's first stage: 64 centers, held against the label by the
+# Chamfer kernels.
+HIER_CENTERS = 64
 
 
 class PhaseError(RuntimeError):
@@ -474,7 +491,7 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
         require(most >= 64, f"head shared rows {dtype_name}: at most {most} "
                 f"channels share a row")
 
-    def chamfer_grad_case(x1, x2, label, gen=rng):
+    def chamfer_grad_case(x1, x2, label, gen=rng, long_segments=False):
         a = torch.from_numpy(x1).to(dev)
         b = torch.from_numpy(x2).to(dev)
         _, i1, _, i2 = ch.nn_distance_cuda(a, b)
@@ -497,13 +514,24 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
                 f"differ from the plain version on the CPU")
         p = [t.cpu().numpy() for t in ch.nn_distance_grad_plain(*args)]
         err = max(max_err(k[0], p[0]), max_err(k[1], p[1]))
-        require(all(close(kk, pp, *CHAMFER_GRAD_TOL)
-                    for kk, pp in zip(k, p)),
-                f"nn_distance_grad {label}: max abs err {err:.3e}")
+        rtol, atol = CHAMFER_GRAD_TOL
+        if long_segments:
+            # Rows that take tens of terms: the plain version's atomics add
+            # them in any order, which moves a row by a few ulp of the sum
+            # of its terms' magnitudes, not of its (cancelling) result.
+            scale = [t.cpu().numpy() for t in grad_term_magnitudes(
+                torch, *args)]
+            ok = all(bool(np.all(np.abs(kk - pp) <= atol + rtol * ss))
+                     for kk, pp, ss in zip(k, p, scale))
+            what = "of the sum of each entry's term magnitudes"
+        else:
+            ok = all(close(kk, pp, rtol, atol) for kk, pp in zip(k, p))
+            what = "of the entry"
+        require(ok, f"nn_distance_grad {label}: max abs err {err:.3e}")
         say("kernels", f"nn_distance_grad {label}: max_abs_err {err:.3e} "
-            f"against the plain version on the card (rtol "
-            f"{CHAMFER_GRAD_TOL[0]}, atol {CHAMFER_GRAD_TOL[1]}); bit-equal "
-            f"to the plain version on the CPU and over two calls ok")
+            f"against the plain version on the card (rtol {rtol} {what}, "
+            f"atol {atol}); bit-equal to the plain version on the CPU and "
+            f"over two calls ok")
         return err
 
     errs["nn_distance_grad"] = chamfer_grad_case(
@@ -519,7 +547,30 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
     require(words > 0, "B=1 N=M=65536 should need the scratch buffer")
     chamfer_grad_case(clouds(big, 1, 65536), clouds(big, 1, 65536),
                       f"B=1 N=M=65536 ({words} scratch words)", gen=big)
+    # model_hierachy's center term: 64 centers against the label's points,
+    # and the mirror image; one 256-query tile mostly masked, and long
+    # segments in K2's sums (about 32 label points per center). Own seed.
+    hier = np.random.RandomState(SEED + 8)
+    for n, m in ((HIER_CENTERS, NUM_POINT), (NUM_POINT, HIER_CENTERS)):
+        x1, x2 = clouds(hier, BATCH, n), clouds(hier, BATCH, m)
+        chamfer_case(x1, x2, f"B={BATCH} N={n} M={m}")
+        chamfer_grad_case(x1, x2, f"B={BATCH} N={n} M={m}", gen=hier,
+                          long_segments=True)
     return errs
+
+
+def grad_term_magnitudes(torch, x1, x2, idx1, idx2, g1, g2):
+    """Per entry of K2's (gx1, gx2), the sum of the magnitudes of the
+    terms added into it: |t1[n]| + sum over m with idx2[m] = n of |t2[m]|,
+    and the mirror image, for t1 = 2 g1 (x1 - x2[idx1]) and t2 = 2 g2 (x2 -
+    x1[idx2])."""
+    def rows(idx):
+        return idx.long()[..., None].expand(-1, -1, 3)
+
+    t1 = (2.0 * g1[..., None] * (x1 - torch.gather(x2, 1, rows(idx1)))).abs()
+    t2 = (2.0 * g2[..., None] * (x2 - torch.gather(x1, 1, rows(idx2)))).abs()
+    return (t1 + torch.zeros_like(x1).scatter_add_(1, rows(idx2), t2),
+            t2 + torch.zeros_like(x2).scatter_add_(1, rows(idx1), t1))
 
 
 def phase_emd_kernel(torch, em, rng) -> float:
@@ -783,7 +834,8 @@ def train_run(torch, counters, argv, required):
                    if n.startswith("best_model_epoch_"))
     require(bool(bests), f"no best checkpoint in {os.listdir(log_dir)}")
     return dict(trainer=trainer, logger=logger, launches=launches,
-                train=train, best=best, steps=steps, seconds=seconds,
+                train=train, test=[r for r in recs if r["split"] == "test"],
+                best=best, steps=steps, seconds=seconds,
                 best_path=os.path.join(log_dir, bests[-1]))
 
 
@@ -874,6 +926,102 @@ def phase_train_emd(torch, counters, data, tmp, rng):
     return run["trainer"], run["logger"], run["launches"]
 
 
+# The other --model families and the Chamfer kernel calls each one's loss
+# makes per batch: model_cpu's loss is the dense Chamfer on every device
+# (no kernel), model_hierachy's adds its 64 centers against the label.
+FAMILY_CHAMFER_CALLS = {"model_cpu": 0, "model_hierachy": 2,
+                        "model_upconv": 1, "model_fc_upconv": 1}
+# The batch of a family's f32 card-vs-CPU step, as model_emd's
+# (EMD_STEP_BATCH): it keeps the two CPU steps short.
+FAMILY_STEP_BATCH = 8
+
+
+def phase_families(torch, counters, data, tmp, gen):
+    """Each of the other --model families through ``cli.train``'s own
+    build on the Chair fixture, bf16: finite losses, a falling eval
+    pcloss, a best checkpoint, and every kernel launched exactly as often
+    as its path needs (K3 and K4 once per step, K5 once per eval batch,
+    K1 per Chamfer call of each batch, K2 per Chamfer call of each step,
+    K6 never). Then a bf16 session on the best checkpoint (reconstruct,
+    embed and decode at B=32), the host median and a trace of one bf16
+    train step, and, but for model_cpu, which has no kernel in its loss,
+    one f32 step on the card against the CPU's."""
+    from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+    from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
+
+    x = clouds(gen, BATCH, NUM_POINT)
+    tb = torch.from_numpy(clouds(gen, BATCH, NUM_POINT)).to("cuda")
+    for name, calls in FAMILY_CHAMFER_CALLS.items():
+        argv = train_argv(name, data, os.path.join(tmp, f"{name}_log"))
+        required = ("fused_head_fwd", "fused_head_bwd", "fused_encoder_eval")
+        if calls:
+            required += ("nn_distance", "nn_distance_grad")
+        run = train_run(torch, counters, argv, required)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        trainer, logger = run["trainer"], run["logger"]
+        try:
+            steps = run["steps"]
+            evals = TRAIN_EPOCHS * len(trainer.eval_pipe)
+            want = dict(fused_encoder_eval=evals, nn_distance=calls * (
+                steps + evals), fused_head_fwd=steps, fused_head_bwd=steps,
+                nn_distance_grad=calls * steps, emd_forward=0)
+            require(launches == want, f"{name}: launches {launches}, the "
+                    f"path needs {want}")
+            pcloss = [r["pcloss"] for r in run["test"]]
+            require(len(pcloss) == TRAIN_EPOCHS and pcloss[-1] < pcloss[0],
+                    f"{name}: eval pcloss did not fall: {pcloss}")
+            session = InferenceSession(name, run["best_path"], NUM_POINT,
+                                       batch_size=BATCH, bf16=True,
+                                       device="cuda")
+            rec, emb = session.reconstruct(x), session.embed(x)
+            dec = session.decode(emb)
+            neck = get_model_spec(name).neck
+            require(rec.shape == x.shape and emb.shape == (
+                BATCH, neck[-1] if neck else 1024) and bool(
+                    np.all(np.isfinite(rec)) and np.all(np.isfinite(emb))),
+                    f"{name} session: shapes {rec.shape} {emb.shape}")
+            require(close(dec, rec, 1e-6, 1e-6), f"{name} session: "
+                    f"decode(embed(x)) != reconstruct(x): "
+                    f"{max_err(dec, rec):.3e}")
+            extra = (f", pc1loss {[round(r['pc1loss'], 6) for r in run['test']]}"
+                     if name == "model_hierachy" else "")
+            say("families", f"{name}: {TRAIN_EPOCHS} epochs, {steps} steps "
+                f"in {run['seconds']:.1f} s (data loading included); eval "
+                f"pcloss by epoch {[round(v, 6) for v in pcloss]}{extra}; "
+                f"best eval loss {run['best']:.4f} in "
+                f"{os.path.basename(run['best_path'])}; a bf16 session on it "
+                f"reconstructs, embeds ({emb.shape[1]}-d) and decodes "
+                f"{BATCH} shapes, decode(embed(x)) == reconstruct(x) "
+                f"(chamfer to input "
+                f"{float(session.chamfer(rec, x).mean()):.4f})")
+            say("families", f"{name}: main-path launches {launches} "
+                f"({steps} steps, {evals} eval batches, {calls} Chamfer "
+                f"calls per batch) ok")
+
+            def step():
+                trainer.train_step(tb)["loss"].item()
+
+            step()
+            host = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                step()
+                host.append(1e3 * (time.perf_counter() - t0))
+            say("families", f"{name} train step, bf16, B={BATCH} "
+                f"N={NUM_POINT} (host clock, to the loss on the host): median "
+                f"{statistics.median(host):.3f} ms, min {min(host):.3f}, max "
+                f"{max(host):.3f}")
+            trace = device_trace(torch, step, f"chip_smoke.{name}.train_step",
+                                 top=10, own=True)
+            say("families", f"{name} train step traced: {trace}")
+        finally:
+            trainer.close()
+            logger.close()
+        if calls:
+            step_card_vs_cpu(torch, argv, os.path.join(tmp, name),
+                             x[:FAMILY_STEP_BATCH], "families")
+
+
 def step_card_vs_cpu(torch, argv, tmp, x, phase):
     """One f32 step on the card and the same step on the CPU: same seed, so
     the same initial weights, and the same batch ``x``. Holds loss, pcloss,
@@ -941,8 +1089,9 @@ def step_card_vs_cpu(torch, argv, tmp, x, phase):
             f"{worst:.3e} over {GRAD_REL_TOL}")
     own, _ = grad_gaps(ggrads, ograds, hold=False)
     # A BN beta's gradient is a batch sum that the next training BN makes
-    # zero in exact arithmetic on a channel whose ReLU passes every row.
-    rows = [m for m in choices["relu"] if m.dim() == 2]
+    # zero in exact arithmetic on a channel whose ReLU passes every row (of
+    # a (B, C), (B, N, C) or (B, H, W, C) activation).
+    rows = [m.reshape(-1, m.shape[-1]) for m in choices["relu"]]
     all_on = sum(int(m.all(dim=0).sum()) for m in rows)
     buf_err = max(max_err(gbufs[n], cbufs[n]) for n in cbufs)
     require(all(close(gbufs[n], cbufs[n], 1e-4, 1e-5) for n in cbufs),
@@ -956,7 +1105,7 @@ def step_card_vs_cpu(torch, argv, tmp, x, phase):
         + ", ".join(f"{n} {r:.3e}" for r, n in gaps[:3])
         + f" (tolerance {GRAD_REL_TOL}); with the CPU's own ReLU masks "
         f"(not held): " + ", ".join(f"{n} {r:.3e}" for r, n in own[:3])
-        + f"; decoder channels active on every row: {all_on} of "
+        + f"; ReLU channels active on every row: {all_on} of "
         f"{sum(m.shape[1] for m in rows)}; {len(noise)} leaves zero in "
         f"exact arithmetic read under 1e-5 "
         f"of the gradient's norm on both sides; BN moving statistics max "
@@ -999,13 +1148,20 @@ def shared_choices(store: dict, replay: bool, masks: bool = True):
         store.setdefault(key, 0)
     if not replay:
         store["relu"] = []
+        store["taken"] = {}
     relu_calls = []
+    taken = {}
 
     def take(key, own):
+        """The card's choice at this call of ``key`` (a loss may call the
+        Chamfer more than once per step): recorded, or replayed in call
+        order."""
         if not replay:
-            store[key] = own.cpu()
+            store["taken"].setdefault(key, []).append(own.cpu())
             return own
-        card = store[key].to(own.device, own.dtype)
+        calls = taken.setdefault(key, [])
+        card = store["taken"][key][len(calls)].to(own.device, own.dtype)
+        calls.append(None)
         store["differed"] += int((own != card).sum())
         store["made"] += own.numel()
         return card
@@ -1360,6 +1516,26 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
         trace = device_trace(torch, step, f"chip_smoke.{model}.train_step",
                              top=10, own=True)
         say("timings", f"{model} train step traced: {trace}")
+
+    # K1 and K2 at model_hierachy's center term, 64 centers against the
+    # label's points; bounds as above. Own seed.
+    hier = np.random.RandomState(SEED + 10)
+    c1 = torch.from_numpy(clouds(hier, BATCH, HIER_CENTERS)).to(dev)
+    c2 = torch.from_numpy(clouds(hier, BATCH, NUM_POINT)).to(dev)
+    _, j1, _, j2 = ch.nn_distance_cuda(c1, c2)
+    h1, h2 = (torch.from_numpy(hier.randn(BATCH, n).astype(np.float32)).to(
+        dev) for n in (HIER_CENTERS, NUM_POINT))
+    both = BATCH * (HIER_CENTERS + NUM_POINT)  # points of both clouds
+    for what, fn, b in (
+            ("nn_distance", lambda: ch.nn_distance_cuda(c1, c2),
+             bound(10.0 * BATCH * HIER_CENTERS * NUM_POINT, 20.0 * both)),
+            ("nn_distance_grad", lambda: ch.nn_distance_grad_cuda(
+                c1, c2, j1, j2, h1, h2), bound(13.0 * both, 32.0 * both))):
+        dev_ms, counts = median_device_ms(torch, fn)
+        say("timings", f"{what} B={BATCH} N={HIER_CENTERS} M={NUM_POINT} "
+            f"(model_hierachy's centers): device time per call, median of "
+            f"50 traced calls: {dev_ms:.5f} ms ({_event_counts(counts)}); "
+            f"bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
     return rows
 
 
@@ -1564,6 +1740,9 @@ def main() -> int:
             finally:
                 for closing in (trainer, logger, emd_trainer, emd_logger):
                     closing.close()
+            phase = "families"
+            phase_families(torch, counters, data, tmp,
+                           np.random.RandomState(SEED + 9))
         smi = nvidia_smi_line()
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAIL in phase {phase}: {type(e).__name__}: {e}",

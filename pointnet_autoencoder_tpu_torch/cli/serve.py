@@ -8,7 +8,9 @@
 package's ``cli.export --format reference_npz``), a ``.pt`` state_dict
 saved from the port, or a training checkpoint of the port's
 ``cli/train.py`` (``model.ckpt``, ``best_model_epoch_NNN.ckpt``). Protocol and client (``PointClient``) are in
-``pointnet_autoencoder_tpu_torch/serve.py``. SIGTERM drains cleanly:
+``pointnet_autoencoder_tpu_torch/serve.py``. Every ``--model`` serves; a
+``--num_point`` that its decoder cannot emit fails with ValueError before
+the weights load. SIGTERM drains cleanly:
 queued requests get 'server shutting down' errors instead of dead sockets.
 """
 
@@ -18,10 +20,14 @@ import argparse
 import signal
 import sys
 
+from pointnet_autoencoder_tpu_torch.models.registry import available_models
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model", default="model")
+    p.add_argument("--model", default="model",
+                   help=f"Model name, one of {', '.join(available_models())} "
+                        f"[default: model]")
     p.add_argument("--model_path", required=True,
                    help="Reference-named .npz, the port's .pt state_dict "
                         "or a training checkpoint of the port")

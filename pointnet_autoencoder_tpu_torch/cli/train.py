@@ -13,7 +13,9 @@ Flags whose feature the port does not run yet (``--input_mode device``,
 ``--bf16_params``, ``--bf16_moments``, ``--profile_dir``,
 ``--compilation_cache_dir``) raise NotImplementedError naming their
 ROADMAP item. Checkpoints are synchronous here, so ``--sync_checkpoints``
-is the port's only mode and the flag changes nothing.
+is the port's only mode and the flag changes nothing. A ``--num_point``
+that the model's decoder cannot emit fails with ValueError before any
+data loads.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import os
 import sys
 
 from pointnet_autoencoder_tpu_torch.config import TrainConfig
+from pointnet_autoencoder_tpu_torch.models.registry import available_models
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -32,7 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Accepted for reference compatibility; ignored "
                         "(use --device cuda:N)")
     p.add_argument("--model", default=d.model,
-                   help="Model name [default: model]")
+                   help=f"Model name, one of {', '.join(available_models())} "
+                        f"[default: model]")
     p.add_argument("--category", default=None,
                    help="Which single class to train on [default: None]")
     p.add_argument("--log_dir", default=d.log_dir,

@@ -4,9 +4,9 @@ field names and defaults, except:
 
 - ``input_mode`` defaults to ``"host"``: the host pipeline is the only
   input mode ported; ``"device"`` (a dataset resident on the card) waits
-  for ROADMAP slice 5;
+  for ROADMAP item 9;
 - ``async_checkpoints`` defaults to False: saves are synchronous; the
-  background saver waits for ROADMAP slice 5.
+  background saver waits for ROADMAP item 12b.
 
 ``validate`` refuses every field this port does not run yet, naming the
 ROADMAP item that brings it, instead of ignoring it.
@@ -22,18 +22,18 @@ from typing import Optional
 # "set", the ROADMAP item that ports it).
 _NOT_PORTED = (
     ("input_mode", lambda v: v != "host",
-     "input_mode='device' (ROADMAP slice 5, item 9)"),
+     "input_mode='device' (ROADMAP item 9)"),
     ("data_parallel", lambda v: v is not None and v > 1,
-     "data_parallel > 1 (ROADMAP slice 5, item 10)"),
+     "data_parallel > 1 (ROADMAP item 10)"),
     ("model_parallel", lambda v: v > 1,
-     "model_parallel > 1 (ROADMAP slice 5, item 11)"),
-    ("point_parallel", bool, "point_parallel (ROADMAP slice 5, item 11)"),
-    ("bf16_params", bool, "bf16_params (ROADMAP slice 5, item 12)"),
-    ("bf16_moments", bool, "bf16_moments (ROADMAP slice 5, item 12)"),
+     "model_parallel > 1 (ROADMAP item 11)"),
+    ("point_parallel", bool, "point_parallel (ROADMAP item 11)"),
+    ("bf16_params", bool, "bf16_params (ROADMAP item 12a)"),
+    ("bf16_moments", bool, "bf16_moments (ROADMAP item 12a)"),
     ("async_checkpoints", bool,
-     "async_checkpoints (ROADMAP slice 5, item 12)"),
+     "async_checkpoints (ROADMAP item 12b)"),
     ("profile_dir", lambda v: v is not None,
-     "profile_dir (ROADMAP slice 6, item 14)"),
+     "profile_dir (ROADMAP item 14b)"),
     ("compilation_cache_dir", lambda v: v is not None,
      "compilation_cache_dir (no counterpart: the port compiles no XLA "
      "programs; ROADMAP 'Out of scope')"),

@@ -5,14 +5,23 @@ variable tree or from its reference-named array archive.
   numpy arrays that ``jax.device_get(variables)`` gives. Flax paths map
   onto module names (``encoder/conv1/dense/kernel`` ->
   ``encoder.conv1.dense.weight``); dense kernels go from (in, out) to the
-  port's (out, in); BN ``gamma``/``beta`` come from params and
-  ``mean``/``var`` from batch_stats.
+  port's (out, in); ConvTranspose kernels (kh, kw, cin, cout) are flipped
+  in both spatial axes and permuted to torch's (cin, cout, kh, kw), since
+  flax correlates the un-flipped kernel over the dilated input where
+  ``F.conv_transpose2d`` (like TF's conv2d_transpose) scatters it; BN
+  ``gamma``/``beta`` come from params and ``mean``/``var`` from
+  batch_stats.
 - ``from_reference_arrays(npz)``: the flat archive written by the JAX
   package's ``cli.export --format reference_npz``, keyed by the reference
   TF stack's variable names (``conv1/weights`` (1,3,1,64),
-  ``conv2/weights`` (1,1,64,64), ``fc1/weights`` (in,out), ``*/biases``,
+  ``conv2/weights`` (1,1,64,64), ``fc_conv1/weights`` (1,cin,cout),
+  ``fc1/weights`` (in,out), ``upconv1/weights`` (kh,kw,cout,cin) of
+  conv2d_transpose, ``*/biases``,
   ``*/bn/{beta,gamma,moving_mean,moving_variance}``), with ``/`` or ``__``
-  as the separator. Optimizer slots and the global step are skipped.
+  as the separator. A conv2d_transpose kernel is only permuted, not
+  flipped: TF's op is torch's. The encoder's scopes are ``conv1``-``conv5``,
+  the neck's ``fc00``/``fc01`` (top level), every other scope the
+  decoder's. Optimizer slots and the global step are skipped.
 
 This is how a model trained by the JAX package (or by the reference)
 reaches the port without JAX. Orbax bundles and training checkpoints are
@@ -62,6 +71,12 @@ def from_flax_variables(tree: Mapping) -> StateDict:
                 raise ValueError(f"{'/'.join(path)}: expected a 2-D dense "
                                  f"kernel, got {arr.shape}")
             out[".".join(mods + ["weight"])] = _tensor(arr.T)
+        elif collection == "params" and leaf == "kernel" and mods[-1] == "convt":
+            if arr.ndim != 4:
+                raise ValueError(f"{'/'.join(path)}: expected a 4-D "
+                                 f"ConvTranspose kernel, got {arr.shape}")
+            out[".".join(mods + ["weight"])] = _tensor(
+                arr[::-1, ::-1].transpose(2, 3, 0, 1))
         elif leaf in ("bias", "gamma", "beta", "mean", "var"):
             out[".".join(path)] = _tensor(arr)
         else:
@@ -74,10 +89,16 @@ def from_flax_variables(tree: Mapping) -> StateDict:
 
 
 def _module(scope: str) -> str:
-    # The reference's encoder scopes are conv1..conv5; the fc decoder's
-    # are fc1..fc3 (tf_import._ref_scope, reversed).
-    return f"encoder.{scope}" if re.fullmatch(r"conv\d+", scope) \
-        else f"decoder.{scope}"
+    # tf_import._ref_scope, reversed: the encoder's scopes are
+    # conv1..conv5, the neck's fc00/fc01 stay at the top level, and every
+    # other scope is the decoder's.
+    if re.fullmatch(r"conv\d+", scope):
+        return f"encoder.{scope}"
+    if re.fullmatch(r"fc0\d", scope):
+        return scope
+    return f"decoder.{scope}"
+
+
 
 
 def from_reference_arrays(
@@ -101,13 +122,23 @@ def from_reference_arrays(
         if bn:
             out[f"{_module(bn['scope'])}.bn.{_BN_NAMES[bn['var']]}"] = \
                 _tensor(arr)
+            continue
+        # The decoders' upconv* scopes are transposed convolutions.
+        convt = re.fullmatch(r"upconv\d+", scope) is not None
+        layer = f"{_module(scope)}.{'convt' if convt else 'dense'}"
+        if var == "weights" and convt:
+            if arr.ndim != 4:
+                raise ValueError(f"{key}: expected a 4-D conv2d_transpose "
+                                 f"kernel, got {arr.shape}")
+            # (kh, kw, cout, cin) -> (cin, cout, kh, kw), no flip.
+            out[f"{layer}.weight"] = _tensor(arr.transpose(3, 2, 0, 1))
         elif var == "weights":
             # conv2d (kh,kw,cin,cout) / conv1d (k,cin,cout) / fc (in,out):
             # flattening keeps the contraction order (tf_import._dense_kernel).
-            out[f"{_module(scope)}.dense.weight"] = _tensor(
+            out[f"{layer}.weight"] = _tensor(
                 arr.reshape(-1, arr.shape[-1]).T)
         elif var == "biases":
-            out[f"{_module(scope)}.dense.bias"] = _tensor(arr)
+            out[f"{layer}.bias"] = _tensor(arr)
         else:
             raise ValueError(f"no port counterpart for reference variable "
                              f"{key!r}")

@@ -12,9 +12,12 @@ shapes are independent, so the padding changes no real result). Every
 chunk is launched before any result is fetched, and results come to the
 host in one copy at the end.
 
-Numerics: f32 mode is full f32. Matmuls run with TF32 off, which the
-session sets (``torch.backends.cuda.matmul.allow_tf32 = False``), as the
-reference threads HIGHEST precision through every f32 matmul. ``bf16=True``
+Numerics: f32 mode is full f32. Matmuls and cuDNN's convolutions run
+with TF32 off, which the session sets
+(``torch.backends.cuda.matmul.allow_tf32 = False``,
+``torch.backends.cudnn.allow_tf32 = False``; the second defaults to True),
+as the reference threads HIGHEST precision through every f32 product.
+``bf16=True``
 stores every parameter in bfloat16 and runs the matmuls on bf16 inputs;
 BN moving statistics stay f32.
 """
@@ -81,7 +84,8 @@ class InferenceSession:
     """A model with its weights, served on one device.
 
     Args:
-      model: registry name ('model').
+      model: registry name (``available_models()``); raises ValueError
+        if its decoder cannot emit ``num_point`` points.
       model_path: reference-named ``.npz``, ``.pt`` state_dict or a
         training checkpoint of the port.
       num_point: points per shape the model was trained with.
@@ -104,9 +108,11 @@ class InferenceSession:
         self.batch_size = batch_size
         self.bf16 = bf16
         if self.device.type == "cuda":
-            # Full f32 matmuls (the TF32 default is off, but a caller may
-            # have turned it on for the process).
+            # Full f32 products: TF32 off for matmuls (off by default, but a
+            # caller may have turned it on) and for cuDNN's convolutions
+            # (on by default).
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         dtype = torch.bfloat16 if bf16 else torch.float32
         self._model = get_model_spec(model).make(num_point, dtype=dtype)
         try:
@@ -166,15 +172,17 @@ class InferenceSession:
         return pred[0] if single else pred
 
     def embed(self, points) -> np.ndarray:
-        """(B, N, 3) or (N, 3) -> embedding(s) (B, 1024) / (1024,), f32."""
+        """(B, N, 3) or (N, 3) -> embedding(s) (B, D) / (D,), f32; D is
+        the last neck width, else 1024."""
         pts, single = self._batched(points)
         _, emb = self._run(pts, fetch_pred=False)
         return emb[0] if single else emb
 
     @torch.inference_mode()
     def decode(self, embeddings) -> np.ndarray:
-        """(B, D) or (D,) latent(s) -> decoded cloud(s) (B, num_point, 3).
-        ``decode(embed(x))`` equals ``reconstruct(x)``."""
+        """(B, D) or (D,) latent(s) of the embedding's width -> decoded
+        cloud(s) (B, num_point, 3). ``decode(embed(x))`` equals
+        ``reconstruct(x)``."""
         emb = np.asarray(embeddings, np.float32)
         single = emb.ndim == 1
         if single:

@@ -1,10 +1,13 @@
-"""Layer library: Dense, BatchNorm, PointMLP and FC, train and eval.
+"""Layer library: Dense, BatchNorm, PointMLP, FC and UpConv, train and
+eval.
 
 Counterpart of ``pointnet_autoencoder_tpu/nn/layers.py``. Parameter names
 follow the reference's flax tree, so weights carry across by name:
-``<layer>.dense.{weight,bias}`` and ``<layer>.bn.{gamma,beta}`` parameters,
-``<layer>.bn.{mean,var}`` buffers. Dense weights are stored (out, in), the
-PyTorch habit; ``convert.py`` transposes the reference's (in, out) kernels.
+``<layer>.dense.{weight,bias}`` (``<layer>.convt.{weight,bias}`` for
+UpConv) and ``<layer>.bn.{gamma,beta}`` parameters, ``<layer>.bn.{mean,var}``
+buffers. Dense weights are stored (out, in) and transposed-conv weights
+(cin, cout, kh, kw), the PyTorch habits; ``convert.py`` moves the
+reference's kernels into them.
 
 Init follows the reference: Glorot-uniform kernels from an explicit
 ``torch.Generator``, zero biases, BN gamma 1, beta 0, mean 0, var 1,
@@ -117,3 +120,68 @@ class FC(PointMLP):
                  generator: Optional[torch.Generator] = None):
         super().__init__(in_features, features, bn=bn, relu=relu,
                          dtype=dtype, device=device, generator=generator)
+
+
+class ConvTranspose(nn.Module):
+    """2-D transposed convolution with VALID padding on a channels-last
+    (B, H, W, C) tensor, computed in the module's compute dtype. The
+    output is (B, (H-1)*sh + kh, (W-1)*sw + kw, features): every input
+    pixel spreads its kernel over the output, as TF's conv2d_transpose and
+    ``F.conv_transpose2d`` do."""
+
+    def __init__(self, in_features: int, features: int, kernel_size,
+                 strides, dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.strides = tuple(strides)
+        kh, kw = kernel_size
+        self.weight = nn.Parameter(torch.empty(
+            (in_features, features, kh, kw), dtype=torch.float32,
+            device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            features, dtype=torch.float32, device=device))
+        # Glorot over the flax kernel's (kh, kw, cin, cout) fans: receptive
+        # field kh*kw, fan_in kh*kw*cin, fan_out kh*kw*cout.
+        limit = (6.0 / (kh * kw * (in_features + features))) ** 0.5
+        with torch.no_grad():
+            self.weight.uniform_(-limit, limit, generator=generator)
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2),
+                               self.weight.to(self.dtype),
+                               self.bias.to(self.dtype), stride=self.strides)
+        return y.permute(0, 2, 3, 1)
+
+
+class UpConv(nn.Module):
+    """Transposed 2-D conv (VALID), optional BN, optional ReLU, on
+    channels-last tensors (the reference's tf_util.conv2d_transpose).
+
+    The output size is (in-1)*s + k per spatial axis. The JAX package's
+    flax layer gives in*s + max(k-s, 0); the two agree when k >= s, which
+    every decoder stage satisfies and the constructor requires."""
+
+    def __init__(self, in_features: int, features: int, kernel_size,
+                 strides, bn: bool = True, relu: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if any(k < s for k, s in zip(kernel_size, strides)):
+            raise ValueError(f"UpConv needs kernel >= stride on each axis, "
+                             f"got kernel {tuple(kernel_size)}, strides "
+                             f"{tuple(strides)}")
+        self.convt = ConvTranspose(in_features, features, kernel_size,
+                                   strides, dtype=dtype, device=device,
+                                   generator=generator)
+        self.bn = BatchNorm(features, device=device) if bn else None
+        self.relu = relu
+
+    def forward(self, x: Tensor, train: bool = False,
+                bn_momentum: float = 0.9) -> Tensor:
+        x = self.convt(x)
+        if self.bn is not None:
+            x = self.bn(x, train, bn_momentum)
+        return F.relu(x) if self.relu else x

@@ -10,6 +10,10 @@ as the reference op's registered gradient.
   to the plain versions; CUDA tensors to the hand-written kernels of
   ``csrc/chamfer.cu`` (forward ``nn_distance_cuda``, gradient
   ``nn_distance_grad_cuda``), or an exception.
+- ``nn_distance_dense`` and ``chamfer_loss_dense`` are the dense form on
+  every device: the plain forward and gradient, no kernel. They define
+  ``--model model_cpu``, the reference's model on its pure-TF Chamfer
+  (the JAX package's ``impl="xla"``).
 - ``nn_distance_plain`` is the dense (B, N, M) form in plain PyTorch, with
   the outer differences summed in the reference's ``sqdist_matrix`` order
   ((dx*dx + dy*dy) + dz*dz), which the kernel reproduces bit for bit.
@@ -193,8 +197,9 @@ class _NnDistance(torch.autograd.Function):
     (chamfer.py:375-405); the index outputs carry no gradient."""
 
     @staticmethod
-    def forward(ctx, xyz1, xyz2):
-        fwd = nn_distance_cuda if xyz1.is_cuda else nn_distance_plain
+    def forward(ctx, xyz1, xyz2, dense):
+        ctx.kernel = xyz1.is_cuda and not dense
+        fwd = nn_distance_cuda if ctx.kernel else nn_distance_plain
         dist1, idx1, dist2, idx2 = fwd(xyz1, xyz2)
         ctx.save_for_backward(xyz1, xyz2, idx1, idx2)
         ctx.mark_non_differentiable(idx1, idx2)
@@ -203,9 +208,9 @@ class _NnDistance(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_d1, _g_idx1, g_d2, _g_idx2):
         xyz1, xyz2, idx1, idx2 = ctx.saved_tensors
-        grad = nn_distance_grad_cuda if xyz1.is_cuda else \
+        grad = nn_distance_grad_cuda if ctx.kernel else \
             nn_distance_grad_plain
-        return grad(xyz1, xyz2, idx1, idx2, g_d1, g_d2)
+        return (*grad(xyz1, xyz2, idx1, idx2, g_d1, g_d2), None)
 
 
 def nn_distance(xyz1: Tensor, xyz2: Tensor):
@@ -220,16 +225,34 @@ def nn_distance(xyz1: Tensor, xyz2: Tensor):
     from each xyz2 point to its nearest xyz1 point. Differentiable in both
     clouds through the distances, with the indices held constant.
     """
-    return _NnDistance.apply(*_prepare(xyz1, xyz2))
+    return _NnDistance.apply(*_prepare(xyz1, xyz2), False)
+
+
+def nn_distance_dense(xyz1: Tensor, xyz2: Tensor):
+    """``nn_distance`` in the dense form on every device: the plain forward
+    (a (B, N, M) distance matrix) and the plain gradient. It launches no
+    kernel."""
+    return _NnDistance.apply(*_prepare(xyz1, xyz2), True)
+
+
+def _chamfer_mean(d1: Tensor, d2: Tensor) -> Tensor:
+    if d1.shape != d2.shape:
+        return d1.mean() + d2.mean()
+    return (d1 + d2).mean()
 
 
 def chamfer_loss(pred: Tensor, label: Tensor) -> Tensor:
     """mean(dist_fwd + dist_bwd), the reference's raw ``pcloss``; the two
     means are taken apart when the clouds differ in size."""
     d1, _, d2, _ = nn_distance(pred, label)
-    if d1.shape != d2.shape:
-        return d1.mean() + d2.mean()
-    return (d1 + d2).mean()
+    return _chamfer_mean(d1, d2)
+
+
+def chamfer_loss_dense(pred: Tensor, label: Tensor) -> Tensor:
+    """``chamfer_loss`` through ``nn_distance_dense``: the loss of
+    ``--model model_cpu`` on every device."""
+    d1, _, d2, _ = nn_distance_dense(pred, label)
+    return _chamfer_mean(d1, d2)
 
 
 def fscore(pred: Tensor, target: Tensor, threshold: float = 0.01) -> Tensor:

@@ -7,15 +7,15 @@ its host-input mode, on one device:
   moving-statistics update (in place, during the forward), with
   bn_momentum = bn_decay(step) and the learning rate lr(step) read at the
   step before it advances. The label is the input batch.
-- Metrics per step: ``loss``, ``pcloss``, ``learning_rate``,
-  ``bn_decay``. Running means are logged every ``log_every`` batches with
+- Metrics per step: ``loss``, ``pcloss`` (and ``pc1loss`` for
+  ``model_hierachy``), ``learning_rate``, ``bn_decay``. Running means are logged every ``log_every`` batches with
   one device-to-host copy each time, then the epoch's throughput.
 - The eval epoch runs the model with ``train=False``: the fused encoder
   kernel and the Chamfer forward kernel on the card.
 - Checkpoints as the reference: the best eval loss and every 10 epochs;
   ``resume`` restarts from the latest at its stored epoch and step.
 
-Not ported yet (ROADMAP slice 5): device input mode, data/model/point
+Not ported yet (ROADMAP queue 1): device input mode, data/model/point
 parallelism, bf16 master weights and moments, the preemption handler and
 the background saver.
 """
@@ -66,10 +66,15 @@ class Trainer:
                  logger: Optional[Logger] = None,
                  device: str = "cuda"):
         self.config = config.validate()
+        self.spec = get_model_spec(config.model)
+        # A decoder that cannot emit num_point fails before any data loads.
+        self.spec.check_num_point(config.num_point)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            # Full f32 matmuls, as the reference's HIGHEST precision.
+            # Full f32 products, as the reference's HIGHEST precision: TF32
+            # off for matmuls and for cuDNN's convolutions (on by default).
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         self._owns_logger = logger is None
         self.logger = logger or Logger(config.log_dir)
         snapshot_config(config.log_dir, config)
@@ -91,7 +96,6 @@ class Trainer:
             self.test_dataset, config.batch_size, rotate=False,
             shuffle=False, device=self.device, seed=config.seed)
 
-        self.spec = get_model_spec(config.model)
         dtype = torch.bfloat16 if config.bf16 else torch.float32
         # Built on the CPU from a seeded generator, then moved: the same
         # seed gives the same weights on every device.

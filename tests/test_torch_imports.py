@@ -35,6 +35,7 @@ def test_every_module_is_listed():
                  "models.autoencoder", "models.registry", "convert",
                  "checkpoint_file",
                  "inference", "serve", "cli.serve", "cli.train",
+                 "cli.parity",
                  "csrc.build", "device", "config", "data.shapenet_part",
                  "data.synthetic", "data.pipeline", "train.schedules",
                  "train.state", "train.checkpoint", "train.logging",

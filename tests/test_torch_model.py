@@ -195,8 +195,9 @@ def test_session_rejects_bad_inputs_and_weights(session, npz_path, tmp_path):
         session.embed(np.zeros((0, NUM_POINT, 3), np.float32))
     with pytest.raises(ValueError, match="num_point"):
         InferenceSession("model", npz_path, NUM_POINT * 2, device="cpu")
-    with pytest.raises(KeyError, match="model_upconv"):
-        InferenceSession("model_upconv", npz_path, NUM_POINT, device="cpu")
+    with pytest.raises(KeyError, match="model_nonexistent"):
+        InferenceSession("model_nonexistent", npz_path, NUM_POINT,
+                         device="cpu")
     pt = str(tmp_path / "w.pt")
     torch.save(session.model.state_dict(), pt)
     again = InferenceSession("model", pt, NUM_POINT, batch_size=BATCH,
