@@ -7,7 +7,8 @@ Needs one CUDA card and the repository around this script. Phases, one
 line each; any failure exits non-zero before the final line:
 
 1. card:    device name, power limit.
-2. build:   nvcc builds every kernel source in csrc/, all at once.
+2. build:   nvcc builds every kernel source in csrc/, all at once; then
+            g++ builds the native renderer (csrc/render_balls.cpp).
 3. kernels: each kernel against its plain PyTorch version on the card,
             at the main paths' shapes and at ragged shapes. K1, K2, K3, K4,
             K5 bf16 and K6 are also held bit-equal over two calls; K1
@@ -32,8 +33,9 @@ line each; any failure exits non-zero before the final line:
             Launch counters are zeroed before phase 4 and read after phase 5:
             every kernel of the serving path must have run there.
 6. train:   the training path (``--model model --category Chair
-            --num_point 2048 --batch_size 32 --no_rotation``, bf16 by
-            default) built as ``cli.train`` builds it, on a fixture of 320
+            --num_point 2048 --batch_size 32 --no_rotation``, bf16, device
+            input and background saves by default) built as ``cli.train``
+            builds it, on a fixture of 320
             train and 64 test Chair shapes, for 2 epochs: finite losses, a
             falling pcloss, a best checkpoint, a ``--resume`` that restarts
             at the stored epoch and step, and a session on the checkpoint.
@@ -42,7 +44,9 @@ line each; any failure exits non-zero before the final line:
             run. Then one f32 train step on the card against the same step
             on the CPU from the same weights and batch, with the card's
             argmin/argmax choices and ReLU masks: loss, every gradient, BN
-            statistics; on two batches.
+            statistics; on two batches. Device input's batch assembly
+            (gather, resample, rotation) on the card equals the CPU's bit
+            for bit at B=32, N=2048.
 7. train_emd: the EMD training path (``--model model_emd``, otherwise as
             phase 6) on the same fixture for 2 epochs: finite losses, a
             falling EMD loss, a best checkpoint and a ``model_emd`` session
@@ -59,10 +63,12 @@ line each; any failure exits non-zero before the final line:
             trace); the host time of one full
             reconstruct and of one train step of each model, and one
             torch.profiler trace of each (device busy time, idle share,
-            device time by kernel).
+            device time by kernel); the ``model`` bf16 step with its input
+            built on the card (device input) and from the host pipeline
+            (host input): host median, device busy time, idle share.
 9. families: ``--model`` model_cpu, model_hierachy, model_upconv and
             model_fc_upconv, each trained as phase 6 (bf16, 2 epochs, the
-            same fixture): finite losses, a falling eval pcloss, a best
+            same fixture) but with ``--input_mode host``: finite losses, a falling eval pcloss, a best
             checkpoint and a bf16 session on it (reconstruct, embed,
             decode at B=32). Launch counters are zeroed before each run
             and read after it, and must equal what the path needs: K3 and
@@ -72,6 +78,26 @@ line each; any failure exits non-zero before the final line:
             and a trace of one bf16 train step of each; one f32 step at
             B=8 on the card against the CPU's, as in phase 6, for the
             three families with Chamfer kernels.
+10. cli_test: ``cli.test.main`` on phase 6's best checkpoint (16 shapes,
+            4 decoder groups, F-score at 0.01): K5 launched once and K1
+            twice per shape (chamfer and fscore) and nothing else, each
+            shape's Chamfer within rtol 1e-5 of the same command on the
+            CPU, 48 renders, the native image of the first shape against
+            the plain renderer; shapes per second, and the device time per
+            call of K5 f32 and K1 at B=1 with their bounds.
+11. export_import: ``cli.export --format reference_npz`` of that
+            checkpoint, ``cli.import_tf`` on it (a dry run with no unmapped
+            variable, then ``--out``), ``cli.export --format bundle``: both
+            bundles reconstruct a B=32 batch bit-equal to the checkpoint's
+            session.
+12. preempt: device-input training of ``model`` in this process, SIGTERM
+            from a thread after the first logged step: ``train()``
+            returns with a preemption checkpoint, ``--resume`` starts at
+            the same step, the previous handler is back. Then a snapshot
+            submitted to the background saver, a synchronous host copy, 5
+            more steps and a flush: the checkpoint equals the host copy
+            bit for bit. The training thread's time in one save of the
+            model state, in the background and synchronous.
 
 The last three lines are the kernels JSON line, the nvidia-smi line and
 the device JSON line.
@@ -850,6 +876,9 @@ def phase_train(torch, counters, data, fixture_s, tmp, rng):
     argv = train_argv("model", data, log_dir)
     run = train_run(torch, counters, argv, MODEL_PATH_KERNELS)
     steps, launches = run["steps"], run["launches"]
+    require(run["trainer"].input_mode == "device"
+            and run["trainer"]._saver is not None,
+            "the default run is not device input with background saves")
     pcloss = [r["pcloss"] for r in run["train"]]
     require(pcloss[-1] < pcloss[0], f"pcloss did not fall: {pcloss}")
     latest = checkpoint.CheckpointManager(log_dir).latest()
@@ -891,7 +920,31 @@ def phase_train(torch, counters, data, fixture_s, tmp, rng):
     step_card_vs_cpu(torch, argv, tmp, x, "train")
     step_card_vs_cpu(torch, argv, tmp, clouds(
         np.random.RandomState(SEED + 3), BATCH, NUM_POINT), "train")
-    return run["trainer"], run["logger"], launches
+    assemble_card_vs_cpu(torch, run["trainer"])
+    return run["trainer"], run["logger"], launches, run["best_path"]
+
+
+def assemble_card_vs_cpu(torch, trainer):
+    """Device input's batch assembly (gather, resample, rotation about Y)
+    on the card against the CPU's, on the same (idxs, u, angles) from the
+    trained trainer's dataset on the card: bit for bit, at B=32, N=2048."""
+    from pointnet_autoencoder_tpu_torch.data import device_pipeline as dp
+
+    dd = trainer.train_device
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    idxs = torch.randint(0, dd.num_shapes, (BATCH,), generator=gen,
+                         device="cuda")
+    u, angles = dp.draw(gen, BATCH, NUM_POINT, rotate=True)
+    card = dp.assemble_from(dd.data, dd.lengths, idxs, u, angles)
+    cpu = dp.assemble_from(dd.data.cpu(), dd.lengths.cpu(), idxs.cpu(),
+                           u.cpu(), angles.cpu())
+    require(card.shape == (BATCH, NUM_POINT, 3)
+            and torch.equal(card.cpu(), cpu),
+            f"assemble_from card vs CPU: max abs err "
+            f"{max_err(card.cpu().numpy(), cpu.numpy()):.3e}")
+    say("train", f"device input: {dd.num_shapes} shapes on the card "
+        f"({dd.nbytes() / 1e6:.2f} MB); assemble_from at B={BATCH} "
+        f"N={NUM_POINT} with rotation equals the CPU's bit for bit ok")
 
 
 def phase_train_emd(torch, counters, data, tmp, rng):
@@ -952,13 +1005,18 @@ def phase_families(torch, counters, data, tmp, gen):
     x = clouds(gen, BATCH, NUM_POINT)
     tb = torch.from_numpy(clouds(gen, BATCH, NUM_POINT)).to("cuda")
     for name, calls in FAMILY_CHAMFER_CALLS.items():
-        argv = train_argv(name, data, os.path.join(tmp, f"{name}_log"))
+        # Host input (the pipeline thread and pinned copies): the card's
+        # one run of that mode; phases 6 and 7 run the default, device
+        # input.
+        argv = train_argv(name, data, os.path.join(tmp, f"{name}_log")) + [
+            "--input_mode", "host"]
         required = ("fused_head_fwd", "fused_head_bwd", "fused_encoder_eval")
         if calls:
             required += ("nn_distance", "nn_distance_grad")
         run = train_run(torch, counters, argv, required)
         launches = {k: fn.launches for k, fn in counters.items()}
         trainer, logger = run["trainer"], run["logger"]
+        require(trainer.input_mode == "host", f"{name}: not host input")
         try:
             steps = run["steps"]
             evals = TRAIN_EPOCHS * len(trainer.eval_pipe)
@@ -1036,8 +1094,11 @@ def step_card_vs_cpu(torch, argv, tmp, x, phase):
     steps_out, choices = [], {}
     for run, device, masks in ((0, "cuda", True), (1, "cpu", True),
                                (2, "cpu", False)):
+        # Host input: the step is fed x, and a host-input Trainer decodes
+        # no shape until a batch is asked for.
         tr, lg = cli_train.build_trainer(parser.parse_args(
-            argv + ["--no-bf16", "--device", device, "--log_dir",
+            argv + ["--no-bf16", "--input_mode", "host", "--device", device,
+                    "--log_dir",
                     os.path.join(tmp, f"{phase}_step_{run}")]))
         store = choices if run < 2 else dict(
             choices, differed=0, made=0, relu_differed=0, relu_made=0)
@@ -1240,6 +1301,318 @@ def grad_gaps(got: dict, want: dict, hold: bool = True):
             continue
         gaps.append((float(np.linalg.norm(g - w) / np.linalg.norm(w)), name))
     return sorted(gaps, reverse=True), noise
+
+
+# cli.test: 16 shapes, 4 decoder groups, F-score on: three renders per
+# shape. K1 launches per shape: one for ``chamfer`` and one for ``fscore``
+# (each calls nn_distance once on its (1, N, 3) pair); K5 one per
+# ``reconstruct`` (the session's eval encoder at B=1).
+CLI_TEST_SHAPES = 16
+CLI_TEST_GROUPS = 4
+CLI_TEST_K1_PER_SHAPE = 2
+
+
+def phase_cli_test(torch, counters, fe, ch, data, best_path, tmp, rng):
+    """``cli.test.main`` on the card on the train phase's best checkpoint:
+    exact K5 and K1 launch counts, each shape's Chamfer held to the same
+    command on the CPU (rtol 1e-5), 48 renders, the native image of the
+    first shape against ``_render_numpy`` (fewer than 1% of pixels off by
+    more than 2, tests/test_viz.py's tolerance), shapes per second; then
+    the device time per call of K5 f32 and K1 at B=1, this path's shape."""
+    import io
+
+    from pointnet_autoencoder_tpu_torch.cli import test as cli_test
+    from pointnet_autoencoder_tpu_torch.data.shapenet_part import PartDataset
+    from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+    from pointnet_autoencoder_tpu_torch.viz import render
+
+    t_phase = time.perf_counter()
+    argv = ["--model", "model", "--model_path", best_path, "--category",
+            "Chair", "--num_point", str(NUM_POINT), "--data_path", data,
+            "--num_shapes", str(CLI_TEST_SHAPES), "--num_group",
+            str(CLI_TEST_GROUPS), "--fscore_threshold", "0.01"]
+    out = {}
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            for fn in counters.values():
+                fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            out[device] = cli_test.main(argv + [
+                "--out_dir", os.path.join(tmp, f"renders_{device}"),
+                "--device", device])
+        out[device]["seconds"] = time.perf_counter() - t0
+        out[device]["text"] = text.getvalue()
+        if device == "cuda":
+            launches = {k: fn.launches for k, fn in counters.items()}
+    want = {k: 0 for k in counters}
+    want.update(fused_encoder_eval=CLI_TEST_SHAPES,
+                nn_distance=CLI_TEST_K1_PER_SHAPE * CLI_TEST_SHAPES)
+    require(launches == want, f"cli_test launches {launches}, the path "
+            f"needs {want}")
+    card, cpu = out["cuda"], out["cpu"]
+    require(card["indices"] == cpu["indices"]
+            and len(card["chamfer"]) == CLI_TEST_SHAPES,
+            f"shape orders {card['indices']} vs {cpu['indices']}")
+    cd, cd_cpu = np.array(card["chamfer"]), np.array(cpu["chamfer"])
+    require(bool(np.all(np.isfinite(cd))) and close(cd, cd_cpu, 1e-5, 0.0),
+            f"cli_test chamfer card vs CPU: {cd} vs {cd_cpu}")
+    files = sorted(os.listdir(card["out_dir"]))
+    require(len(files) == 3 * CLI_TEST_SHAPES
+            and files == sorted(os.listdir(cpu["out_dir"])),
+            f"{len(files)} renders: {files[:6]}")
+    # The first shape's ground truth, drawn again by the plain version: a
+    # fresh test split of the same seed resamples it the same way.
+    dataset = PartDataset(data, npoints=NUM_POINT, class_choice=["Chair"],
+                          split="test", seed=0)
+    first, _ = dataset[card["indices"][0]]
+    plain = render._render_numpy(
+        np.zeros((800, 800, 3), np.uint8), render.project(first, 800),
+        np.full((NUM_POINT, 3), 255.0, np.float32), 8)
+    path = os.path.join(card["out_dir"], files[0])
+    try:
+        from PIL import Image
+
+        native = np.asarray(Image.open(path))
+    except ImportError:
+        native = render.render_points(first, ballradius=8)
+    off = float((np.abs(native.astype(int) - plain.astype(int)) > 2).mean())
+    require(native.shape == plain.shape and off < 0.01,
+            f"native render vs _render_numpy: {off:.4f} of pixels off by "
+            f"more than 2")
+    say("cli_test", f"{CLI_TEST_SHAPES} shapes on the card in "
+        f"{card['seconds']:.2f} s ({CLI_TEST_SHAPES / card['seconds']:.2f} "
+        f"shapes/s: session load, dataset, reconstruct, chamfer, fscore and "
+        f"{len(files)} 800x800 renders), on the CPU in {cpu['seconds']:.2f} "
+        f"s; launches {launches} (K5 1 and K1 {CLI_TEST_K1_PER_SHAPE} per "
+        f"shape) ok; chamfer mean {cd.mean():.6f}, max rel err vs CPU "
+        f"{float(np.max(np.abs(cd - cd_cpu) / np.abs(cd_cpu))):.2e} (rtol "
+        f"1e-5); {files[0]} native vs _render_numpy: {off:.5f} of pixels off "
+        f"by more than 2 (under 0.01) ok")
+    say("cli_test", "last lines: " + " | ".join(
+        card["text"].strip().splitlines()[-3:]))
+
+    # K5 f32 and K1 at B=1, N=M=2048: device time per call, each with its
+    # bound (K5's is its B=32 bound over 32; K1's as in phase timings).
+    session = InferenceSession("model", best_path, NUM_POINT, batch_size=1,
+                               device="cuda")
+    chain = session.model.encoder.fold()
+    p1 = torch.from_numpy(clouds(rng, 1, NUM_POINT)).to("cuda")
+    p2 = torch.from_numpy(clouds(rng, 1, NUM_POINT)).to("cuda")
+    macs = sum(c * f for c, f in zip(ENCODER_WIDTHS[:-1], ENCODER_WIDTHS[1:]))
+    k5_bound = bound(2.0 * NUM_POINT * macs, (
+        p1.numel() * 4 + sum(w.numel() * w.element_size()
+                             for w in chain.weights)
+        + chain.affine.numel() * 4 + 2 * 1024 * 4))
+    k1_bound = bound(10.0 * NUM_POINT * NUM_POINT,
+                     2 * NUM_POINT * 3 * 4 + 2 * NUM_POINT * 8)
+    for what, fn, b in (
+            ("fused_encoder_eval f32", lambda: fe.encoder_extrema_cuda(
+                p1, chain), k5_bound),
+            ("nn_distance", lambda: ch.nn_distance_cuda(p1, p2), k1_bound)):
+        dev_ms, counts = median_device_ms(torch, fn)
+        say("cli_test", f"{what} B=1 N={NUM_POINT} (cli.test's shape): "
+            f"device time per call, median of 50 traced calls: "
+            f"{dev_ms:.5f} ms ({_event_counts(counts)}); bound "
+            f"{b['bound_ms']:.5f} ms ({b['bound_by']})")
+    say("cli_test", f"phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_export_import(torch, best_path, tmp, rng):
+    """``cli.export --format reference_npz`` of the best checkpoint, then
+    ``cli.import_tf`` on it (a dry run reading ``unmapped: []``, then
+    ``--out``), and ``cli.export --format bundle``: a session opened from
+    each bundle on the card reconstructs a B=32 batch bit-equal to the
+    session opened on the checkpoint."""
+    import io
+
+    from pointnet_autoencoder_tpu_torch.cli import export as cli_export
+    from pointnet_autoencoder_tpu_torch.cli import import_tf as cli_import
+    from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+
+    t0 = time.perf_counter()
+    base = ["--model", "model", "--model_path", best_path, "--num_point",
+            str(NUM_POINT), "--device", "cuda"]
+    imp = ["--model", "model", "--num_point", str(NUM_POINT)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        npz = cli_export.main(base + ["--out", os.path.join(tmp, "ref"),
+                                      "--format", "reference_npz"])
+        dry = cli_import.main(imp + ["--tf_checkpoint", npz])
+        report = cli_import.main(imp + ["--tf_checkpoint", npz, "--out",
+                                        os.path.join(tmp, "imported")])
+        bundle = cli_export.main(base + ["--out", os.path.join(tmp,
+                                                               "bundle")])
+    require(dry["unmapped"] == [] and "bundle" not in dry,
+            f"dry run report {dry}")
+    x = clouds(rng, BATCH, NUM_POINT)
+    want = InferenceSession("model", best_path, NUM_POINT, batch_size=BATCH,
+                            device="cuda").reconstruct(x)
+    for what, path in (("cli.import_tf --out", report["bundle"]),
+                       ("cli.export --format bundle", bundle)):
+        got = InferenceSession.from_bundle(path, batch_size=BATCH,
+                                           device="cuda").reconstruct(x)
+        require(np.array_equal(got, want),
+                f"{what}: reconstruction differs from the checkpoint's: "
+                f"{max_err(got, want):.3e}")
+    say("export_import", f"reference_npz ({os.path.getsize(npz) / 1e6:.1f} "
+        f"MB), dry run mapped {dry['mapped']} unmapped {dry['unmapped']}, "
+        f"both bundles reconstruct {BATCH} shapes bit-equal to the "
+        f"checkpoint's session ok; {time.perf_counter() - t0:.1f} s")
+
+
+def state_mb(torch, tree) -> float:
+    """MB of the tensors in a (nested) state dict."""
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size() / 1e6
+    if isinstance(tree, dict):
+        return sum(state_mb(torch, v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(state_mb(torch, v) for v in tree)
+    return 0.0
+
+
+def phase_preempt(torch, data, tmp):
+    """In this process, device-input training of ``model``; a thread sends
+    SIGTERM after the first logged step. ``train()`` must return with a
+    preemption checkpoint, ``--resume`` start at the same step, and the
+    previous SIGTERM handler be back. Then the saver's snapshot check on
+    the card: submit a snapshot, take a synchronous host copy of the same
+    state, run 5 more steps, flush: the checkpoint equals the host copy bit
+    for bit. Last, the training thread's time in a save of the model state,
+    synchronous and in the background."""
+    import itertools
+    import signal
+
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.data.device_pipeline import (
+        assemble_batch,
+    )
+    from pointnet_autoencoder_tpu_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    log_dir = os.path.join(tmp, "preempt_log")
+    argv = train_argv("model", data, log_dir) + ["--max_epoch", "1000",
+                                                 "--log_every", "1"]
+    parser = cli_train.build_parser()
+    trainer, logger = cli_train.build_trainer(parser.parse_args(argv))
+    scalars = os.path.join(log_dir, "scalars.jsonl")
+    previous = signal.getsignal(signal.SIGTERM)
+
+    def send_sigterm_after_the_first_logged_step():
+        for _ in range(1200):
+            if os.path.exists(scalars) and os.path.getsize(scalars) > 0:
+                break
+            time.sleep(0.1)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    sender = threading.Thread(target=send_sigterm_after_the_first_logged_step)
+    try:
+        require(trainer.input_mode == "device"
+                and trainer._saver is not None,
+                "the preempt run is not device input with background saves")
+        sender.start()
+        t0 = time.perf_counter()
+        trainer.train()
+        train_s = time.perf_counter() - t0
+        sender.join(timeout=130)
+        steps = trainer.state.step
+    finally:
+        trainer.close()
+        logger.close()
+    with open(os.path.join(log_dir, "log_train.txt")) as f:
+        text = f.read()
+    require("preemption checkpoint saved" in text and steps >= 1,
+            f"no preemption checkpoint after {steps} steps")
+    require(signal.getsignal(signal.SIGTERM) == previous,
+            "the previous SIGTERM handler is not back")
+    stored = checkpoint.load(checkpoint.CheckpointManager(log_dir).latest())
+    resumed, rlogger = cli_train.build_trainer(parser.parse_args(
+        argv + ["--resume"]))
+    try:
+        require(resumed.state.step == steps == stored["step"]
+                and resumed.start_epoch == stored["epoch"],
+                f"resume at step {resumed.state.step} epoch "
+                f"{resumed.start_epoch}; preempted at {steps}, stored "
+                f"{stored['step']}/{stored['epoch']}")
+        say("preempt", f"SIGTERM after the first logged step: train() "
+            f"returned after {train_s:.1f} s at step {steps} with a "
+            f"preemption checkpoint (stored epoch {stored['epoch']}); "
+            f"--resume starts at step {resumed.state.step}, epoch "
+            f"{resumed.start_epoch}; the previous SIGTERM handler is back ok")
+
+        # The snapshot check: the worker copies on its own stream while
+        # five in-place steps run.
+        tr, dd, pipe = resumed, resumed.train_device, resumed.train_pipe
+        tree = dict(checkpoint.snapshot(tr.state.state_dict()), epoch=0,
+                    best_loss=0.0)
+        tr._saver.submit("periodic", 0, tree, device=tr.device)
+        host = dict(checkpoint.snapshot(checkpoint.to_host(
+            tr.state.state_dict())), epoch=0, best_loss=0.0)
+        for idxs in itertools.islice(pipe.epoch(), 5):
+            tr.train_step(assemble_batch(dd.data, dd.lengths, idxs,
+                                         pipe.generator, NUM_POINT,
+                                         rotate=False))
+        tr._saver.flush()
+        saved = checkpoint.load(os.path.join(log_dir, "model.ckpt"))
+        mismatch = tree_mismatch(torch, saved, host)
+        require(mismatch is None and tr.state.step == steps + 5,
+                f"the background save differs from the host copy at "
+                f"{mismatch}")
+        mb = state_mb(torch, host)
+
+        # The training thread's time in one save, each way: in the
+        # background (a fresh snapshot, then the worker's drain), then
+        # synchronous.
+        torch.cuda.synchronize()
+        tr._snap_cache = None
+        t0 = time.perf_counter()
+        tr._save("periodic", 0)
+        background = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        tr._saver.flush()
+        drain = 1e3 * (time.perf_counter() - t0)
+        saver, tr._saver = tr._saver, None
+        t0 = time.perf_counter()
+        tr._save("periodic", 0)
+        synchronous = 1e3 * (time.perf_counter() - t0)
+        tr._saver = saver
+        say("preempt", f"a snapshot submitted, then 5 steps: the saved "
+            f"checkpoint equals the host copy taken at submit bit for bit "
+            f"ok; training thread in one save of the {mb:.1f} MB state "
+            f"(model and Adam): background {background:.2f} ms "
+            f"(clone on the card and submit; its write then took "
+            f"{drain:.1f} ms more on the worker), synchronous "
+            f"{synchronous:.2f} ms (copy to the host and write)")
+    finally:
+        resumed.close()
+        rlogger.close()
+    say("preempt", f"phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def tree_mismatch(torch, a, b, path=""):
+    """The first path where two nested state dicts differ (tensors bit for
+    bit, with dtype), or None."""
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        same = (torch.is_tensor(a) and torch.is_tensor(b)
+                and a.dtype == b.dtype and torch.equal(a, b))
+        return None if same else path
+    if isinstance(a, dict) and isinstance(b, dict):
+        if list(a) != list(b):
+            return path + " (keys)"
+        for k in a:
+            m = tree_mismatch(torch, a[k], b[k], f"{path}/{k}")
+            if m is not None:
+                return m
+        return None
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return path + " (length)"
+        for i, (x, y) in enumerate(zip(a, b)):
+            m = tree_mismatch(torch, x, y, f"{path}/{i}")
+            if m is not None:
+                return m
+        return None
+    return None if a == b else path
 
 
 def cuda_ms(torch, fn, reps=20, warmup=3) -> float:
@@ -1516,6 +1889,7 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
         trace = device_trace(torch, step, f"chip_smoke.{model}.train_step",
                              top=10, own=True)
         say("timings", f"{model} train step traced: {trace}")
+    input_step_timings(torch, trainer)
 
     # K1 and K2 at model_hierachy's center term, 64 centers against the
     # label's points; bounds as above. Own seed.
@@ -1537,6 +1911,54 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
             f"50 traced calls: {dev_ms:.5f} ms ({_event_counts(counts)}); "
             f"bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
     return rows
+
+
+def input_step_timings(torch, trainer):
+    """The ``model`` bf16 train step with its input, in both input modes, on
+    the trained device-input trainer: device input builds each batch on
+    the card (``assemble_batch``); host input takes the next batch of a
+    ``BatchPipeline`` over the same dataset (its producer thread, pinned
+    copies). Host clock per step to the loss on the host, median of 10
+    after one warm epoch (which fills the host dataset's item cache), then
+    a trace of one step: device busy time and idle share."""
+    from pointnet_autoencoder_tpu_torch.data.device_pipeline import (
+        assemble_batch,
+    )
+    from pointnet_autoencoder_tpu_torch.data.pipeline import BatchPipeline
+
+    def forever(epoch):
+        while True:
+            yield from epoch()
+
+    dd, pipe = trainer.train_device, trainer.train_pipe
+    idxs = forever(pipe.epoch)
+    host_pipe = BatchPipeline(trainer.train_dataset, BATCH, rotate=False,
+                              shuffle=True, device=trainer.device, seed=SEED)
+    batches = forever(host_pipe.epoch)
+    steps = {
+        "device": lambda: trainer.train_step(assemble_batch(
+            dd.data, dd.lengths, next(idxs), pipe.generator, NUM_POINT,
+            rotate=False))["loss"].item(),
+        "host": lambda: trainer.train_step(next(batches))["loss"].item()}
+    try:
+        for mode, step in steps.items():
+            for _ in range(len(pipe)):
+                step()
+            host = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                step()
+                host.append(1e3 * (time.perf_counter() - t0))
+            trace = device_trace(torch, step,
+                                 f"chip_smoke.model.{mode}_input_step", top=4)
+            say("timings", f"model train step with {mode} input, bf16, "
+                f"B={BATCH} N={NUM_POINT} (host clock, input included, to "
+                f"the loss on the host): median {statistics.median(host):.3f} "
+                f"ms, min {min(host):.3f}, max {max(host):.3f}; traced: "
+                f"{trace}")
+    finally:
+        batches.close()
+        idxs.close()
 
 
 def median_device_ms(torch, fn, reps=50, attempts=3):
@@ -1695,6 +2117,10 @@ def main() -> int:
                     print(f"  ptxas {src}: {line.strip()}", file=sys.stderr)
         say(phase, f"built {', '.join(logs) or 'nothing (cached)'} in "
             f"{build_s:.1f} s")
+        t0 = time.perf_counter()
+        host_logs = build.build(build.HOST_SOURCES)
+        say(phase, f"g++ built {', '.join(host_logs) or 'nothing (cached)'} "
+            f"(the native renderer) in {time.perf_counter() - t0:.1f} s")
 
         rng = np.random.RandomState(SEED)
         phase = "kernels"
@@ -1723,7 +2149,7 @@ def main() -> int:
 
             phase = "train"
             data, fixture_s = write_chair_fixture(tmp)
-            trainer, logger, train_launches = phase_train(
+            trainer, logger, train_launches, best_path = phase_train(
                 torch, counters, data, fixture_s, tmp, rng)
             phase = "train_emd"
             emd_trainer, emd_logger, emd_launches = phase_train_emd(
@@ -1743,6 +2169,14 @@ def main() -> int:
             phase = "families"
             phase_families(torch, counters, data, tmp,
                            np.random.RandomState(SEED + 9))
+            phase = "cli_test"
+            phase_cli_test(torch, counters, fe, ch, data, best_path, tmp,
+                           np.random.RandomState(SEED + 11))
+            phase = "export_import"
+            phase_export_import(torch, best_path, tmp,
+                                np.random.RandomState(SEED + 12))
+            phase = "preempt"
+            phase_preempt(torch, data, tmp)
         smi = nvidia_smi_line()
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAIL in phase {phase}: {type(e).__name__}: {e}",

@@ -8,14 +8,16 @@ Every flag of ``pointnet_autoencoder_tpu/cli/train.py`` is accepted, plus
 ``--device`` (``cuda`` by default, which fails without a card; ``cpu``
 runs the kernels' plain PyTorch versions). ``--gpu`` is accepted for
 reference compatibility and ignored: ``--device cuda:N`` picks a card.
-Flags whose feature the port does not run yet (``--input_mode device``,
-``--data_parallel``/``--model_parallel`` above 1, ``--point_parallel``,
-``--bf16_params``, ``--bf16_moments``, ``--profile_dir``,
-``--compilation_cache_dir``) raise NotImplementedError naming their
-ROADMAP item. Checkpoints are synchronous here, so ``--sync_checkpoints``
-is the port's only mode and the flag changes nothing. A ``--num_point``
-that the model's decoder cannot emit fails with ValueError before any
-data loads.
+``--input_mode`` is ``device`` (the dataset on the card, batches built
+there) or ``host`` (host assembly, pinned copies); checkpoints are
+written on a background thread unless ``--sync_checkpoints``. Flags whose
+feature the port does not run yet (``--data_parallel``/``--model_parallel``
+above 1, ``--point_parallel``, ``--bf16_params``, ``--bf16_moments``,
+``--profile_dir``, ``--compilation_cache_dir``) raise NotImplementedError
+naming their ROADMAP item. A ``--num_point`` that the model's decoder
+cannot emit fails with ValueError before any data loads. SIGTERM or
+SIGINT saves a resumable checkpoint at the next step boundary and ends
+the run.
 """
 
 from __future__ import annotations
@@ -63,8 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ShapeNetPart root directory")
     p.add_argument("--input_mode", default=d.input_mode,
                    choices=["device", "host"],
-                   help="'host': host batch assembly with pinned copies "
-                        "[default: host; 'device' is not ported yet]")
+                   help="'device': the dataset on the card, resampled and "
+                        "rotated there; 'host': host batch assembly with "
+                        "pinned copies [default: device]")
     p.add_argument("--resume", action="store_true",
                    help="Resume from the latest checkpoint in log_dir")
     p.add_argument("--seed", type=int, default=d.seed)
@@ -95,8 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_only", action="store_true",
                    help="Run a single evaluation pass (use with --resume)")
     p.add_argument("--sync_checkpoints", action="store_true",
-                   help="Accepted for compatibility: saves are always "
-                        "synchronous in the port")
+                   help="Block training while each checkpoint saves "
+                        "(default: saves run on a background thread from "
+                        "a snapshot of the state on the device)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     return p
@@ -119,6 +123,7 @@ def config_from_args(args) -> TrainConfig:
         log_every=args.log_every, eval_only=args.eval_only,
         cache_dir=args.cache_dir,
         compilation_cache_dir=args.compilation_cache_dir,
+        async_checkpoints=not args.sync_checkpoints,
     ).validate()
 
 

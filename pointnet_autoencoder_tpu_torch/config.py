@@ -1,15 +1,11 @@
-"""Training configuration: the port's copy of the reference's
-``TrainConfig`` (``pointnet_autoencoder_tpu/config.py``), with the same
-field names and defaults, except:
+"""Training and test configuration: the port's copies of the reference's
+``TrainConfig`` and ``TestConfig`` (``pointnet_autoencoder_tpu/config.py``),
+with the same field names and defaults.
 
-- ``input_mode`` defaults to ``"host"``: the host pipeline is the only
-  input mode ported; ``"device"`` (a dataset resident on the card) waits
-  for ROADMAP item 9;
-- ``async_checkpoints`` defaults to False: saves are synchronous; the
-  background saver waits for ROADMAP item 12b.
-
-``validate`` refuses every field this port does not run yet, naming the
-ROADMAP item that brings it, instead of ignoring it.
+``TrainConfig.validate`` refuses every field this port does not run yet
+(data, model and point parallelism, bf16 master weights and moments, the
+profiler, the XLA compilation cache), naming the ROADMAP item that brings
+it, instead of ignoring it.
 """
 
 from __future__ import annotations
@@ -21,8 +17,6 @@ from typing import Optional
 # Fields the port refuses away from their default: (field, test for
 # "set", the ROADMAP item that ports it).
 _NOT_PORTED = (
-    ("input_mode", lambda v: v != "host",
-     "input_mode='device' (ROADMAP item 9)"),
     ("data_parallel", lambda v: v is not None and v > 1,
      "data_parallel > 1 (ROADMAP item 10)"),
     ("model_parallel", lambda v: v > 1,
@@ -30,14 +24,22 @@ _NOT_PORTED = (
     ("point_parallel", bool, "point_parallel (ROADMAP item 11)"),
     ("bf16_params", bool, "bf16_params (ROADMAP item 12a)"),
     ("bf16_moments", bool, "bf16_moments (ROADMAP item 12a)"),
-    ("async_checkpoints", bool,
-     "async_checkpoints (ROADMAP item 12b)"),
     ("profile_dir", lambda v: v is not None,
      "profile_dir (ROADMAP item 14b)"),
     ("compilation_cache_dir", lambda v: v is not None,
      "compilation_cache_dir (no counterpart: the port compiles no XLA "
      "programs; ROADMAP 'Out of scope')"),
 )
+
+
+def refuse_unported(name: str, value) -> None:
+    """Raise NotImplementedError if ``name`` is a field the port does not
+    run yet and ``value`` sets it."""
+    for field, is_set, item in _NOT_PORTED:
+        if field == name and is_set(value):
+            raise NotImplementedError(
+                f"{item} is not ported to pointnet_autoencoder_tpu_torch "
+                f"yet (got {name}={value!r})")
 
 
 @dataclasses.dataclass
@@ -56,7 +58,10 @@ class TrainConfig:
     no_rotation: bool = False
     data_path: str = "data/shapenetcore_partanno_segmentation_benchmark_v0"
 
-    input_mode: str = "host"      # host batch assembly, pinned copies
+    input_mode: str = "device"    # "device": dataset resident on the card,
+                                  # resampled and rotated there
+                                  # (data/device_pipeline.py); "host": host
+                                  # batch assembly, pinned copies
     resume: bool = False          # continue from the latest checkpoint
     seed: int = 0                 # data and init seed
     data_parallel: Optional[int] = None
@@ -72,16 +77,15 @@ class TrainConfig:
     log_every: int = 10           # batches between running-mean log lines
     cache_dir: Optional[str] = None  # on-disk decoded-shape cache (npz)
     compilation_cache_dir: Optional[str] = None
-    async_checkpoints: bool = False
+    async_checkpoints: bool = True  # saves from a device snapshot on a
+                                    # background thread
+                                    # (train/checkpoint.py:AsyncSaver)
 
     def validate(self) -> "TrainConfig":
         """Raise NotImplementedError for a field the port does not run
         yet; return self."""
-        for name, is_set, item in _NOT_PORTED:
-            if is_set(getattr(self, name)):
-                raise NotImplementedError(
-                    f"{item} is not ported to pointnet_autoencoder_tpu_torch "
-                    f"yet (got {name}={getattr(self, name)!r})")
+        for name, _, _ in _NOT_PORTED:
+            refuse_unported(name, getattr(self, name))
         return self
 
     def to_json(self) -> str:
@@ -90,3 +94,17 @@ class TrainConfig:
     @classmethod
     def from_json(cls, text: str) -> "TrainConfig":
         return cls(**json.loads(text))
+
+
+@dataclasses.dataclass
+class TestConfig:
+    model: str = "model"
+    model_path: str = "log/model.ckpt"
+    category: Optional[str] = None
+    num_point: int = 2048
+    num_group: int = 1
+    data_path: str = "data/shapenetcore_partanno_segmentation_benchmark_v0"
+    out_dir: Optional[str] = None   # write rendered PNGs here (headless)
+    interactive: bool = False       # opencv viewer when a display exists
+    num_shapes: Optional[int] = None
+    seed: int = 0

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -99,6 +99,52 @@ def _module(scope: str) -> str:
     return f"decoder.{scope}"
 
 
+def reference_scope(module: str) -> str:
+    """The reference scope of a port module path (``_module`` reversed):
+    ``encoder.conv1`` -> ``conv1``, ``fc00`` -> ``fc00``,
+    ``decoder.fc1`` -> ``fc1``."""
+    scope = module.split(".", 1)[-1]
+    if _module(scope) != module:
+        raise ValueError(f"no reference scope for port module {module!r}")
+    return scope
+
+
+def is_optimizer_state(name: str) -> bool:
+    """Whether a reference variable name is optimizer state or the global
+    step (skipped on import)."""
+    return name in _SKIP_EXACT or _SKIP_SLOT.search(name) is not None
+
+
+def port_name(name: str, value: np.ndarray) -> Tuple[str, torch.Tensor]:
+    """(the port's state_dict key, the tensor in its layout) of one
+    reference variable (``/`` or ``__`` separated) that is not optimizer
+    state. Raises ValueError for a name with no counterpart."""
+    name = name.replace("__", "/")
+    arr = np.asarray(value, dtype=np.float32)
+    bn = _BN.match(name)
+    if bn:
+        return (f"{_module(bn['scope'])}.bn.{_BN_NAMES[bn['var']]}",
+                _tensor(arr))
+    scope, _, var = name.rpartition("/")
+    if not scope:
+        raise ValueError(f"no port counterpart for reference variable "
+                         f"{name!r}")
+    # The decoders' upconv* scopes are transposed convolutions.
+    convt = re.fullmatch(r"upconv\d+", scope) is not None
+    layer = f"{_module(scope)}.{'convt' if convt else 'dense'}"
+    if var == "weights" and convt:
+        if arr.ndim != 4:
+            raise ValueError(f"{name}: expected a 4-D conv2d_transpose "
+                             f"kernel, got {arr.shape}")
+        # (kh, kw, cout, cin) -> (cin, cout, kh, kw), no flip.
+        return f"{layer}.weight", _tensor(arr.transpose(3, 2, 0, 1))
+    if var == "weights":
+        # conv2d (kh,kw,cin,cout) / conv1d (k,cin,cout) / fc (in,out):
+        # flattening keeps the contraction order (tf_import._dense_kernel).
+        return f"{layer}.weight", _tensor(arr.reshape(-1, arr.shape[-1]).T)
+    if var == "biases":
+        return f"{layer}.bias", _tensor(arr)
+    raise ValueError(f"no port counterpart for reference variable {name!r}")
 
 
 def from_reference_arrays(
@@ -111,35 +157,5 @@ def from_reference_arrays(
             arrays = {k: data[k] for k in data.files}
     else:
         arrays = dict(npz)
-    out: StateDict = {}
-    for key, value in arrays.items():
-        name = key.replace("__", "/")
-        if name in _SKIP_EXACT or _SKIP_SLOT.search(name):
-            continue
-        arr = np.asarray(value, dtype=np.float32)
-        bn = _BN.match(name)
-        scope, _, var = name.rpartition("/")
-        if bn:
-            out[f"{_module(bn['scope'])}.bn.{_BN_NAMES[bn['var']]}"] = \
-                _tensor(arr)
-            continue
-        # The decoders' upconv* scopes are transposed convolutions.
-        convt = re.fullmatch(r"upconv\d+", scope) is not None
-        layer = f"{_module(scope)}.{'convt' if convt else 'dense'}"
-        if var == "weights" and convt:
-            if arr.ndim != 4:
-                raise ValueError(f"{key}: expected a 4-D conv2d_transpose "
-                                 f"kernel, got {arr.shape}")
-            # (kh, kw, cout, cin) -> (cin, cout, kh, kw), no flip.
-            out[f"{layer}.weight"] = _tensor(arr.transpose(3, 2, 0, 1))
-        elif var == "weights":
-            # conv2d (kh,kw,cin,cout) / conv1d (k,cin,cout) / fc (in,out):
-            # flattening keeps the contraction order (tf_import._dense_kernel).
-            out[f"{layer}.weight"] = _tensor(
-                arr.reshape(-1, arr.shape[-1]).T)
-        elif var == "biases":
-            out[f"{layer}.bias"] = _tensor(arr)
-        else:
-            raise ValueError(f"no port counterpart for reference variable "
-                             f"{key!r}")
-    return out
+    return dict(port_name(k, v) for k, v in arrays.items()
+                if not is_optimizer_state(k.replace("__", "/")))

@@ -1,5 +1,5 @@
-"""Builds the port's CUDA kernels into shared libraries with a plain C
-interface, loaded with ``ctypes``.
+"""Builds the port's CUDA kernels, and its host C++ renderer, into shared
+libraries with a plain C interface, loaded with ``ctypes``.
 
     python -m pointnet_autoencoder_tpu_torch.csrc.build
 
@@ -11,8 +11,12 @@ and the CUDA toolkit's ``nvcc``; one ``nvcc`` runs per source, all started
 together. A missing ``nvcc`` or a failed compile raises: there is no
 fallback to the plain PyTorch versions for CUDA tensors.
 
-Every C entry point returns ``cudaGetLastError()`` after its launches;
-``check`` turns a non-zero code into an exception.
+``csrc/render_balls.cpp`` (the point-cloud renderer, host code) is built
+the same way with ``g++ -O3 -std=c++17 -shared -fPIC``, at its first use;
+a missing ``g++`` or a failed compile raises as well.
+
+Every C entry point of a CUDA source returns ``cudaGetLastError()`` after
+its launches; ``check`` turns a non-zero code into an exception.
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Host C++ sources (``csrc/<name>.cpp``), built with g++.
+HOST_SOURCES = ("render_balls",)
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -54,9 +61,30 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
+def find_gxx() -> str:
+    """Path of ``g++`` on ``PATH``; raises if there is none."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH; the native renderer "
+                           "(csrc/render_balls.cpp) cannot be built")
+    return gxx
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cpp`` for a host source; else ``csrc/<name>.cu`` and
+    every ``.cuh`` header here."""
+    if name in HOST_SOURCES:
+        return [HERE / f"{name}.cpp"]
+    return [HERE / f"{name}.cu", *sorted(HERE.glob("*.cuh"))]
+
+
+def _flags(name: str) -> Tuple[str, ...]:
+    return GXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+
+
 def _key(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [HERE / f"{name}.cu", *sorted(HERE.glob("*.cuh"))]:
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
+    for path in _sources(name):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -68,45 +96,49 @@ def library_path(name: str) -> Path:
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile the named sources that have no up-to-date library, all
-    ``nvcc`` processes running at once. Returns each compiled source's
-    ``ptxas`` report (registers, shared memory, spills); raises with the
-    compiler's output if any compile fails."""
+    compiler processes running at once. Returns each compiled source's
+    compiler output (for a CUDA source, the ``ptxas`` report: registers,
+    shared memory, spills); raises with the compiler's output if any
+    compile fails."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
-    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in todo:
+        source = _sources(name)[0]
+        compiler = find_gxx() if name in HOST_SOURCES else find_nvcc()
         tmp = BUILD_DIR / f".{name}-{os.getpid()}-{time.monotonic_ns()}.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(HERE / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
+        cmd = [compiler, *_flags(name), "-o", str(tmp), str(source)]
+        procs[name] = (tmp, source.name, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
-    for name, (tmp, proc) in procs.items():
+    for name, (tmp, source, proc) in procs.items():
         out, _ = proc.communicate()
         logs[name] = out
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
+            failed.append(f"{source} (exit {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, library_path(name))  # atomic under races
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("the build failed for " + "\n".join(failed))
     return logs
 
 
 def load(name: str, signatures: Dict[str, Tuple[list, Any]]) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use, with
-    ``argtypes`` and ``restype`` set from ``signatures`` (entry name ->
-    (argtypes, restype)); pointers and the stream go as ``c_void_p``."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built at
+    first use, with ``argtypes`` and ``restype`` set from ``signatures``
+    (entry name -> (argtypes, restype)); pointers and the stream go as
+    ``c_void_p``."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
-            sigs = {"pcae_error_string": ([ctypes.c_int], ctypes.c_char_p),
-                    **signatures}
+            sigs = dict(signatures)
+            if name not in HOST_SOURCES:
+                sigs["pcae_error_string"] = ([ctypes.c_int], ctypes.c_char_p)
             for fn_name, (argtypes, restype) in sigs.items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes, fn.restype = argtypes, restype
@@ -123,8 +155,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
-    for src, log in build().items():
+    for src, log in build(SOURCES + HOST_SOURCES).items():
         print(f"[{src}]\n{log}")
-    print(f"built {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f} s "
-          f"into {BUILD_DIR}")
+    print(f"built {', '.join(SOURCES + HOST_SOURCES)} in "
+          f"{time.perf_counter() - t0:.1f} s into {BUILD_DIR}")
     sys.exit(0)

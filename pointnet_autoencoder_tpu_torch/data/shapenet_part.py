@@ -126,6 +126,12 @@ class PartDataset:
 
         self._cache: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
 
+    def drop_item_cache(self) -> None:
+        """Release the in-RAM item cache. Items decode (and cache) again
+        on their next access. Device input calls this once the whole
+        dataset is on the card (``data/device_pipeline.py``)."""
+        self._cache.clear()
+
     def _load_split_ids(self, split: str):
         def ids(name):
             path = os.path.join(self.root, "train_test_split",

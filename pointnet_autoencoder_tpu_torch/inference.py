@@ -24,13 +24,14 @@ BN moving statistics stay f32.
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from pointnet_autoencoder_tpu_torch import checkpoint_file
+from pointnet_autoencoder_tpu_torch import checkpoint_file, tf_import
 from pointnet_autoencoder_tpu_torch.convert import from_reference_arrays
 from pointnet_autoencoder_tpu_torch.device import resolve_device
 from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
@@ -64,20 +65,43 @@ def chunked_dispatch(run: Callable, arr: np.ndarray, chunk_size: int,
     return tuple(cols) if len(cols) > 1 else cols[0]
 
 
+def read_bundle_meta(bundle_dir: str) -> dict:
+    """The metadata of a serving bundle of the port; raises ValueError,
+    naming the route that works, for a bundle of the JAX package (orbax,
+    which the port cannot read)."""
+    with open(os.path.join(bundle_dir, tf_import.BUNDLE_META)) as f:
+        meta = json.load(f)
+    if meta.get("format") != tf_import.BUNDLE_FORMAT:
+        raise ValueError(
+            f"{bundle_dir} is a serving bundle of format "
+            f"{meta.get('format')!r}, not the port's "
+            f"{tf_import.BUNDLE_FORMAT!r}; the port cannot read the JAX "
+            f"package's orbax bundles. Export its weights with the JAX "
+            f"package's cli.export --format reference_npz and pass the "
+            f".npz (or import that with the port's cli.import_tf --out)")
+    return meta
+
+
 def load_state_dict(model_path: str):
-    """A reference-named ``.npz`` archive, a ``.pt`` state_dict that the
-    port saved (``torch.save(model.state_dict(), path)``), or a training
-    checkpoint of the port (``best_model_epoch_NNN.ckpt``, ``model.ckpt``),
-    whose model state_dict is taken."""
+    """A reference-named ``.npz`` archive, a serving bundle of the port
+    (``export_bundle``, ``cli.import_tf --out``), a ``.pt`` state_dict
+    that the port saved (``torch.save(model.state_dict(), path)``), or a
+    training checkpoint of the port (``best_model_epoch_NNN.ckpt``,
+    ``model.ckpt``), whose model state_dict is taken."""
     if model_path.endswith(".npz"):
         return from_reference_arrays(model_path)
     if model_path.endswith(".pt"):
         return torch.load(model_path, map_location="cpu", weights_only=True)
+    if os.path.isfile(os.path.join(model_path, tf_import.BUNDLE_META)):
+        read_bundle_meta(model_path)
+        return from_reference_arrays(
+            os.path.join(model_path, tf_import.BUNDLE_VARIABLES))
     if checkpoint_file.is_checkpoint(model_path):
         return checkpoint_file.load(model_path)["model"]
     raise ValueError(f"model_path must be a reference-named .npz (cli.export "
-                     f"--format reference_npz), a .pt state_dict or a "
-                     f"training checkpoint of the port, got {model_path!r}")
+                     f"--format reference_npz), a serving bundle, a .pt "
+                     f"state_dict or a training checkpoint of the port, got "
+                     f"{model_path!r}")
 
 
 class InferenceSession:
@@ -86,8 +110,8 @@ class InferenceSession:
     Args:
       model: registry name (``available_models()``); raises ValueError
         if its decoder cannot emit ``num_point`` points.
-      model_path: reference-named ``.npz``, ``.pt`` state_dict or a
-        training checkpoint of the port.
+      model_path: reference-named ``.npz``, a serving bundle of the port,
+        a ``.pt`` state_dict or a training checkpoint of the port.
       num_point: points per shape the model was trained with.
       batch_size: rows per launch; inputs are padded and split to it.
       bf16: bfloat16 parameters and matmul inputs (BN statistics f32).
@@ -134,6 +158,26 @@ class InferenceSession:
     @property
     def model(self):
         return self._model
+
+    # -- serving bundles ------------------------------------------------------
+
+    def export_bundle(self, out_dir: str) -> str:
+        """Write a params-only serving bundle (the model's reference-named
+        f32 arrays and a metadata file; no optimizer state); returns its
+        path. ``from_bundle`` opens it, and its ``variables.npz`` is also
+        an input of the JAX package's ``cli.import_tf``."""
+        return tf_import.write_bundle(out_dir, self.model_name,
+                                      self.num_point, self._model.state_dict())
+
+    @classmethod
+    def from_bundle(cls, bundle_dir: str, batch_size: int = 32,
+                    bf16: bool = False,
+                    device: str = "cuda") -> "InferenceSession":
+        """Open a serving bundle; the model name and num_point come from
+        its metadata."""
+        meta = read_bundle_meta(bundle_dir)
+        return cls(meta["model"], bundle_dir, int(meta["num_point"]),
+                   batch_size=batch_size, bf16=bf16, device=device)
 
     # -- helpers --------------------------------------------------------------
 

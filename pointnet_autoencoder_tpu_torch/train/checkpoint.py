@@ -14,14 +14,20 @@ checkpoint aside (``_swap_in``), so a crash at any instant leaves a
 complete checkpoint under the name, its ``.old`` sibling or its
 ``.saving`` sibling; ``latest()`` knows to look at those. A save refuses
 to overwrite a path that is not one of the port's checkpoints.
+
+``AsyncSaver`` writes checkpoints on a background thread from a snapshot
+of the state taken on the device, so that the device-to-host copy and the
+file write overlap training (``snapshot`` and ``to_host`` below).
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import re
 import shutil
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -102,3 +108,112 @@ class CheckpointManager:
             return best_path
         periodic = os.path.join(self.log_dir, "model.ckpt")
         return periodic if is_checkpoint(periodic) else None
+
+
+def _map_tensors(tree: Any, fn: Callable[[torch.Tensor], torch.Tensor]
+                 ) -> Any:
+    """``tree`` (dicts, lists and tuples of tensors and plain values) with
+    ``fn`` applied to every tensor; the containers are new."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
+
+
+def snapshot(tree: Any) -> Any:
+    """A copy of ``tree`` whose tensors are cloned where they lie (on the
+    device for a state on the card). Adam updates its moments and step
+    tensors in place, so a reference to them is not a snapshot."""
+    return _map_tensors(tree, lambda t: t.detach().clone())
+
+
+def to_host(tree: Any) -> Any:
+    """``tree`` with every tensor on the CPU (the tensor itself if it is
+    there already)."""
+    return _map_tensors(tree, lambda t: t.detach().cpu())
+
+
+class AsyncSaver:
+    """Background checkpoint writer, the port's copy of the JAX package's
+    ``AsyncSaver``: the device-to-host copy and the file write run on one
+    worker thread while training goes on.
+
+    ``submit`` takes a snapshot (``snapshot``) that the training thread
+    will not touch again and, for a snapshot on a card, records a CUDA
+    event after its clones: the worker runs on its own stream, which
+    waits on that event before the copies. One worker, so saves complete
+    in submit order and the LATEST pointer stays the newest checkpoint; at
+    most two snapshots wait in the queue, and ``submit`` blocks when it
+    is full. A worker's exception is raised again on the training thread
+    at the next submit, flush or close: a failed checkpoint fails the
+    run."""
+
+    def __init__(self, manager: CheckpointManager,
+                 log: Optional[Callable[[str], None]] = None):
+        self._mgr = manager
+        self._log = log
+        self._q: queue.Queue = queue.Queue(maxsize=2)
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="pcae-torch-ckpt-saver")
+        self._thread.start()
+
+    def _run(self) -> None:
+        streams: Dict[torch.device, Any] = {}
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                kind, epoch, tree, ready = item
+                if ready is None:
+                    tree = to_host(tree)
+                else:
+                    event, device = ready
+                    if device not in streams:
+                        streams[device] = torch.cuda.Stream(device=device)
+                    with torch.cuda.stream(streams[device]):
+                        streams[device].wait_event(event)
+                        tree = to_host(tree)
+                if kind == "best":
+                    path = self._mgr.save_best(epoch, tree)
+                else:
+                    path = self._mgr.save_periodic(tree)
+                if self._log is not None:
+                    self._log(f"Model saved in file: {path}")
+            except BaseException as e:  # noqa: BLE001 - raised on submit
+                self._error = e
+            finally:
+                self._q.task_done()
+
+    def _check(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint save failed") from err
+
+    def submit(self, kind: str, epoch: int, tree: Any,
+               device: Optional[torch.device] = None) -> None:
+        """Queue a save of ``tree`` (``kind`` 'best' or 'periodic'), a
+        snapshot nothing else writes. For a snapshot on a card, pass its
+        ``device``: an event is recorded here, on the training thread's
+        current stream, after the snapshot's clones."""
+        self._check()
+        ready = None
+        if device is not None and device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            ready = (event, device)
+        self._q.put((kind, epoch, tree, ready))
+
+    def flush(self) -> None:
+        """Block until every submitted save is on disk."""
+        self._q.join()
+        self._check()
+
+    def close(self) -> None:
+        self.flush()
+        self._q.put(None)
+        self._thread.join()

@@ -1,33 +1,53 @@
-"""Training runtime: the step, the epoch loops, checkpoints and logging.
+"""Training runtime: the step, the epoch loops, checkpoints, logging and
+the preemption handler.
 
-The port's counterpart of ``pointnet_autoencoder_tpu/train/loop.py`` in
-its host-input mode, on one device:
+The port's counterpart of ``pointnet_autoencoder_tpu/train/loop.py``, on
+one device:
 
 - A train step is forward, loss, backward, optimizer step and the BN
   moving-statistics update (in place, during the forward), with
   bn_momentum = bn_decay(step) and the learning rate lr(step) read at the
   step before it advances. The label is the input batch.
+- Input (``input_mode``): ``"device"`` (the default) keeps the dataset
+  on the device and builds each batch there (``data/device_pipeline.py``);
+  ``"host"`` assembles batches on a host thread (``data/pipeline.py``).
 - Metrics per step: ``loss``, ``pcloss`` (and ``pc1loss`` for
-  ``model_hierachy``), ``learning_rate``, ``bn_decay``. Running means are logged every ``log_every`` batches with
-  one device-to-host copy each time, then the epoch's throughput.
+  ``model_hierachy``), ``learning_rate``, ``bn_decay``. Running means of
+  every ``log_every`` batches are logged, then the epoch's throughput.
+  With host input each log line fetches its window in one copy; with
+  device input every fetch waits for the epoch's end (one copy), so no
+  step waits for the device.
 - The eval epoch runs the model with ``train=False``: the fused encoder
   kernel and the Chamfer forward kernel on the card.
 - Checkpoints as the reference: the best eval loss and every 10 epochs;
-  ``resume`` restarts from the latest at its stored epoch and step.
+  ``resume`` restarts from the latest at its stored epoch and step. With
+  ``async_checkpoints`` (the default) a save clones the state on the
+  device and a background thread copies and writes it
+  (``checkpoint.AsyncSaver``); a best and a periodic save of one step
+  share the clone.
+- Preemption: SIGTERM or SIGINT during ``train()`` stops at the next step
+  boundary and writes a resumable checkpoint before ``train()`` returns.
 
-Not ported yet (ROADMAP queue 1): device input mode, data/model/point
-parallelism, bf16 master weights and moments, the preemption handler and
-the background saver.
+Not ported yet (ROADMAP queue 1): data/model/point parallelism and bf16
+master weights and moments.
 """
 
 from __future__ import annotations
 
+import os
+import signal
 import time
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from pointnet_autoencoder_tpu_torch.config import TrainConfig
+from pointnet_autoencoder_tpu_torch.data.device_pipeline import (
+    DeviceBatchIterator,
+    DeviceDataset,
+    assemble_batch,
+)
 from pointnet_autoencoder_tpu_torch.data.pipeline import BatchPipeline
 from pointnet_autoencoder_tpu_torch.data.shapenet_part import PartDataset
 from pointnet_autoencoder_tpu_torch.device import resolve_device
@@ -39,18 +59,22 @@ from pointnet_autoencoder_tpu_torch.train.state import TrainState, make_optimize
 Metrics = Dict[str, object]  # scalar tensors on the device, or floats
 
 
-def fetch_metric_means(pending: List[Metrics]) -> Dict[str, float]:
-    """Mean of each metric over a list of per-step metric dicts; the
-    tensor-valued ones come to the host in one stacked copy."""
+def fetch_metric_windows(pending: List[Metrics], windows: List[Tuple[int, int]]
+                         ) -> List[Dict[str, float]]:
+    """The f32 mean of each metric over each ``(start, stop)`` window of a
+    list of per-step metric dicts (scalar tensors on the device, or
+    floats); the tensors come to the host in one stacked copy."""
     keys = sorted(pending[0])
     tensor_keys = [k for k in keys if torch.is_tensor(pending[0][k])]
-    means = {k: sum(float(m[k]) for m in pending) / len(pending)
-             for k in keys if k not in tensor_keys}
+    host = np.array([[float(m[k]) for k in keys if k not in tensor_keys]
+                     for m in pending], np.float32).reshape(len(pending), -1)
     if tensor_keys:
-        stacked = torch.stack([torch.stack([m[k].float() for k in tensor_keys])
-                               for m in pending]).mean(dim=0).cpu()
-        means.update(zip(tensor_keys, stacked.tolist()))
-    return means
+        dev = torch.stack([torch.stack([m[k].float() for k in tensor_keys])
+                           for m in pending]).cpu().numpy()
+        host = np.concatenate([host, dev], axis=1)
+    names = [k for k in keys if k not in tensor_keys] + tensor_keys
+    return [dict(zip(names, map(float, host[a:b].mean(axis=0))))
+            for a, b in windows]
 
 
 class Trainer:
@@ -88,13 +112,31 @@ class Trainer:
             config.data_path, npoints=config.num_point,
             class_choice=class_choice, split="test", seed=config.seed + 1,
             cache_dir=config.cache_dir)
-        self.train_pipe = BatchPipeline(
-            self.train_dataset, config.batch_size,
-            rotate=not config.no_rotation, shuffle=True, device=self.device,
-            seed=config.seed)
-        self.eval_pipe = BatchPipeline(
-            self.test_dataset, config.batch_size, rotate=False,
-            shuffle=False, device=self.device, seed=config.seed)
+        self.input_mode = config.input_mode
+        if self.input_mode == "device":
+            # The datasets live on the device; per step the host sends
+            # nothing (data/device_pipeline.py).
+            self.train_device = DeviceDataset(self.train_dataset,
+                                              device=self.device)
+            self.eval_device = DeviceDataset(self.test_dataset,
+                                             device=self.device)
+            self.train_pipe = DeviceBatchIterator(
+                self.train_device.num_shapes, config.batch_size,
+                shuffle=True, seed=config.seed, device=self.device)
+            self.eval_pipe = DeviceBatchIterator(
+                self.eval_device.num_shapes, config.batch_size,
+                shuffle=False, seed=config.seed + 1, device=self.device)
+        elif self.input_mode == "host":
+            self.train_pipe = BatchPipeline(
+                self.train_dataset, config.batch_size,
+                rotate=not config.no_rotation, shuffle=True,
+                device=self.device, seed=config.seed)
+            self.eval_pipe = BatchPipeline(
+                self.test_dataset, config.batch_size, rotate=False,
+                shuffle=False, device=self.device, seed=config.seed)
+        else:
+            raise ValueError(f"input_mode must be 'device' or 'host', got "
+                             f"{self.input_mode!r}")
 
         dtype = torch.bfloat16 if config.bf16 else torch.float32
         # Built on the CPU from a seeded generator, then moved: the same
@@ -113,8 +155,18 @@ class Trainer:
                 config.decay_step, floor=config.lr_floor))
 
         self.ckpt = checkpoint.CheckpointManager(config.log_dir)
+        self._saver = (checkpoint.AsyncSaver(self.ckpt, log=self.logger.log)
+                       if config.async_checkpoints else None)
+        # (step, snapshot): a best and a periodic save of one step share
+        # one clone of the state.
+        self._snap_cache: Optional[Tuple[int, Any]] = None
+        self._closed = False
         self.start_epoch = 0
         self.best_loss = float("inf")
+        # Set by the SIGTERM/SIGINT handler while train() runs; the epoch
+        # loops stop at the next step boundary and train() saves.
+        self._preempted = False
+        self._preempt_signum: Optional[int] = None
         if config.resume:
             self._try_resume()
 
@@ -167,13 +219,75 @@ class Trainer:
             f"(best eval loss {self.best_loss:.6f})")
 
     def _save(self, kind: str, epoch: int) -> None:
-        tree = dict(self.state.state_dict(), epoch=epoch + 1,
-                    best_loss=self.best_loss)
+        if self._saver is not None:
+            step = self.state.step
+            if self._snap_cache is None or self._snap_cache[0] != step:
+                self._snap_cache = (step, checkpoint.snapshot(
+                    self.state.state_dict()))
+            tree = dict(self._snap_cache[1], epoch=epoch + 1,
+                        best_loss=self.best_loss)
+            # The worker logs "Model saved in file:" once the file is
+            # written.
+            self._saver.submit(kind, epoch, tree, device=self.device)
+            return
+        tree = dict(checkpoint.to_host(self.state.state_dict()),
+                    epoch=epoch + 1, best_loss=self.best_loss)
         if kind == "best":
             path = self.ckpt.save_best(epoch, tree)
         else:
             path = self.ckpt.save_periodic(tree)
         self.logger.log(f"Model saved in file: {path}")
+
+    def _save_preempt(self, epoch: int) -> None:
+        """A resumable checkpoint whose stored epoch is ``epoch``: the
+        interrupted epoch, which ``--resume`` then runs from its start
+        (the updates of its finished steps stay in the weights)."""
+        self.logger.log(f"received signal {self._preempt_signum}: stopping "
+                        f"at a step boundary")
+        if self._saver is not None:
+            # Earlier saves land before this one moves LATEST; this one is
+            # synchronous, durable before train() returns.
+            self._saver.flush()
+        tree = dict(checkpoint.to_host(self.state.state_dict()),
+                    epoch=epoch, best_loss=self.best_loss)
+        path = self.ckpt.save_periodic(tree)
+        self.logger.log(f"preemption checkpoint saved: {path} (--resume "
+                        f"restarts epoch {epoch})")
+
+    def _install_signal_handlers(self) -> Callable[[], None]:
+        """SIGTERM and SIGINT ask for a checkpoint and a return at the next
+        step boundary; a second signal restores the previous handlers and
+        raises KeyboardInterrupt. Returns the function that restores the
+        previous handlers; a no-op outside the main thread, where no
+        handler can be installed."""
+        previous = {}
+
+        def restore():
+            for sig, handler in previous.items():
+                try:
+                    signal.signal(sig, handler)
+                except ValueError:
+                    pass
+
+        def request_stop(signum, frame):
+            if self._preempted:
+                restore()
+                raise KeyboardInterrupt
+            self._preempted = True
+            self._preempt_signum = signum
+            # The main thread may be inside the logger's buffered write,
+            # which is not reentrant; os.write is safe in a handler, and
+            # the loop logs once it sees the flag.
+            os.write(2, (f"\nreceived signal {signum}: checkpointing at the "
+                         f"next step boundary, then returning (signal again "
+                         f"to interrupt)\n").encode())
+
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                previous[sig] = signal.signal(sig, request_stop)
+        except ValueError:  # not the main thread
+            return lambda: None
+        return restore
 
     # -- epoch loops --------------------------------------------------------
 
@@ -187,33 +301,84 @@ class Trainer:
                     f"{cfg.batch_size}); epoch is a no-op")
         start_step = self.state.step
         t0 = time.time()
-        steps_done, pending, last = 0, [], None
-        for batch_idx, batch in enumerate(self.train_pipe.epoch()):
-            last = self.train_step(batch)
-            steps_done += 1
-            pending.append(last)
-            if (batch_idx + 1) % cfg.log_every == 0:
-                means = fetch_metric_means(pending)
-                pending = []
-                log.log(f" -- {batch_idx + 1:03d} / {num_batches:03d} --")
-                log.log(f"mean loss: {means['loss']:.6f}")
-                log.log(f"mean pc loss: {means['pcloss']:.6f}")
-                log.scalars("train", start_step + batch_idx + 1, means)
-        if last is not None:
-            last["loss"].item()  # the epoch time includes the device's work
+        if self.input_mode == "device":
+            steps_done = self._train_epoch_device(start_step, num_batches)
+        else:
+            steps_done = self._train_epoch_host(start_step, num_batches)
         dt = time.time() - t0
         if dt > 0:
             log.log(f"epoch throughput: "
                     f"{steps_done * cfg.batch_size / dt:.1f} shapes/sec")
 
+    def _log_window(self, step: int, batches: int, num_batches: int,
+                    means: Dict[str, float]) -> None:
+        log = self.logger
+        log.log(f" -- {batches:03d} / {num_batches:03d} --")
+        log.log(f"mean loss: {means['loss']:.6f}")
+        log.log(f"mean pc loss: {means['pcloss']:.6f}")
+        log.scalars("train", step, means)
+
+    def _device_batches(self, pipe: DeviceBatchIterator, data: DeviceDataset,
+                        rotate: bool) -> Iterator[torch.Tensor]:
+        """An epoch of batches built on the device from ``data``."""
+        for idxs in pipe.epoch():
+            yield assemble_batch(data.data, data.lengths, idxs,
+                                 pipe.generator, self.config.num_point,
+                                 rotate)
+
+    def _train_epoch_device(self, start_step: int, num_batches: int) -> int:
+        """Device-input epoch: each batch is built on the device, and the
+        metrics of the whole epoch come to the host in one copy at its
+        end (which also waits for the device), so the log lines print
+        then, with the host path's content."""
+        cfg = self.config
+        pending: List[Metrics] = []
+        for batch in self._device_batches(self.train_pipe, self.train_device,
+                                          rotate=not cfg.no_rotation):
+            if self._preempted:
+                break
+            pending.append(self.train_step(batch))
+        # The reference logs at full log_every marks only.
+        full = len(pending) // cfg.log_every * cfg.log_every
+        windows = [(a, a + cfg.log_every)
+                   for a in range(0, full, cfg.log_every)]
+        if pending:
+            means = fetch_metric_windows(pending, windows)
+            for (_, stop), m in zip(windows, means):
+                self._log_window(start_step + stop, stop, num_batches, m)
+        return len(pending)
+
+    def _train_epoch_host(self, start_step: int, num_batches: int) -> int:
+        """Host-input epoch: a metric fetch at every log mark, one stacked
+        copy each."""
+        cfg = self.config
+        pending, last, steps_done = [], None, 0
+        for batch_idx, batch in enumerate(self.train_pipe.epoch()):
+            if self._preempted:
+                break
+            last = self.train_step(batch)
+            steps_done += 1
+            pending.append(last)
+            if (batch_idx + 1) % cfg.log_every == 0:
+                means, = fetch_metric_windows(pending, [(0, len(pending))])
+                pending = []
+                self._log_window(start_step + batch_idx + 1, batch_idx + 1,
+                                 num_batches, means)
+        if last is not None:
+            last["loss"].item()  # the epoch time includes the device's work
+        return steps_done
+
     def eval_one_epoch(self, epoch: int) -> float:
         log = self.logger
         log.log(f"---- EPOCH {epoch:03d} EVALUATION ----")
-        pending = [self.eval_step(batch) for batch in self.eval_pipe.epoch()]
+        batches = (self._device_batches(self.eval_pipe, self.eval_device,
+                                        rotate=False)
+                   if self.input_mode == "device" else self.eval_pipe.epoch())
+        pending = [self.eval_step(batch) for batch in batches]
         if not pending:
             log.log("eval skipped: test split smaller than one batch")
             return float("inf")
-        means = fetch_metric_means(pending)
+        means, = fetch_metric_windows(pending, [(0, len(pending))])
         log.log(f"eval mean loss: {means['loss']:.6f}")
         log.log(f"eval mean pc loss: {means['pcloss']:.6f}")
         log.scalars("test", self.state.step, means)
@@ -221,23 +386,53 @@ class Trainer:
 
     def train(self) -> float:
         cfg = self.config
-        if cfg.eval_only:
-            loss = self.eval_one_epoch(self.start_epoch)
-            self.logger.log(f"eval-only mode; eval loss {loss:.6f}")
-            return loss
-        for epoch in range(self.start_epoch, cfg.max_epoch):
-            self.logger.log(f"**** EPOCH {epoch:03d} ****")
-            self.train_one_epoch(epoch)
-            epoch_loss = self.eval_one_epoch(epoch)
-            if epoch_loss < self.best_loss:
-                self.best_loss = epoch_loss
-                self._save("best", epoch)
-            if epoch % 10 == 0:
-                self._save("periodic", epoch)
-        return self.best_loss
+        # The flag belongs to one train() call: a preempted Trainer trains
+        # again in the same process.
+        self._preempted = False
+        restore_signals = self._install_signal_handlers()
+        try:
+            if cfg.eval_only:
+                loss = self.eval_one_epoch(self.start_epoch)
+                self.logger.log(f"eval-only mode; eval loss {loss:.6f}")
+                return loss
+            for epoch in range(self.start_epoch, cfg.max_epoch):
+                self.logger.log(f"**** EPOCH {epoch:03d} ****")
+                self.train_one_epoch(epoch)
+                if self._preempted:
+                    self._save_preempt(epoch)
+                    return self.best_loss
+                epoch_loss = self.eval_one_epoch(epoch)
+                if epoch_loss < self.best_loss:
+                    self.best_loss = epoch_loss
+                    self._save("best", epoch)
+                if epoch % 10 == 0:
+                    self._save("periodic", epoch)
+                if self._preempted:
+                    # The signal came during eval or the saves: this epoch
+                    # is complete, so the resume pointer moves past it.
+                    self._save_preempt(epoch + 1)
+                    return self.best_loss
+            return self.best_loss
+        finally:
+            restore_signals()
+            self.flush()
+
+    def flush(self) -> None:
+        """Wait until every checkpoint submitted so far is on disk; the
+        Trainer stays usable."""
+        if self._saver is not None:
+            self._saver.flush()
 
     def close(self) -> None:
-        """Close the logger if this Trainer created it. Idempotent."""
+        """Finish the background saves, stop the saver and close the logger
+        if this Trainer created it. Idempotent; a closed Trainer does not
+        save again."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._saver is not None:
+            self._saver.close()
+            self._saver = None
         if self._owns_logger:
             self.logger.close()
 

@@ -35,7 +35,8 @@ def test_every_module_is_listed():
                  "models.autoencoder", "models.registry", "convert",
                  "checkpoint_file",
                  "inference", "serve", "cli.serve", "cli.train",
-                 "cli.parity",
+                 "cli.parity", "cli.test", "cli.export", "cli.import_tf",
+                 "tf_import", "viz.render", "data.device_pipeline",
                  "csrc.build", "device", "config", "data.shapenet_part",
                  "data.synthetic", "data.pipeline", "train.schedules",
                  "train.state", "train.checkpoint", "train.logging",

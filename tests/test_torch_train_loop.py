@@ -163,17 +163,18 @@ def test_parser_has_the_reference_flags_and_device():
     assert args.device == "cuda" and args.bf16
     cfg = cli.config_from_args(args)
     defaults = jconfig.TrainConfig()
+    assert set(TrainConfig.__dataclass_fields__) == set(
+        jconfig.TrainConfig.__dataclass_fields__)
     for field in jconfig.TrainConfig.__dataclass_fields__:
-        if field in ("input_mode", "async_checkpoints"):
-            continue
         assert getattr(cfg, field) == getattr(defaults, field), field
-    assert cfg.input_mode == "host" and not cfg.async_checkpoints
+        assert getattr(TrainConfig(), field) == getattr(defaults, field), field
+    assert cfg.input_mode == "device" and cfg.async_checkpoints
 
 
 @pytest.mark.parametrize("field,value", [
-    ("input_mode", "device"), ("data_parallel", 2), ("model_parallel", 2),
+    ("data_parallel", 2), ("model_parallel", 2),
     ("point_parallel", True), ("bf16_params", True), ("bf16_moments", True),
-    ("async_checkpoints", True), ("profile_dir", "/nonexistent/prof"),
+    ("profile_dir", "/nonexistent/prof"),
     ("compilation_cache_dir", "/nonexistent/cache")])
 def test_config_refuses_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
