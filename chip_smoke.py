@@ -65,7 +65,10 @@ line each; any failure exits non-zero before the final line:
             torch.profiler trace of each (device busy time, idle share,
             device time by kernel); the ``model`` bf16 step with its input
             built on the card (device input) and from the host pipeline
-            (host input): host median, device busy time, idle share.
+            (host input): host median, device busy time, idle share; K1
+            beside its library yardstick (torch.cdist and two min) by
+            device time per call at model_hierachy's (64, 2048) and at
+            B=1.
 9. families: ``--model`` model_cpu, model_hierachy, model_upconv and
             model_fc_upconv, each trained as phase 6 (bf16, 2 epochs, the
             same fixture) but with ``--input_mode host``: finite losses, a falling eval pcloss, a best
@@ -98,6 +101,28 @@ line each; any failure exits non-zero before the final line:
             more steps and a flush: the checkpoint equals the host copy
             bit for bit. The training thread's time in one save of the
             model state, in the background and synchronous.
+13. data_parallel: 2 ranks sharing the card over gloo (NCCL refuses two
+            ranks on one device), spawned by ``parallel.mesh.launch``. One
+            f32 step of ``model`` and of ``model_emd`` at a global B=32,
+            16 rows per rank, through ``cli.train``'s build, against the
+            same step on the card alone, the ranks replaying its choices:
+            loss rtol 1e-5, BN statistics rtol 1e-4 atol 1e-6, gradients
+            within 1e-5 of the largest element, each of the two raised to
+            twice the same step's own f32 floor (the batch's rows swapped
+            in pairs) where that floor is higher; per-rank launches K3 =
+            K4 = K1 = K2 = 1 (``model_emd``: K6 = 1, no K2). The step in an
+            NCCL group of one rank, bit-equal to the step without a group.
+            SIGTERM to rank 1 alone during device-input training: both
+            ranks stop at the epoch's end, one checkpoint, a 2-rank resume
+            from that step. ``cli.train`` with 2 ranks on the card
+            (``devices``, ``backend="gloo"``), 2 bf16 epochs of device
+            input: per-rank launches exactly the path's, weights bit-equal
+            across ranks, eval pcloss falling, rank 0's checkpoint in a
+            one-card session; each rank's step host median, trace and peak
+            memory. A 2-replica ``InferenceSession`` against the one-card
+            session within 1e-5 (ragged batch included), K5 once per
+            replica and batch, a ``PointServer`` over it. No time here is
+            a multi-card time.
 
 The last three lines are the kernels JSON line, the nvidia-smi line and
 the device JSON line.
@@ -1460,6 +1485,540 @@ def phase_export_import(torch, best_path, tmp, rng):
         f"checkpoint's session ok; {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase data_parallel: 2 ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_STEP_MODELS = ("model", "model_emd")
+
+
+@contextlib.contextmanager
+def dp_choices(store: dict, replay: bool, rows=slice(None)):
+    """Within the block, a train step's discrete choices on the card (the
+    Chamfer argmins, the head's argmax, every ReLU mask) and K6's outputs
+    are recorded into ``store`` (the one-device step on the global batch)
+    or, with ``replay``, replayed from it on ``rows`` of that batch (a
+    rank's step, or the same batch in another order), counting in
+    ``store["differed"]`` and ``store["made"]`` where the replaying run's
+    own choices differed. The kernels run on both sides; a wrapper's
+    launches go to its counter as in ``shared_choices``."""
+    from pointnet_autoencoder_tpu_torch.nn import layers
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+    from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+
+    nn_fn, head_fn, emd_fn = (ch.nn_distance_cuda, fh.head_max_cuda,
+                              em.emd_forward_cuda)
+    functional = layers.F
+    store.setdefault("differed", 0)
+    store.setdefault("made", 0)
+    seen = {}
+
+    def take(key, own):
+        calls = seen.get(key, 0)
+        seen[key] = calls + 1
+        if not replay:
+            store.setdefault(key, []).append(own.cpu())
+            return own
+        want = store[key][calls][rows].to(own.device, own.dtype)
+        store["differed"] += int((own != want).sum())
+        store["made"] += own.numel()
+        return want
+
+    def nn(a, b):
+        d1, i1, d2, i2 = nn_fn(a, b)
+        return d1, take("idx1", i1), d2, take("idx2", i2)
+
+    def head(x, w, scale, shift):
+        maxout, argmax = head_fn(x, w, scale, shift)
+        return maxout, take("argmax", argmax)
+
+    def emd(x1, x2):
+        own = emd_fn(x1, x2)
+        if not replay:
+            store["emd"] = [t.cpu() for t in own]
+            return own
+        return tuple(t[rows].to(own[0].device) for t in store["emd"])
+
+    def relu(x):
+        mask = take("relu", x > 0)
+        return functional.relu(x) if not replay else x * mask.to(x.dtype)
+
+    stand_in_f = types.SimpleNamespace(**vars(functional))
+    stand_in_f.relu = relu
+    layers.F = stand_in_f
+    patched = ((ch, "nn_distance_cuda", nn_fn, nn),
+               (fh, "head_max_cuda", head_fn, head),
+               (em, "emd_forward_cuda", emd_fn, emd))
+    for mod, name, fn, stand_in in patched:
+        stand_in.launches = fn.launches
+        setattr(mod, name, stand_in)
+    try:
+        yield
+    finally:
+        layers.F = functional
+        for mod, name, fn, stand_in in patched:
+            setattr(mod, name, fn)
+            fn.launches = stand_in.launches
+
+
+def dp_step_argv(model, data, log_dir):
+    """One f32 train step of ``model`` on host input (the batch is fed)."""
+    return train_argv(model, data, log_dir) + ["--no-bf16", "--input_mode",
+                                               "host"]
+
+
+def dp_step_result(torch, trainer, metrics, counters, flips=(0, 0)):
+    return dict(
+        scalars={k: float(metrics[k]) for k in ("loss", "pcloss")},
+        grads={n: p.grad.detach().cpu() for n, p in
+               trainer.model.named_parameters()},
+        buffers={n: b.detach().cpu() for n, b in
+                 trainer.model.named_buffers()},
+        launches={n: fn.launches for n, fn in counters.items()},
+        flips=flips)
+
+
+def state_hash(trainer) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in trainer.model.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank_steps(device, out_dir, data, preempt_argv):
+    """A rank of phase data_parallel's 2-rank checks: for each model of
+    DP_STEP_MODELS, one f32 train step through ``cli.train``'s build on
+    this rank's rows of the one-device step's batch, replaying its
+    choices, with the launches counted; then device-input training of
+    ``model`` where rank 1 alone sends itself SIGTERM after its step 3,
+    and a resume at 2 ranks. Writes ``<out_dir>/dp_rank<r>.pt``."""
+    import signal
+
+    import torch
+    import torch.distributed as dist
+
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+    from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+
+    rank = dist.get_rank()
+    per = BATCH // DP_RANKS
+    rows = slice(rank * per, (rank + 1) * per)
+    counters = kernel_counters(ch, fe, fh, em)
+    parse = cli_train.build_parser().parse_args
+    out = {}
+    for model in DP_STEP_MODELS:
+        case = torch.load(os.path.join(out_dir, f"{model}_case.pt"))
+        tr, lg = cli_train.build_trainer(parse(dp_step_argv(
+            model, data, os.path.join(out_dir, f"{model}_dp_log"))))
+        x = case["x"][rows].to(tr.device)
+        store = dict(case["choices"], differed=0, made=0)
+        for fn in counters.values():
+            fn.launches = 0
+        with dp_choices(store, replay=True, rows=rows):
+            m = tr.train_step(x)
+        torch.cuda.synchronize()
+        out[model] = dp_step_result(torch, tr, m, counters,
+                                    (store["differed"], store["made"]))
+        tr.close()
+        lg.close()
+
+    tr, lg = cli_train.build_trainer(parse(preempt_argv))
+    step_fn = tr.train_step
+
+    def train_step(batch):
+        metrics = step_fn(batch)
+        if rank == 1 and tr.state.step == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return metrics
+
+    tr.train_step = train_step
+    tr.train()
+    stopped = (tr.state.step, state_hash(tr))
+    tr.close()
+    lg.close()
+    again, lg = cli_train.build_trainer(parse(preempt_argv + ["--resume"]))
+    resumed_at = (again.start_epoch, again.state.step)
+    again.train()
+    out["preempt"] = dict(stopped=stopped, resumed_at=resumed_at,
+                          resumed=(again.state.step, state_hash(again)))
+    again.close()
+    lg.close()
+    torch.save(out, os.path.join(out_dir, f"dp_rank{rank}.pt"))
+
+
+def dp_nccl_step(device, out_dir, data):
+    """The world-size-1 rank over NCCL: phase data_parallel's f32 `model`
+    step on the whole batch, choices its own."""
+    import torch
+
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+    from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+
+    counters = kernel_counters(ch, fe, fh, em)
+    case = torch.load(os.path.join(out_dir, "model_case.pt"))
+    tr, lg = cli_train.build_trainer(cli_train.build_parser().parse_args(
+        dp_step_argv("model", data, os.path.join(out_dir, "nccl_log"))))
+    require(tr.group is not None and tr.group.world_size == 1,
+            "the NCCL rank is not in a group of 1")
+    m = tr.train_step(case["x"].to(tr.device))
+    torch.cuda.synchronize()
+    torch.save(dp_step_result(torch, tr, m, counters),
+               os.path.join(out_dir, "nccl_rank0.pt"))
+    tr.close()
+    lg.close()
+
+
+def dp_train_report(out_dir, trainer):
+    """``after`` of phase data_parallel's ``cli.train`` run, in each rank:
+    the launches of the whole run, the weights' hash, then the host median
+    of 10 bf16 steps on this rank's rows of a batch already on the card and
+    a trace of one; the peak device memory. Writes
+    ``<out_dir>/train_rank<r>.json``."""
+    import torch
+
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+    from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+
+    launches = {n: fn.launches for n, fn in
+                kernel_counters(ch, fe, fh, em).items()}
+    digest = state_hash(trainer)
+    per = BATCH // trainer.group.world_size
+    x = torch.from_numpy(clouds(np.random.RandomState(SEED + 22), BATCH,
+                                NUM_POINT)[trainer.rank * per:
+                                           (trainer.rank + 1) * per]).to(
+        trainer.device)
+
+    def step():
+        trainer.train_step(x)["loss"].item()
+
+    step()
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        host.append(1e3 * (time.perf_counter() - t0))
+    trace = device_trace(torch, step, "chip_smoke.dp_train_step")
+    with open(os.path.join(out_dir, f"train_rank{trainer.rank}.json"),
+              "w") as f:
+        json.dump(dict(launches=launches, hash=digest,
+                       step_host_ms=host, trace=trace,
+                       peak_mb=torch.cuda.max_memory_allocated(
+                           trainer.device) / 2**20), f)
+
+
+def dp_gaps(got: dict, want: dict):
+    """(the largest |got - want| of a leaf over that leaf's largest entry,
+    the same over the whole gradient's largest entry, and the whole
+    gradient's relative error norm), leaves that are zero in exact
+    arithmetic (a bias before a training BN) left out of the first: they
+    read as rounding noise on both sides (``grad_gaps``)."""
+    _, noise = grad_gaps({n: g.double().numpy() for n, g in got.items()},
+                         {n: w.double().numpy() for n, w in want.items()})
+    largest = max(float(w.abs().max()) for w in want.values())
+    leaf = whole = num = den = 0.0
+    for n, w in want.items():
+        err = float((got[n] - w).abs().max())
+        whole = max(whole, err / largest)
+        num += float((got[n] - w).double().square().sum())
+        den += float(w.double().square().sum())
+        if n not in noise:
+            leaf = max(leaf, err / float(w.abs().max()))
+    return leaf, whole, (num / den) ** 0.5
+
+
+def phase_data_parallel(torch, counters, session, weights, data, tmp, rng):
+    """Data parallelism on the one card: 2 ranks over gloo on cuda:0 (NCCL
+    refuses two ranks on one device) and one rank over NCCL. See the
+    module docstring, phase 13."""
+    import functools
+
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+    from pointnet_autoencoder_tpu_torch.parallel import mesh
+    from pointnet_autoencoder_tpu_torch.serve import PointClient, PointServer
+    from pointnet_autoencoder_tpu_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(tmp, "dp")
+    os.makedirs(out_dir)
+    parse = cli_train.build_parser().parse_args
+    cards = ["cuda:0"] * DP_RANKS
+    say("data_parallel", f"2 ranks sharing one H100 over gloo "
+        f"({nvidia_smi_line()}); nothing here is a multi-card time or a "
+        f"speedup")
+
+    # 1. One f32 step on the card alone, its choices recorded; the same
+    # step on the batch with its rows swapped in pairs (the choices
+    # replayed), which changes only the order of the batch sums: the f32
+    # floor the ranks are held to beside 1e-5.
+    x = clouds(np.random.RandomState(SEED + 21), BATCH, NUM_POINT)
+    pairs = torch.from_numpy(
+        np.arange(BATCH).reshape(-1, 2)[:, ::-1].reshape(-1).copy())
+    single, floor = {}, {}
+    for model in DP_STEP_MODELS:
+        choices = {}
+        for run, (replay, rows) in enumerate(((False, slice(None)),
+                                              (True, pairs))):
+            tr, lg = cli_train.build_trainer(parse(dp_step_argv(
+                model, data, os.path.join(out_dir, f"{model}_{run}_log"))))
+            store = dict(choices, differed=0, made=0) if replay else choices
+            for fn in counters.values():
+                fn.launches = 0
+            with dp_choices(store, replay=replay, rows=rows):
+                m = tr.train_step(torch.from_numpy(x)[rows].to(tr.device))
+            torch.cuda.synchronize()
+            (floor if replay else single)[model] = dp_step_result(
+                torch, tr, m, counters)
+            tr.close()
+            lg.close()
+        torch.save({"x": torch.from_numpy(x), "choices": choices},
+                   os.path.join(out_dir, f"{model}_case.pt"))
+
+    preempt_log = os.path.join(out_dir, "preempt_log")
+    preempt_argv = train_argv("model", data, preempt_log) + [
+        "--max_epoch", str(TRAIN_EPOCHS)]
+    t0 = time.perf_counter()
+    mesh.launch(dp_rank_steps, devices=cards, backend="gloo",
+                args=(out_dir, data, preempt_argv))
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"dp_rank{r}.pt"))
+             for r in range(DP_RANKS)]
+    want_launches = {
+        "model": {"fused_head_fwd": 1, "fused_head_bwd": 1, "nn_distance": 1,
+                  "nn_distance_grad": 1, "emd_forward": 0,
+                  "fused_encoder_eval": 0},
+        "model_emd": {"fused_head_fwd": 1, "fused_head_bwd": 1,
+                      "nn_distance": 1, "nn_distance_grad": 0,
+                      "emd_forward": 1, "fused_encoder_eval": 0}}
+    for model in DP_STEP_MODELS:
+        one, fl = single[model], floor[model]
+        got = [r[model] for r in ranks]
+        for r, g in enumerate(got):
+            require(g["launches"] == want_launches[model],
+                    f"{model} DP step rank {r} launches {g['launches']}")
+            differed, made = g["flips"]
+            require(made > 0 and differed <= 1e-3 * made,
+                    f"{model} DP step rank {r}: its own choices differed at "
+                    f"{differed} of {made}")
+        require(all(torch.equal(t, got[1]["grads"][n])
+                    for n, t in got[0]["grads"].items())
+                and all(torch.equal(t, got[1]["buffers"][n])
+                        for n, t in got[0]["buffers"].items()),
+                f"{model} DP step: the ranks' gradients or BN statistics "
+                f"differ after the all-reduce")
+        loss = np.mean([g["scalars"]["loss"] for g in got])
+        require(close(loss, one["scalars"]["loss"], 1e-5, 0.0),
+                f"{model} DP loss {loss} vs one card "
+                f"{one['scalars']['loss']} (rtol 1e-5)")
+        # BN statistics at rtol 1e-4, atol 1e-6, the atol raised to twice
+        # the largest gap of the same statistic on the reordered batch (a
+        # batch mean that cancels to near zero carries the rounding of
+        # its terms).
+        floored, buf_err = 0, (0.0, "", 0.0)
+        for n, b in one["buffers"].items():
+            b = b.numpy()
+            err = np.abs(got[0]["buffers"][n].numpy() - b)
+            bound = 1e-6 + 1e-4 * np.abs(b)
+            reorder = float(np.abs(fl["buffers"][n].numpy() - b).max())
+            floored += int((err > bound).sum())
+            require(bool(np.all(err <= np.maximum(bound, 2 * reorder))),
+                    f"{model} DP BN statistic {n}: max abs err "
+                    f"{float(err.max()):.3e} past rtol 1e-4, atol 1e-6 and "
+                    f"twice the reordered batch's largest gap {reorder:.3e}")
+            i = int(np.argmax(err - bound))
+            if err[i] - bound[i] > buf_err[0] - 1e-6 - 1e-4 * abs(buf_err[2]):
+                buf_err = (float(err[i]), f"{n}[{i}]", float(b[i]))
+        dp_leaf, dp_whole, dp_norm = dp_gaps(got[0]["grads"], one["grads"])
+        fl_leaf, fl_whole, fl_norm = dp_gaps(fl["grads"], one["grads"])
+        require(dp_whole <= max(1e-5, 2 * fl_whole)
+                and dp_norm <= max(1e-5, 2 * fl_norm),
+                f"{model} DP gradients: {dp_whole:.3e} of the largest "
+                f"element, relative norm {dp_norm:.3e}; the reordered batch "
+                f"on one card {fl_whole:.3e}, {fl_norm:.3e}")
+        say("data_parallel", f"{model} f32 step, global B={BATCH} N="
+            f"{NUM_POINT}, 2 ranks of {BATCH // DP_RANKS} on cuda:0 (gloo) "
+            f"vs one card: loss {loss:.6f} vs {one['scalars']['loss']:.6f} "
+            f"(rtol 1e-5); BN statistics: {floored} entries past rtol 1e-4, "
+            f"atol 1e-6 (held within twice the reordered batch's gap), the "
+            f"furthest {buf_err[1]} = {buf_err[2]:.4e} off by "
+            f"{buf_err[0]:.3e}; gradient gap {dp_whole:.3e} of its largest "
+            f"element ({'within' if dp_whole <= 1e-5 else 'past'} 1e-5), "
+            f"largest leaf gap over the leaf's largest {dp_leaf:.3e}, "
+            f"relative norm {dp_norm:.3e}; the same step on one card with "
+            f"the batch's rows swapped in pairs (f32 floor): {fl_whole:.3e}, "
+            f"{fl_leaf:.3e}, {fl_norm:.3e}; the ranks' own choices differed "
+            f"at {got[0]['flips'][0]} + {got[1]['flips'][0]} of "
+            f"{got[0]['flips'][1] + got[1]['flips'][1]} (replaced by the "
+            f"one card's); per-rank launches {got[0]['launches']} ok")
+
+    # 3. NCCL at world size 1: the step without a group, bit for bit.
+    mesh.launch(dp_nccl_step, devices=["cuda:0"], backend="nccl",
+                args=(out_dir, data))
+    nccl = torch.load(os.path.join(out_dir, "nccl_rank0.pt"))
+    one = single["model"]
+    require(nccl["scalars"] == one["scalars"]
+            and all(torch.equal(t, one["grads"][n])
+                    for n, t in nccl["grads"].items())
+            and all(torch.equal(t, one["buffers"][n])
+                    for n, t in nccl["buffers"].items()),
+            "the NCCL world-size-1 step differs from the step without a "
+            "group")
+    say("data_parallel", f"model f32 step in an NCCL group of 1: loss, "
+        f"every gradient and BN statistic bit-equal to the step without a "
+        f"group; launches {nccl['launches']} ok")
+
+    # 4. Preemption: SIGTERM to rank 1 only, device input. The ranks agree
+    # at the epoch's end (where the host waits for the epoch's metrics).
+    p0, p1 = (r["preempt"] for r in ranks)
+    steps_per_epoch = 320 // BATCH
+    require(p0["stopped"] == p1["stopped"]
+            and p0["stopped"][0] == steps_per_epoch,
+            f"preemption: ranks stopped at {p0['stopped'][0]} and "
+            f"{p1['stopped'][0]} (hashes equal: "
+            f"{p0['stopped'][1] == p1['stopped'][1]}), expected both at "
+            f"{steps_per_epoch}")
+    with open(os.path.join(preempt_log, "log_train.txt")) as f:
+        text = f.read()
+    require(text.count("preemption checkpoint saved") == 1
+            and "a signal on another rank" in text,
+            "preemption: not one checkpoint from rank 0")
+    require(p0["resumed_at"] == p1["resumed_at"] == (1, steps_per_epoch)
+            and p0["resumed"] == p1["resumed"]
+            and p0["resumed"][0] == TRAIN_EPOCHS * steps_per_epoch,
+            f"preemption resume: {p0['resumed_at']} -> {p0['resumed'][0]}, "
+            f"{p1['resumed_at']} -> {p1['resumed'][0]}")
+    say("data_parallel", f"SIGTERM to rank 1 alone after its step 3: both "
+        f"ranks stopped at step {p0['stopped'][0]} (the epoch's end, where "
+        f"they agree), weights bit-equal, one preemption checkpoint by rank "
+        f"0; a resume at 2 ranks started at epoch {p0['resumed_at'][0]} "
+        f"step {p0['resumed_at'][1]} and ended at step {p0['resumed'][0]} "
+        f"bit-equal across ranks; the 2-rank run took {ranks_s:.1f} s ok")
+
+    # 2. Training 2 epochs through cli.train's launch path, bf16, device
+    # input and background saves (the defaults).
+    log_dir = os.path.join(out_dir, "train_log")
+    t0 = time.perf_counter()
+    cli_train.main(train_argv("model", data, log_dir)
+                   + ["--max_epoch", str(TRAIN_EPOCHS)], devices=cards,
+                   backend="gloo",
+                   after=functools.partial(dp_train_report, out_dir))
+    train_s = time.perf_counter() - t0
+    reports = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, f"train_rank{r}.json")) as f:
+            reports.append(json.load(f))
+    eval_batches = 64 // BATCH
+    want = {"fused_head_fwd": TRAIN_EPOCHS * steps_per_epoch,
+            "fused_head_bwd": TRAIN_EPOCHS * steps_per_epoch,
+            "nn_distance_grad": TRAIN_EPOCHS * steps_per_epoch,
+            "nn_distance": TRAIN_EPOCHS * (steps_per_epoch + eval_batches),
+            "fused_encoder_eval": TRAIN_EPOCHS * eval_batches,
+            "emd_forward": 0}
+    for r, rep in enumerate(reports):
+        require(rep["launches"] == want,
+                f"DP training rank {r} launches {rep['launches']}, the path "
+                f"needs {want}")
+    require(reports[0]["hash"] == reports[1]["hash"],
+            "DP training: the ranks' weights differ after 2 epochs")
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    evals = [r["pcloss"] for r in recs if r["split"] == "test"]
+    require(len(evals) == TRAIN_EPOCHS and all(np.isfinite(evals))
+            and evals[-1] < evals[0], f"DP eval pcloss {evals}")
+    bests = sorted(n for n in os.listdir(log_dir)
+                   if n.startswith("best_model_epoch_"))
+    require(bool(bests) and checkpoint.CheckpointManager(log_dir).latest()
+            is not None, f"DP training checkpoints: {os.listdir(log_dir)}")
+    restored = InferenceSession("model", os.path.join(log_dir, bests[-1]),
+                                NUM_POINT, batch_size=BATCH, device="cuda")
+    rec = restored.reconstruct(x)
+    require(rec.shape == x.shape and np.all(np.isfinite(rec)),
+            "a one-card session on the DP checkpoint")
+    say("data_parallel", f"cli.train --data_parallel 2 on cuda:0 twice "
+        f"(gloo), bf16, device input: {TRAIN_EPOCHS} epochs in "
+        f"{train_s:.1f} s (rank start and data loading included); eval "
+        f"pcloss {[round(v, 6) for v in evals]}; weights bit-equal across "
+        f"ranks (sha256 {reports[0]['hash'][:16]}); checkpoints by rank 0 "
+        f"{bests} restore into a one-card session; per-rank launches "
+        f"{reports[0]['launches']} (K3 = K4 = K2 = 20 steps, K5 = "
+        f"{TRAIN_EPOCHS * eval_batches} eval batches, K1 20 + "
+        f"{TRAIN_EPOCHS * eval_batches}) ok")
+    for r, rep in enumerate(reports):
+        host = rep["step_host_ms"]
+        say("data_parallel", f"rank {r}: bf16 step on its {BATCH // DP_RANKS}"
+            f" rows (2 ranks on one H100 over gloo; host clock to the loss): "
+            f"median {statistics.median(host):.3f} ms, min {min(host):.3f}, "
+            f"max {max(host):.3f}; traced: {rep['trace']}; peak device "
+            f"memory {rep['peak_mb']:.1f} MiB")
+
+    # 5. Serving: one process, a replica per entry of the mesh.
+    dp = InferenceSession("model", weights, NUM_POINT, batch_size=BATCH,
+                          data_parallel=DP_RANKS, devices=cards)
+    gaps = {}
+    for what, batch in (("B=32", clouds(rng, BATCH, NUM_POINT)),
+                        ("ragged 45", clouds(rng, 45, NUM_POINT))):
+        rec_dp, rec_one = dp.reconstruct(batch), session.reconstruct(batch)
+        emb_dp, emb_one = dp.embed(batch), session.embed(batch)
+        pairs_out = [("reconstruct", rec_dp, rec_one),
+                     ("embed", emb_dp, emb_one),
+                     ("decode", dp.decode(emb_one), session.decode(emb_one)),
+                     ("chamfer", dp.chamfer(rec_one, batch),
+                      session.chamfer(rec_one, batch)),
+                     ("fscore", dp.fscore(rec_one, batch),
+                      session.fscore(rec_one, batch))]
+        for name, a, b in pairs_out:
+            require(close(a, b, 1e-5, 1e-5),
+                    f"DP serving {name} ({what}): max abs err "
+                    f"{max_err(a, b):.3e}")
+            gaps[f"{name} {what}"] = max_err(a, b)
+    fe.encoder_extrema_cuda.launches = 0
+    dp.reconstruct(x)
+    require(fe.encoder_extrema_cuda.launches == DP_RANKS,
+            f"DP serving: K5 launched {fe.encoder_extrema_cuda.launches} "
+            f"times for one batch, not once per replica")
+    host_dp, host_one = [], []
+    for _ in range(10):
+        for s, into in ((dp, host_dp), (session, host_one)):
+            t0 = time.perf_counter()
+            s.reconstruct(x)
+            into.append(1e3 * (time.perf_counter() - t0))
+    server = PointServer(dp, host="127.0.0.1", port=0, max_delay_ms=5.0)
+    server.start()
+    try:
+        with PointClient("127.0.0.1", server.port, timeout=120) as c:
+            for n in (3, 32, 7):
+                req = clouds(rng, n, NUM_POINT)
+                got = c.reconstruct(req)
+                require(close(got, session.reconstruct(req), 1e-5, 1e-5),
+                        f"DP PointServer reconstruct of {n}")
+    finally:
+        server.stop()
+    say("data_parallel", f"serving, 2 replicas on cuda:0, f32 B={BATCH}: "
+        f"reconstruct, embed, decode, chamfer and fscore against the "
+        f"one-card session, max abs err "
+        + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+        + f" (rtol, atol 1e-5); K5 {DP_RANKS} launches per batch; a "
+        f"PointServer over it answered 3 requests; reconstruct host median "
+        f"{statistics.median(host_dp):.3f} ms with 2 replicas on one H100 "
+        f"vs {statistics.median(host_one):.3f} ms on one replica, same call "
+        f"(not a speedup measurement) ok")
+    say("data_parallel", f"phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def state_mb(torch, tree) -> float:
     """MB of the tensors in a (nested) state dict."""
     if torch.is_tensor(tree):
@@ -1910,7 +2469,28 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
             f"(model_hierachy's centers): device time per call, median of "
             f"50 traced calls: {dev_ms:.5f} ms ({_event_counts(counts)}); "
             f"bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
+    # K1 beside its library yardstick (torch.cdist and the two mins) at its
+    # two small shapes, model_hierachy's centers and cli.test's B=1: the
+    # device time per call of each, median of 50 traced calls.
+    p1, p2 = (torch.from_numpy(clouds(hier, 1, NUM_POINT)).to(dev)
+              for _ in range(2))
+    for what, a, b in ((f"B={BATCH} N={HIER_CENTERS} M={NUM_POINT}", c1, c2),
+                       (f"B=1 N=M={NUM_POINT}", p1, p2)):
+        k_ms, _ = median_device_ms(torch, lambda: ch.nn_distance_cuda(a, b))
+        l_ms, counts = median_device_ms(
+            torch, lambda: cdist_yardstick(torch, a, b), repeats=True)
+        say("timings", f"nn_distance {what}: device time per call, median "
+            f"of 50 traced calls: kernel {k_ms:.5f} ms, library "
+            f"(torch.cdist + two min) {l_ms:.5f} ms "
+            f"({_event_counts(counts)})")
     return rows
+
+
+def cdist_yardstick(torch, a, b):
+    """The library yardstick of K1: both directions' nearest distance and
+    index from one ``torch.cdist``."""
+    d = torch.cdist(a, b)
+    return d.min(dim=2), d.min(dim=1)
 
 
 def input_step_timings(torch, trainer):
@@ -1961,15 +2541,17 @@ def input_step_timings(torch, trainer):
         idxs.close()
 
 
-def median_device_ms(torch, fn, reps=50, attempts=3):
+def median_device_ms(torch, fn, reps=50, attempts=6, repeats=False):
     """(one call's device time in ms: over ``reps`` traced calls, each
     followed by a synchronize, the median duration of each kernel that
     ``fn`` launches once per call, summed over its kernels; the number of
     events of each name). A name with more than ``reps`` events (a kernel
-    launched more than once per call) fails. A trace may lose events (on
-    an H100 a trace once kept 16 of 50 calls' and another 43): with fewer
-    than ``reps - 2`` of a name the trace is taken again, up to
-    ``attempts`` times in all."""
+    launched more than once per call) fails, unless ``repeats``: a name
+    may then run a whole number m of times per call (a library's chain of
+    kernels, two reductions of one template), and counts m times its
+    median. A trace may lose events (on an H100 a trace once kept 16 of 50
+    calls' and another 43): with fewer than ``m * reps - 2`` of a name the
+    trace is taken again, up to ``attempts`` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1992,11 +2574,13 @@ def median_device_ms(torch, fn, reps=50, attempts=3):
             by_name.setdefault(e.name, []).append(
                 e.time_range.end - e.time_range.start)
         counts = {name: len(v) for name, v in by_name.items()}
-        require(all(c <= reps for c in counts.values()),
+        per_call = {name: max(1, round(c / reps)) if repeats else 1
+                    for name, c in counts.items()}
+        require(all(c <= per_call[n] * reps for n, c in counts.items()),
                 f"more than one event per call in {reps} calls: {counts}")
-        if all(c >= reps - 2 for c in counts.values()):
-            return (sum(statistics.median(v) for v in by_name.values())
-                    / 1e3, counts)
+        if all(c >= per_call[n] * reps - 2 for n, c in counts.items()):
+            return (sum(statistics.median(v) * per_call[n]
+                        for n, v in by_name.items()) / 1e3, counts)
         seen.append(counts)
     raise PhaseError(f"{attempts} traces of {reps} calls each lost events: "
                      f"{seen}")
@@ -2177,6 +2761,9 @@ def main() -> int:
                                 np.random.RandomState(SEED + 12))
             phase = "preempt"
             phase_preempt(torch, data, tmp)
+            phase = "data_parallel"
+            phase_data_parallel(torch, counters, session, weights, data, tmp,
+                                np.random.RandomState(SEED + 20))
         smi = nvidia_smi_line()
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAIL in phase {phase}: {type(e).__name__}: {e}",

@@ -23,7 +23,10 @@ Ported so far, for every ``--model`` of the reference (``model``,
   ``model_cpu`` runs the dense Chamfer instead) or the approximate-EMD
   kernel (``ops/emd.py``); its eval epoch runs the serving kernels;
 - ``cli/parity.py``: the reference README's 201-epoch command, recorded
-  in ``docs/RESULTS_TORCH.md``.
+  in ``docs/RESULTS_TORCH.md``;
+- data parallelism (``parallel/mesh.py``): training on k ranks over
+  ``torch.distributed`` with global-batch BatchNorm, and serving from a
+  model replica per card.
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,8 @@
 
     python -m pointnet_autoencoder_tpu_torch.cli.serve \\
         --model model --model_path weights.npz --num_point 2048 \\
-        --batch_size 32 --port 7433 [--bf16] [--device cuda]
+        --batch_size 32 --port 7433 [--bf16] [--device cuda] \\
+        [--data_parallel N]
 
 ``--model_path`` is a reference-named ``.npz`` (written by the JAX
 package's ``cli.export --format reference_npz``), a ``.pt`` state_dict
@@ -10,7 +11,9 @@ saved from the port, or a training checkpoint of the port's
 ``cli/train.py`` (``model.ckpt``, ``best_model_epoch_NNN.ckpt``). Protocol and client (``PointClient``) are in
 ``pointnet_autoencoder_tpu_torch/serve.py``. Every ``--model`` serves; a
 ``--num_point`` that its decoder cannot emit fails with ValueError before
-the weights load. SIGTERM drains cleanly:
+the weights load. ``--data_parallel N`` serves from N replicas, on cards
+0..N-1 (N CPU replicas with ``--device cpu``), each taking batch_size/N
+rows of every batch. SIGTERM drains cleanly:
 queued requests get 'server shutting down' errors instead of dead sockets.
 """
 
@@ -19,6 +22,8 @@ from __future__ import annotations
 import argparse
 import signal
 import sys
+
+import torch
 
 from pointnet_autoencoder_tpu_torch.models.registry import available_models
 
@@ -54,6 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 parameters and matmul inputs (BN "
                         "statistics stay f32); default full f32")
+    p.add_argument("--data_parallel", type=int, default=None,
+                   help="Shard server batches over N devices")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     return p
@@ -64,9 +71,15 @@ def build_server(args: argparse.Namespace):
     from pointnet_autoencoder_tpu_torch.inference import InferenceSession
     from pointnet_autoencoder_tpu_torch.serve import PointServer
 
+    devices = None
+    if (args.data_parallel or 1) > 1 and torch.device(args.device).type \
+            == "cpu":
+        devices = [args.device] * args.data_parallel
     session = InferenceSession(args.model, args.model_path, args.num_point,
                                batch_size=args.batch_size, bf16=args.bf16,
-                               device=args.device)
+                               device=args.device,
+                               data_parallel=args.data_parallel,
+                               devices=devices)
     server = PointServer(session, host=args.host, port=args.port,
                          max_delay_ms=args.max_delay_ms,
                          max_pending_shapes=args.max_pending_shapes,
@@ -82,7 +95,8 @@ def main(argv=None):
           flush=True)
     server.start()  # warmup runs before the socket binds
     print(f"serving {session.model_name} (num_point={session.num_point}, "
-          f"batch={args.batch_size}, device={session.device}) on "
+          f"batch={args.batch_size}, devices="
+          f"{[str(d) for d in session.devices]}) on "
           f"{args.host}:{server.port}", flush=True)
     signal.signal(signal.SIGTERM, lambda s, f: server.request_stop())
     server.serve_forever()

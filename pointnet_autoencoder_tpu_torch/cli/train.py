@@ -10,14 +10,22 @@ runs the kernels' plain PyTorch versions). ``--gpu`` is accepted for
 reference compatibility and ignored: ``--device cuda:N`` picks a card.
 ``--input_mode`` is ``device`` (the dataset on the card, batches built
 there) or ``host`` (host assembly, pinned copies); checkpoints are
-written on a background thread unless ``--sync_checkpoints``. Flags whose
-feature the port does not run yet (``--data_parallel``/``--model_parallel``
-above 1, ``--point_parallel``, ``--bf16_params``, ``--bf16_moments``,
-``--profile_dir``, ``--compilation_cache_dir``) raise NotImplementedError
-naming their ROADMAP item. A ``--num_point`` that the model's decoder
-cannot emit fails with ValueError before any data loads. SIGTERM or
-SIGINT saves a resumable checkpoint at the next step boundary and ends
-the run.
+written on a background thread unless ``--sync_checkpoints``.
+
+``--data_parallel k`` trains on k ranks, one process each, over
+``torch.distributed`` (``parallel/mesh.py``): under a launcher such as
+``torchrun`` this process joins its group as one rank; otherwise it spawns
+k local ranks on cards 0..k-1 (NCCL), or k CPU ranks with ``--device cpu``
+(gloo). Unset, it means every visible card, as in the JAX package. Asking
+for more cards than exist raises; nothing falls back to fewer cards or to
+the CPU. Flags whose feature the port does not run yet
+(``--model_parallel`` above 1, ``--point_parallel``, ``--bf16_params``,
+``--bf16_moments``, ``--profile_dir``, ``--compilation_cache_dir``) raise
+NotImplementedError naming their ROADMAP item. A ``--num_point`` that
+the model's decoder cannot emit fails with ValueError before any data
+loads. SIGTERM or SIGINT saves a resumable checkpoint at the next step
+boundary and ends the run (under data parallelism where the ranks agree:
+``train/loop.py``).
 """
 
 from __future__ import annotations
@@ -25,9 +33,13 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from typing import Callable, List, Optional, Sequence
+
+import torch
 
 from pointnet_autoencoder_tpu_torch.config import TrainConfig
 from pointnet_autoencoder_tpu_torch.models.registry import available_models
+from pointnet_autoencoder_tpu_torch.parallel import mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,7 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Resume from the latest checkpoint in log_dir")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--data_parallel", type=int, default=None,
-                   help="Not ported yet above 1")
+                   help="Ranks on the data axis, one process and one card "
+                        "each (with --device cpu: CPU ranks over gloo) "
+                        "[default: every visible card]")
     p.add_argument("--model_parallel", type=int, default=d.model_parallel,
                    help="Not ported yet above 1")
     p.add_argument("--point_parallel", action="store_true",
@@ -128,12 +142,15 @@ def config_from_args(args) -> TrainConfig:
 
 
 def build_trainer(args: argparse.Namespace):
-    """The logger and Trainer the flags describe (nothing trained yet)."""
-    from pointnet_autoencoder_tpu_torch.train.logging import Logger
+    """The logger and Trainer the flags describe (nothing trained yet), in
+    this process: alone, or as its rank of the process group it is in
+    (only rank 0's logger writes)."""
+    from pointnet_autoencoder_tpu_torch.train.logging import Logger, NullLogger
     from pointnet_autoencoder_tpu_torch.train.loop import Trainer
 
     config = config_from_args(args)
-    logger = Logger(config.log_dir)
+    logger = Logger(config.log_dir) if mesh.process_rank() == 0 \
+        else NullLogger()
     logger.log(f"pid: {os.getpid()}")
     logger.log(config.to_json())
     try:
@@ -143,13 +160,70 @@ def build_trainer(args: argparse.Namespace):
         raise
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+def run(args: argparse.Namespace,
+        after: Optional[Callable] = None) -> float:
+    """Build the Trainer the flags describe and train; ``after(trainer)``
+    runs once training has ended, before the Trainer closes. Returns the
+    best eval loss."""
     trainer, logger = build_trainer(args)
-    best = trainer.train()
-    trainer.close()
+    try:
+        best = trainer.train()
+        if after is not None:
+            after(trainer)
+    finally:
+        trainer.close()
     logger.log(f"done; best eval loss {best:.6f}")
     logger.close()
+    return best
+
+
+def _run_rank(device: torch.device, args: argparse.Namespace,
+              after: Optional[Callable]) -> None:
+    """One spawned rank (``mesh.launch``): the flags' run on ``device``."""
+    args = argparse.Namespace(**vars(args))
+    args.device = str(device)
+    run(args, after)
+
+
+def rank_devices(args: argparse.Namespace,
+                 devices: Optional[Sequence] = None
+                 ) -> Optional[List[torch.device]]:
+    """The devices to spawn one rank on each, or None to train in this
+    process: ``devices`` if given, else ``--data_parallel`` CPU ranks
+    with ``--device cpu``, else ``--data_parallel`` cards (every visible
+    card when unset). One device, or a CUDA device named by index, trains
+    in this process."""
+    if devices is not None:
+        return mesh.make_mesh(devices, args.data_parallel)
+    dev = torch.device(args.device)
+    k = args.data_parallel
+    if k == 1 or (k is None and (dev.type == "cpu" or dev.index is not None
+                                 or torch.cuda.device_count() < 2)):
+        return None
+    return [dev] * k if dev.type == "cpu" else mesh.make_mesh(None, k)
+
+
+def main(argv=None, devices: Optional[Sequence] = None,
+         backend: Optional[str] = None,
+         after: Optional[Callable] = None) -> int:
+    """Train as the flags say. Under a launcher (torchrun's environment)
+    this process is one rank; else with more than one rank device
+    (``rank_devices``; ``devices`` names them explicitly, one device may
+    repeat) the ranks are spawned here over ``backend`` (NCCL on cards,
+    gloo on the CPU or where two ranks share a card); else this process
+    trains alone. ``after(trainer)`` runs in every rank once training
+    ends (a module-level function, to reach spawned ranks)."""
+    args = build_parser().parse_args(argv)
+    config_from_args(args)  # bad flags fail before any rank starts
+    if mesh.initialize_distributed_if_requested(args.device):
+        run(args, after)
+        return 0
+    ranks = rank_devices(args, devices)
+    if ranks is None:
+        run(args, after)
+    else:
+        mesh.launch(_run_rank, devices=ranks, backend=backend,
+                    args=(args, after))
     return 0
 
 

@@ -3,9 +3,10 @@
 with the same field names and defaults.
 
 ``TrainConfig.validate`` refuses every field this port does not run yet
-(data, model and point parallelism, bf16 master weights and moments, the
+(model and point parallelism, bf16 master weights and moments, the
 profiler, the XLA compilation cache), naming the ROADMAP item that brings
-it, instead of ignoring it.
+it, instead of ignoring it. ``data_parallel`` k runs k ranks
+(``parallel/mesh.py``; the Trainer checks that it is in a group of k).
 """
 
 from __future__ import annotations
@@ -17,8 +18,6 @@ from typing import Optional
 # Fields the port refuses away from their default: (field, test for
 # "set", the ROADMAP item that ports it).
 _NOT_PORTED = (
-    ("data_parallel", lambda v: v is not None and v > 1,
-     "data_parallel > 1 (ROADMAP item 10)"),
     ("model_parallel", lambda v: v > 1,
      "model_parallel > 1 (ROADMAP item 11)"),
     ("point_parallel", bool, "point_parallel (ROADMAP item 11)"),

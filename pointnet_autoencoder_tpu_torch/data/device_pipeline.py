@@ -101,10 +101,14 @@ def assemble_from(data: Tensor, lengths: Tensor, idxs: Tensor, u: Tensor,
 
 def assemble_batch(data: Tensor, lengths: Tensor, idxs: Tensor,
                    generator: torch.Generator, num_point: int,
-                   rotate: bool) -> Tensor:
-    """``draw`` then ``assemble_from``: one batch of shapes ``idxs``."""
-    return assemble_from(data, lengths, idxs,
-                         *draw(generator, idxs.shape[0], num_point, rotate))
+                   rotate: bool, rows: slice = slice(None)) -> Tensor:
+    """``draw`` then ``assemble_from``: one batch of shapes ``idxs``, or
+    its ``rows``. A data-parallel rank draws the global batch's numbers,
+    as one device does, and assembles its own rows only, so the ranks'
+    slices concatenated are the one-device batch bit for bit."""
+    u, angles = draw(generator, idxs.shape[0], num_point, rotate)
+    return assemble_from(data, lengths, idxs[rows], u[rows],
+                         None if angles is None else angles[rows])
 
 
 class DeviceBatchIterator:

@@ -13,13 +13,19 @@ per-shape Y-axis rotation unless disabled, eval unshuffled and unrotated.
 The autoencoder's label is the augmented input, so the pipeline yields one
 (B, N, 3) float32 tensor per step. A producer error is re-raised in the
 consumer: a failed batch fails the epoch instead of shortening it.
+
+Data parallelism (``shard=(r, k)``): every rank assembles the global batch
+exactly as one device would (the same seed, order, resampling and
+rotation draws) and keeps rows [r*B/k, (r+1)*B/k); only those are copied
+to its device. The ranks' slices, concatenated, are the one-device batch
+bit for bit.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,17 +48,22 @@ class _ProducerError:
 
 
 class BatchPipeline:
-    """Iterable over (B, N, 3) float32 batches on ``device``."""
+    """Iterable over (B, N, 3) float32 batches on ``device``, or over
+    rank r's (B/k, N, 3) rows of each with ``shard=(r, k)``."""
 
     def __init__(self, dataset, batch_size: int, rotate: bool = True,
                  shuffle: bool = True, device: torch.device | str = "cpu",
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None,
+                 shard: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.rotate = rotate
         self.shuffle = shuffle
         self.device = torch.device(device)
         self._rng = np.random.default_rng(seed)
+        rank, world = shard
+        rows = batch_size // world
+        self._rows = slice(rank * rows, (rank + 1) * rows)
 
     def __len__(self) -> int:
         return len(self.dataset) // self.batch_size
@@ -65,7 +76,7 @@ class BatchPipeline:
             batch[j] = pts
         if self.rotate:
             batch = rotate_point_cloud(batch, self._rng)
-        host = torch.from_numpy(batch)
+        host = torch.from_numpy(batch[self._rows])
         return host.pin_memory() if self.device.type == "cuda" else host
 
     @staticmethod

@@ -1,5 +1,5 @@
 """Inference sessions: weights -> reconstruction, embedding, decoding and
-per-shape metrics on one device.
+per-shape metrics on one device, or data-parallel over several.
 
 Counterpart of ``pointnet_autoencoder_tpu/inference.py``. One object owns
 the model, its weights on the device and the encoder chain folded for the
@@ -11,6 +11,12 @@ zero-padded to the batch size and the padding sliced off (eval-mode
 shapes are independent, so the padding changes no real result). Every
 chunk is launched before any result is fetched, and results come to the
 host in one copy at the end.
+
+Data parallelism (``data_parallel=k``, ``devices``): one process keeps a
+replica of the eval model on each device of ``parallel.mesh.make_mesh``
+and splits every padded chunk k ways, a part per replica. CUDA launches
+are asynchronous, so one thread launches every part of every chunk
+before it fetches any result; results are gathered in order.
 
 Numerics: f32 mode is full f32. Matmuls and cuDNN's convolutions run
 with TF32 off, which the session sets
@@ -24,9 +30,11 @@ BN moving statistics stay f32.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,19 +45,33 @@ from pointnet_autoencoder_tpu_torch.device import resolve_device
 from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
 from pointnet_autoencoder_tpu_torch.ops.chamfer import fscore as _fscore_op
 from pointnet_autoencoder_tpu_torch.ops.chamfer import nn_distance
+from pointnet_autoencoder_tpu_torch.parallel.mesh import (
+    check_batch_divisible,
+    make_mesh,
+)
+
+
+def _on(device: torch.device):
+    """The context that makes ``device`` current for kernel launches."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def chunked_dispatch(run: Callable, arr: np.ndarray, chunk_size: int,
-                     device: torch.device):
+                     devices: Sequence[torch.device]):
     """Stream ``arr`` (leading axis) through ``run`` in chunks of
-    ``chunk_size`` rows on ``device``: the ragged tail is zero-padded, every
-    chunk is launched before any result is fetched, and each output comes
-    to the host in one copy with the padding sliced off.
+    ``chunk_size`` rows, each chunk split into equal parts, one per entry
+    of ``devices``: the ragged tail is zero-padded, every part is launched
+    before any result is fetched, and each output comes to the host with
+    the padding sliced off, in order (one copy where one device holds
+    every part).
 
-    ``run(chunk)`` returns one tensor or a tuple of them (``None`` entries
-    stay ``None``: the caller did not want that output). Returns a numpy
-    array, or a tuple of them when ``run`` returns a tuple."""
+    ``run(part, i)`` runs on ``devices[i]`` and returns one tensor or a
+    tuple of them (``None`` entries stay ``None``: the caller did not want
+    that output). Returns a numpy array, or a tuple of them when ``run``
+    returns a tuple."""
     total = arr.shape[0]
+    rows = chunk_size // len(devices)
     outs = []
     for s in range(0, total, chunk_size):
         chunk = arr[s:s + chunk_size]
@@ -57,10 +79,16 @@ def chunked_dispatch(run: Callable, arr: np.ndarray, chunk_size: int,
         if pad:
             chunk = np.concatenate(
                 [chunk, np.zeros((pad,) + chunk.shape[1:], arr.dtype)])
-        res = run(torch.from_numpy(chunk).to(device))
-        outs.append(res if isinstance(res, tuple) else (res,))
+        for i, dev in enumerate(devices):
+            with _on(dev):
+                res = run(torch.from_numpy(
+                    chunk[i * rows:(i + 1) * rows]).to(dev), i)
+            outs.append(res if isinstance(res, tuple) else (res,))
+    one_device = len(set(devices)) == 1
     cols = [None if outs[0][j] is None else
-            torch.cat([o[j] for o in outs])[:total].float().cpu().numpy()
+            (torch.cat([o[j] for o in outs]) if one_device else
+             torch.cat([o[j].cpu() for o in outs]))[:total].float().cpu()
+            .numpy()
             for j in range(len(outs[0]))]
     return tuple(cols) if len(cols) > 1 else cols[0]
 
@@ -105,7 +133,8 @@ def load_state_dict(model_path: str):
 
 
 class InferenceSession:
-    """A model with its weights, served on one device.
+    """A model with its weights, served on one device or on a replica per
+    device.
 
     Args:
       model: registry name (``available_models()``); raises ValueError
@@ -117,21 +146,32 @@ class InferenceSession:
       bf16: bfloat16 parameters and matmul inputs (BN statistics f32).
       device: ``"cuda"`` (default; raises without a card) or ``"cpu"``,
         which runs the kernels' plain PyTorch versions.
+      data_parallel: replicas, each serving batch_size/k rows of every
+        chunk (batch_size must divide); on cards 0..k-1 unless ``devices``
+        names them. None or 1 with no ``devices``: ``device`` alone.
+      devices: the replicas' devices, in order (``make_mesh``; one device
+        may repeat). ``device`` is then ignored.
     """
 
     def __init__(self, model: str, model_path: str, num_point: int,
                  batch_size: int = 32, bf16: bool = False,
-                 device: str = "cuda"):
+                 device: str = "cuda", data_parallel: Optional[int] = None,
+                 devices: Optional[Sequence] = None):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if not os.path.exists(model_path):
             raise FileNotFoundError(model_path)
-        self.device = resolve_device(device)
+        if devices is None and (data_parallel or 1) == 1:
+            self.devices = [resolve_device(device)]
+        else:
+            self.devices = make_mesh(devices, data_parallel)
+            check_batch_divisible(batch_size, len(self.devices))
+        self.device = self.devices[0]
         self.model_name = model
         self.num_point = num_point
         self.batch_size = batch_size
         self.bf16 = bf16
-        if self.device.type == "cuda":
+        if any(d.type == "cuda" for d in self.devices):
             # Full f32 products: TF32 off for matmuls (off by default, but a
             # caller may have turned it on) and for cuDNN's convolutions
             # (on by default).
@@ -151,9 +191,15 @@ class InferenceSession:
             # anyway); BN moving statistics are buffers and stay f32.
             for p in self._model.parameters():
                 p.data = p.data.to(torch.bfloat16)
-        self._model.to(self.device).eval().requires_grad_(False)
-        with torch.inference_mode():
-            self._folded = self._model.encoder.fold()
+        # One replica per device, copied on the host; replica 0 is
+        # ``self.model``.
+        self._replicas = [self._model] + [
+            copy.deepcopy(self._model) for _ in self.devices[1:]]
+        self._folded = []
+        for rep, dev in zip(self._replicas, self.devices):
+            rep.to(dev).eval().requires_grad_(False)
+            with torch.inference_mode(), _on(dev):
+                self._folded.append(rep.encoder.fold())
 
     @property
     def model(self):
@@ -171,13 +217,16 @@ class InferenceSession:
 
     @classmethod
     def from_bundle(cls, bundle_dir: str, batch_size: int = 32,
-                    bf16: bool = False,
-                    device: str = "cuda") -> "InferenceSession":
+                    bf16: bool = False, device: str = "cuda",
+                    data_parallel: Optional[int] = None,
+                    devices: Optional[Sequence] = None
+                    ) -> "InferenceSession":
         """Open a serving bundle; the model name and num_point come from
         its metadata."""
         meta = read_bundle_meta(bundle_dir)
         return cls(meta["model"], bundle_dir, int(meta["num_point"]),
-                   batch_size=batch_size, bf16=bf16, device=device)
+                   batch_size=batch_size, bf16=bf16, device=device,
+                   data_parallel=data_parallel, devices=devices)
 
     # -- helpers --------------------------------------------------------------
 
@@ -196,15 +245,31 @@ class InferenceSession:
     @torch.inference_mode()
     def _run(self, pts: np.ndarray, fetch_pred: bool = True,
              fetch_emb: bool = True):
-        def run(chunk):
-            pred, end_points = self._model(chunk, folded=self._folded)
+        def run(part, i):
+            pred, end_points = self._replicas[i](part,
+                                                 folded=self._folded[i])
             return (pred if fetch_pred else None,
                     end_points["embedding"] if fetch_emb else None)
 
-        return chunked_dispatch(run, pts, self.batch_size, self.device)
+        return chunked_dispatch(run, pts, self.batch_size, self.devices)
 
-    def _put(self, arr) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(arr, np.float32)).to(self.device)
+    def _pairs(self, pred, target):
+        """(pred, target) as f32 tensors in parts, one per replica's
+        device when the batch divides among them, else whole on the first
+        device (the JAX package's sharded or replicated metric)."""
+        pred = np.asarray(pred, np.float32)
+        target = np.asarray(target, np.float32)
+        k = len(self.devices)
+        if pred.shape[0] % k:
+            k = 1
+        rows = pred.shape[0] // k
+        return [(dev, torch.from_numpy(pred[i * rows:(i + 1) * rows]).to(dev),
+                 torch.from_numpy(target[i * rows:(i + 1) * rows]).to(dev))
+                for i, dev in enumerate(self.devices[:k])]
+
+    @staticmethod
+    def _gather(parts) -> np.ndarray:
+        return np.concatenate([p.cpu().numpy() for p in parts])
 
     # -- public API -----------------------------------------------------------
 
@@ -235,22 +300,32 @@ class InferenceSession:
             raise ValueError(f"expected (B, D) or (D,), got {emb.shape}")
         if emb.shape[0] == 0:
             raise ValueError("got 0 embeddings")
-        pred = chunked_dispatch(lambda chunk: self._model.decoder(chunk)[0],
-                                emb, self.batch_size, self.device)
+        pred = chunked_dispatch(
+            lambda part, i: self._replicas[i].decoder(part)[0],
+            emb, self.batch_size, self.devices)
         return pred[0] if single else pred
 
     @torch.inference_mode()
     def chamfer(self, pred, target) -> np.ndarray:
         """Per-shape raw Chamfer (the reference's pcloss),
-        mean(d1) + mean(d2), between two (B, N, 3) clouds."""
-        d1, _, d2, _ = nn_distance(self._put(pred), self._put(target))
-        return (d1.mean(dim=1) + d2.mean(dim=1)).cpu().numpy()
+        mean(d1) + mean(d2), between two (B, N, 3) clouds; split among the
+        replicas' devices when B divides among them."""
+        parts = []
+        for dev, p, t in self._pairs(pred, target):
+            with _on(dev):
+                d1, _, d2, _ = nn_distance(p, t)
+                parts.append(d1.mean(dim=1) + d2.mean(dim=1))
+        return self._gather(parts)
 
     @torch.inference_mode()
     def fscore(self, pred, target, threshold: float = 0.01) -> np.ndarray:
-        """Per-shape F-score@threshold between (B, N, 3) clouds."""
-        return _fscore_op(self._put(pred), self._put(target),
-                          threshold).cpu().numpy()
+        """Per-shape F-score@threshold between (B, N, 3) clouds; split as
+        ``chamfer``."""
+        parts = []
+        for dev, p, t in self._pairs(pred, target):
+            with _on(dev):
+                parts.append(_fscore_op(p, t, threshold))
+        return self._gather(parts)
 
     def evaluate(self, dataset, num_shapes: Optional[int] = None,
                  seed: int = 0):

@@ -29,7 +29,7 @@ from pointnet_autoencoder_tpu_torch.nn.decoders import (
     UpconvDecoder,
 )
 from pointnet_autoencoder_tpu_torch.nn.encoder import PointNetEncoder
-from pointnet_autoencoder_tpu_torch.nn.layers import FC
+from pointnet_autoencoder_tpu_torch.nn.layers import FC, BatchNorm
 from pointnet_autoencoder_tpu_torch.ops.chamfer import (
     chamfer_loss,
     chamfer_loss_dense,
@@ -74,6 +74,14 @@ class PointAutoencoder(nn.Module):
             self.add_module(self.neck_names[-1], FC(width, f, bn=True, **kw))
             width = f
         self.decoder = DECODERS[decoder](num_point, in_features=width, **kw)
+
+    def set_data_group(self, group) -> None:
+        """Give every BatchNorm (the encoder's fused head included) the
+        data-parallel ``group`` (``parallel.mesh.DataGroup``, or None):
+        training statistics then cover the global batch."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
 
     def forward(self, points: Tensor, train: bool = False,
                 bn_momentum: float = 0.9,
@@ -126,7 +134,8 @@ def hierarchy_loss_fn(pred: Tensor, label: Tensor, end_points: EndPoints
     """loss = (chamfer(pred) + 0.1 * chamfer(centers)) * 100 (the
     reference's models/model_hierachy.py:91-104). The center term sums the
     two directional means, over the 64 centers and over the label's
-    points."""
+    points. Under data parallelism each rank takes these means over its
+    equal shard, so the mean over ranks is still the global batch's."""
     pcloss = chamfer_loss(pred, label)
     d1, _, d2, _ = nn_distance(end_points["pc1_xyz"], label)
     pc1_loss = d1.mean() + d2.mean()

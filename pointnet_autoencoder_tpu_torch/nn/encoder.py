@@ -75,7 +75,7 @@ class PointNetEncoder(nn.Module):
         bc = head.dense.bias.to(self.dtype)
         # bc, not the f32 bias: the kernel folds the cast bias into its
         # affine, so the statistics describe y = xc @ kc + bc.
-        mean, var = fused_head.head_stats(xc, kc, bc)
+        mean, var = fused_head.head_stats(xc, kc, bc, group=head.bn.group)
         head.bn.update(mean.detach(), var.detach(), bn_momentum)
         out = fused_head.fused_dense_bn_relu_max(
             xc, kc, bc, head.bn.gamma, head.bn.beta, mean, var,

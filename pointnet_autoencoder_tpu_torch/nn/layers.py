@@ -56,12 +56,20 @@ class BatchNorm(nn.Module):
     ``moving = m * moving + (1 - m) * batch``. Eval: the moving statistics
     normalize. Either way the per-channel affine is folded in f32,
     ``inv = rsqrt(var + eps) * gamma`` and ``shift = beta - mean * inv``,
-    then applied in the activation's dtype."""
+    then applied in the activation's dtype.
+
+    ``group`` (a ``parallel.mesh.DataGroup``, None by default) makes the
+    training moments E[x] and E[x^2] the global batch's: one differentiable
+    all-reduce averages them over the ranks' equal shards, so every rank
+    normalizes with, and moves its moving statistics by, the same global
+    statistics, and the gradient flows through them to every rank's rows
+    (the JAX package's ``axis_name`` pmean)."""
 
     def __init__(self, features: int, epsilon: float = 1e-3,
                  device: Optional[torch.device] = None):
         super().__init__()
         self.epsilon = epsilon
+        self.group = None
         self.gamma = nn.Parameter(torch.ones(features, device=device))
         self.beta = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("mean", torch.zeros(features, device=device))
@@ -73,8 +81,11 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             xf = x.float()
             mean = xf.mean(dim=axes)
-            var = torch.clamp_min(xf.square().mean(dim=axes) - mean.square(),
-                                  0.0)
+            mean_sq = xf.square().mean(dim=axes)
+            if self.group is not None:
+                mean, mean_sq = self.group.all_reduce_mean(
+                    torch.stack([mean, mean_sq])).unbind()
+            var = torch.clamp_min(mean_sq - mean.square(), 0.0)
             self.update(mean, var, momentum)
         else:
             mean, var = self.mean.float(), self.var.float()

@@ -106,10 +106,12 @@ def nn_distance_cuda(xyz1: Tensor, xyz2: Tensor):
     lib = _build.load("chamfer", _SIGNATURES)
     scratch = torch.empty(int(lib.pcae_nn_distance_scratch(b, n, m)),
                           dtype=torch.int64, device=dev)
-    err = lib.pcae_nn_distance(
-        xyz1.data_ptr(), xyz2.data_ptr(), dist1.data_ptr(), idx1.data_ptr(),
-        dist2.data_ptr(), idx2.data_ptr(), scratch.data_ptr(), b, n, m,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.pcae_nn_distance(
+            xyz1.data_ptr(), xyz2.data_ptr(), dist1.data_ptr(),
+            idx1.data_ptr(), dist2.data_ptr(), idx2.data_ptr(),
+            scratch.data_ptr(), b, n, m,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "nn_distance kernel")
     nn_distance_cuda.launches += 1
     return dist1, idx1, dist2, idx2
@@ -179,11 +181,12 @@ def nn_distance_grad_cuda(xyz1: Tensor, xyz2: Tensor, idx1: Tensor,
     words = nn_distance_grad_scratch_words(b, n, m)
     scratch = (torch.empty(words, dtype=torch.int32, device=xyz1.device)
                if words else None)
-    err = lib.pcae_nn_distance_grad(
-        xyz1.data_ptr(), xyz2.data_ptr(), idx1.data_ptr(), idx2.data_ptr(),
-        g1.data_ptr(), g2.data_ptr(), gx1.data_ptr(), gx2.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), b, n, m,
-        torch.cuda.current_stream(xyz1.device).cuda_stream)
+    with torch.cuda.device(xyz1.device):
+        err = lib.pcae_nn_distance_grad(
+            xyz1.data_ptr(), xyz2.data_ptr(), idx1.data_ptr(),
+            idx2.data_ptr(), g1.data_ptr(), g2.data_ptr(), gx1.data_ptr(),
+            gx2.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            b, n, m, torch.cuda.current_stream(xyz1.device).cuda_stream)
     _build.check(lib, err, "nn_distance gradient kernel")
     nn_distance_grad_cuda.launches += 1
     return gx1, gx2

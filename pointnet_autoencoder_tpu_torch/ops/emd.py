@@ -244,10 +244,11 @@ def emd_forward_cuda(xyz1: Tensor, xyz2: Tensor) -> Forward:
     scratch = torch.empty(b * (4 * n + 2 * m), dtype=torch.float32,
                           device=xyz1.device)
     lib = _build.load("emd", _SIGNATURES)
-    err = lib.pcae_emd_forward(
-        xyz1.data_ptr(), xyz2.data_ptr(), cost.data_ptr(), grad1.data_ptr(),
-        grad2.data_ptr(), scratch.data_ptr(), b, n, m,
-        torch.cuda.current_stream(xyz1.device).cuda_stream)
+    with torch.cuda.device(xyz1.device):
+        err = lib.pcae_emd_forward(
+            xyz1.data_ptr(), xyz2.data_ptr(), cost.data_ptr(),
+            grad1.data_ptr(), grad2.data_ptr(), scratch.data_ptr(), b, n, m,
+            torch.cuda.current_stream(xyz1.device).cuda_stream)
     _build.check(lib, err, "emd kernel")
     emd_forward_cuda.launches += 1
     return cost, grad1, grad2

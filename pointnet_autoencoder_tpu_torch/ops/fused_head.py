@@ -47,18 +47,27 @@ _SIGNATURES = {
 }
 
 
-def head_stats(x: Tensor, w: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+def head_stats(x: Tensor, w: Tensor, b: Tensor,
+               group=None) -> Tuple[Tensor, Tensor]:
     """Biased batch (mean, var), both f32 (F,), of y = x @ w + b over all
     leading axes of x, from the first and second moments of x.
 
     x: (..., C) and w: (C, F) in the matmul dtype (bf16 values multiply
-    exactly in f32, so the products run in f32 on them)."""
+    exactly in f32, so the products run in f32 on them). ``group`` (a
+    ``parallel.mesh.DataGroup``) averages the moments E[x] (C,) and
+    x^T x / P (C, C) over the ranks' equal shards in one differentiable
+    all-reduce, so the statistics are the global batch's (under the JAX
+    package's batch-sharded jit the moment reductions become psums)."""
     xf = x.reshape(-1, x.shape[-1]).float()
     p = xf.shape[0]
     w32 = w.float()
     b32 = b.float()
-    mm = xf.mean(dim=0) @ w32  # E[x @ w], (F,)
+    xmean = xf.mean(dim=0)  # E[x], (C,)
     s = (xf.t() @ xf) / p  # (C, C) second moment
+    if group is not None:
+        moments = group.all_reduce_mean(torch.cat([xmean[None], s]))
+        xmean, s = moments[0], moments[1:]
+    mm = xmean @ w32  # E[x @ w], (F,)
     ey2 = ((s @ w32) * w32).sum(dim=0) + 2.0 * b32 * mm + b32 * b32
     mean = mm + b32
     var = torch.clamp_min(ey2 - mean * mean, 0.0)

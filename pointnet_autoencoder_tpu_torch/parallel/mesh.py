@@ -1,0 +1,258 @@
+"""Data parallelism over ``torch.distributed``: the devices of the data
+axis, the process group of a rank and its collectives, and the launcher.
+
+Counterpart of ``pointnet_autoencoder_tpu/parallel/mesh.py``. The JAX
+package runs one program over a mesh and lets GSPMD insert the gradient
+all-reduce and the global-batch BatchNorm reductions. Here each rank is a
+process that runs the whole step on its rows of the global batch, and the
+port inserts the collectives by hand:
+
+- every training BatchNorm (``nn/layers.py``) and the fused head's
+  statistics (``ops/fused_head.py:head_stats``) average their moments over
+  the group with ``DataGroup.all_reduce_mean``, a differentiable all-reduce,
+  so the statistics and their gradients are the global batch's;
+- after ``backward`` one flat all-reduce averages every gradient
+  (``DataGroup.average_gradients``), before the optimizer steps;
+- metrics and the preemption flag ride one all-reduce where the host
+  waits anyway (``train/loop.py``).
+
+Serving is one process with a model replica per device of ``make_mesh``
+(``inference.py``); it needs no process group.
+
+The collectives are ``all_reduce`` and ``broadcast`` only: gloo runs both
+on CUDA tensors, which lets two ranks share one card (NCCL refuses two
+ranks on one device).
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import tempfile
+from typing import Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from pointnet_autoencoder_tpu_torch.device import resolve_device
+
+Tensor = torch.Tensor
+
+# What a launcher such as torchrun exports to every rank.
+LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")
+
+
+def make_mesh(devices: Optional[Sequence] = None,
+              data_parallel: Optional[int] = None) -> List[torch.device]:
+    """The devices of the data axis, one per rank or replica.
+
+    With ``devices`` None they are distinct cards ``cuda:0..k-1``, k =
+    ``data_parallel``, or every visible card when that is None. An explicit
+    ``devices`` list is taken in order (its first ``data_parallel``
+    entries) and may name one device more than once: that puts several
+    replicas on one card or on the CPU. Raises ValueError when more
+    devices are asked for than exist, and RuntimeError for a CUDA device
+    without a card; nothing moves to fewer devices or to the CPU."""
+    if data_parallel is not None and data_parallel < 1:
+        raise ValueError(f"data_parallel={data_parallel} must be >= 1")
+    if devices is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        k = count if data_parallel is None else data_parallel
+        if k == 0 or k > count:
+            asked = ("None (every visible card)" if data_parallel is None
+                     else data_parallel)
+            raise ValueError(
+                f"data_parallel={asked} needs {max(k, 1)} CUDA device(s) "
+                f"but {count} are available; pass devices=[...] to name "
+                f"the devices (the CPU included) explicitly")
+        return [torch.device("cuda", i) for i in range(k)]
+    devices = list(devices)
+    k = len(devices) if data_parallel is None else data_parallel
+    if k == 0 or k > len(devices):
+        raise ValueError(
+            f"data_parallel={k} needs {k} devices but only {len(devices)} "
+            f"are given ({[str(d) for d in devices]})")
+    return [resolve_device(d) for d in devices[:k]]
+
+
+def check_batch_divisible(batch_size: int, data_parallel: int) -> None:
+    if batch_size % data_parallel != 0:
+        raise ValueError(
+            f"batch_size={batch_size} must be divisible by the "
+            f"data-parallel degree {data_parallel}")
+
+
+def initialize_distributed_if_requested(device: str = "cuda") -> bool:
+    """Join the process group that a launcher describes; True if this
+    process is (now) in one.
+
+    A launcher such as ``torchrun`` exports RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR and MASTER_PORT to every rank. With none of them set this
+    returns False and touches nothing; with only some set it raises, naming
+    the missing ones. ``device`` is the run's device type: ``cuda`` joins
+    over NCCL on card LOCAL_RANK (made the current device, so that
+    ``resolve_device("cuda")`` picks it), ``cpu`` over gloo."""
+    if dist.is_initialized():
+        return True
+    present = [v for v in LAUNCHER_ENV if v in os.environ]
+    if not present:
+        return False
+    missing = [v for v in LAUNCHER_ENV if v not in os.environ]
+    if missing:
+        raise RuntimeError(
+            f"{', '.join(present)} set but {', '.join(missing)} missing; a "
+            f"data-parallel launch needs all of {', '.join(LAUNCHER_ENV)} "
+            f"exported on every rank (torchrun does so)")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = resolve_device(torch.device(
+            "cuda", int(os.environ["LOCAL_RANK"])))
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo", init_method="env://",
+        world_size=int(os.environ["WORLD_SIZE"]),
+        rank=int(os.environ["RANK"]))
+    return True
+
+
+def process_rank() -> int:
+    """This process's rank in the initialized process group, else 0."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the group. Each rank's result feeds its own loss, so the
+    gradient of the global loss with respect to a rank's input is the sum
+    of every rank's upstream gradient: the backward is the same sum."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, group) -> Tensor:
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        g = grad.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class DataGroup:
+    """This process's place on the data axis: ``rank``, ``world_size`` and
+    the process ``group`` (None: the default group), with the collectives
+    of a data-parallel step. ``device`` holds the small tensors of the
+    flag and barrier collectives (a CUDA device under NCCL)."""
+
+    def __init__(self, device: torch.device, group=None):
+        self.device = torch.device(device)
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.world_size = dist.get_world_size(group)
+
+    @classmethod
+    def current(cls, device: torch.device) -> Optional["DataGroup"]:
+        """The default process group as a DataGroup, or None when this
+        process is in none."""
+        if not (dist.is_available() and dist.is_initialized()):
+            return None
+        return cls(device)
+
+    def all_reduce_mean(self, x: Tensor) -> Tensor:
+        """The mean of ``x`` over the ranks, differentiable: one sum
+        all-reduce divided by the world size. With equal shards, the
+        mean of every rank's batch moments is the global batch's; at world
+        size 1 it returns ``x``'s values bit for bit."""
+        return _AllReduceSum.apply(x, self.group) / self.world_size
+
+    def average_gradients(self, params) -> None:
+        """Replace every ``.grad`` of ``params`` by its mean over the
+        ranks, in one flat all-reduce. Every rank backpropagates its own
+        mean loss, so the mean of the ranks' gradients is the gradient of
+        the global batch's mean loss. The ranks run one graph, so the same
+        parameters have gradients on every rank."""
+        grads = [p.grad for p in params if p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        flat.div_(self.world_size)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+    def sum_(self, x: Tensor) -> Tensor:
+        """Sum ``x`` over the ranks in place (no gradient); returns x."""
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        return x
+
+    def any(self, flag: bool) -> bool:
+        """True on every rank if ``flag`` is true on any (a max
+        all-reduce; the host waits for it)."""
+        t = torch.tensor([float(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(t.item() > 0)
+
+    def broadcast_(self, x: Tensor, src: int = 0) -> Tensor:
+        """Overwrite ``x`` with rank ``src``'s in place; returns x."""
+        dist.broadcast(x, src=src, group=self.group)
+        return x
+
+    def barrier(self) -> None:
+        """Wait until every rank has arrived (an all-reduce, which both
+        backends run on the group's device)."""
+        self.any(False)
+
+
+def _rank_entry(local_rank: int, fn: Callable, mesh: List[torch.device],
+                backend: str, init_method: str, args: tuple) -> None:
+    """One spawned rank: its device, its share of the host's cores on the
+    CPU, the process group, then ``fn(device, *args)``."""
+    device = mesh[local_rank]
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // len(mesh)))
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=len(mesh), rank=local_rank)
+    try:
+        fn(device, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def launch(fn: Callable, data_parallel: Optional[int] = None,
+           devices: Optional[Sequence] = None,
+           backend: Optional[str] = None, args: tuple = (),
+           init_method: Optional[str] = None) -> None:
+    """Run ``fn(device, *args)`` in k local processes, one per device of
+    ``make_mesh(devices, data_parallel)``, each rank in one process group;
+    returns when all have finished, and raises if any rank failed (the
+    others are then terminated).
+
+    The processes start with the ``spawn`` method, so ``fn`` and ``args``
+    must pickle (``fn`` a module-level function). ``backend`` defaults to
+    ``nccl`` on cards and ``gloo`` on the CPU; ``gloo`` may be asked for on
+    cards, and must be where two ranks share one (NCCL refuses that). The
+    ranks meet through ``init_method``, by default a file store in a fresh
+    temporary directory."""
+    mesh = make_mesh(devices, data_parallel)
+    if backend is None:
+        backend = "nccl" if mesh[0].type == "cuda" else "gloo"
+    if backend == "nccl" and len(set(mesh)) < len(mesh):
+        raise ValueError(f"NCCL refuses two ranks on one device "
+                         f"({[str(d) for d in mesh]}); use backend='gloo'")
+    tmp = None
+    if init_method is None:
+        tmp = tempfile.mkdtemp(prefix="pcae-dp-")
+        init_method = "file://" + os.path.join(tmp, "store")
+    try:
+        torch.multiprocessing.start_processes(
+            _rank_entry, args=(fn, mesh, backend, init_method, tuple(args)),
+            nprocs=len(mesh), join=True, start_method="spawn")
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)

@@ -2,7 +2,8 @@
 ``pointnet_autoencoder_tpu/train/logging.py``: a text log mirrored to
 LOG_DIR/log_train.txt and scalars appended to LOG_DIR/scalars.jsonl, one
 JSON object per record. (The reference's optional TensorBoard writers are
-not ported.)
+not ported.) Under data parallelism only rank 0 logs; the other ranks get
+a ``NullLogger``.
 """
 
 from __future__ import annotations
@@ -40,6 +41,21 @@ class Logger:
             return
         self._fh.close()
         self._scalars.close()
+
+
+class NullLogger:
+    """A Logger that writes nothing: the one a data-parallel rank other
+    than 0 gets, so that only rank 0 opens the run's files."""
+
+    def log(self, msg: str) -> None:
+        pass
+
+    def scalars(self, split: str, step: int,
+                values: Dict[str, float]) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def snapshot_config(log_dir: str, config) -> None:

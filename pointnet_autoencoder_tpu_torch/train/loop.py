@@ -2,7 +2,7 @@
 the preemption handler.
 
 The port's counterpart of ``pointnet_autoencoder_tpu/train/loop.py``, on
-one device:
+one device or as one rank of a data-parallel group:
 
 - A train step is forward, loss, backward, optimizer step and the BN
   moving-statistics update (in place, during the forward), with
@@ -27,8 +27,21 @@ one device:
   share the clone.
 - Preemption: SIGTERM or SIGINT during ``train()`` stops at the next step
   boundary and writes a resumable checkpoint before ``train()`` returns.
+- Data parallelism: when this process is in a ``torch.distributed``
+  process group of k ranks (``parallel.mesh.launch``, ``cli/train.py
+  --data_parallel k`` or ``torchrun``), each rank runs one Trainer on its
+  B/k rows of every global batch, drawn as one device draws them. BN and
+  the fused head's statistics cover the global batch, one flat all-reduce
+  averages the gradients before the optimizer, and the logged metrics are
+  the ranks' mean. Seeded init gives every rank the same weights, checked
+  by one broadcast; every rank resumes from the same file. Only rank 0
+  logs and writes checkpoints. A signal may reach one rank only, so the
+  ranks agree to stop through the all-reduce that carries the metrics,
+  where the host waits anyway: at the end of the epoch with device input,
+  at the next log line (every ``log_every`` steps) with host input, and
+  at the end of eval. No step waits for it.
 
-Not ported yet (ROADMAP queue 1): data/model/point parallelism and bf16
+Not ported yet (ROADMAP queue 1): model and point parallelism and bf16
 master weights and moments.
 """
 
@@ -52,8 +65,16 @@ from pointnet_autoencoder_tpu_torch.data.pipeline import BatchPipeline
 from pointnet_autoencoder_tpu_torch.data.shapenet_part import PartDataset
 from pointnet_autoencoder_tpu_torch.device import resolve_device
 from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
+from pointnet_autoencoder_tpu_torch.parallel.mesh import (
+    DataGroup,
+    check_batch_divisible,
+)
 from pointnet_autoencoder_tpu_torch.train import checkpoint, schedules
-from pointnet_autoencoder_tpu_torch.train.logging import Logger, snapshot_config
+from pointnet_autoencoder_tpu_torch.train.logging import (
+    Logger,
+    NullLogger,
+    snapshot_config,
+)
 from pointnet_autoencoder_tpu_torch.train.state import TrainState, make_optimizer
 
 Metrics = Dict[str, object]  # scalar tensors on the device, or floats
@@ -78,11 +99,15 @@ def fetch_metric_windows(pending: List[Metrics], windows: List[Tuple[int, int]]
 
 
 class Trainer:
-    """End-to-end training on one device. Datasets may be injected
-    (tests, custom data); otherwise they are built from config.data_path.
+    """End-to-end training on one device, or as this process's rank of a
+    data-parallel group (the default process group, when one is
+    initialized). Datasets may be injected (tests, custom data); otherwise
+    they are built from config.data_path.
 
     device: ``"cuda"`` (default; raises without a card) or ``"cpu"``,
-    which runs the kernels' plain PyTorch versions."""
+    which runs the kernels' plain PyTorch versions. ``config.data_parallel``
+    k > 1 needs a process group of k ranks; None takes the group this
+    process is in, if any."""
 
     def __init__(self, config: TrainConfig,
                  train_dataset: Optional[PartDataset] = None,
@@ -99,9 +124,26 @@ class Trainer:
             # off for matmuls and for cuDNN's convolutions (on by default).
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        self.group = DataGroup.current(self.device)
+        world = 1 if self.group is None else self.group.world_size
+        if config.data_parallel is not None and config.data_parallel != world:
+            raise ValueError(
+                f"data_parallel={config.data_parallel} needs a process group "
+                f"of {config.data_parallel} ranks with one Trainer in each "
+                f"(cli.train --data_parallel, parallel.mesh.launch or "
+                f"torchrun); this process is in "
+                f"{'none' if self.group is None else f'one of {world}'}")
+        check_batch_divisible(config.batch_size, world)
+        self.rank = 0 if self.group is None else self.group.rank
+        rows = config.batch_size // world
+        # This rank's rows of every global batch.
+        self._rows = slice(self.rank * rows, (self.rank + 1) * rows)
         self._owns_logger = logger is None
-        self.logger = logger or Logger(config.log_dir)
-        snapshot_config(config.log_dir, config)
+        if logger is None:
+            logger = Logger(config.log_dir) if self.rank == 0 else NullLogger()
+        self.logger = logger
+        if self.rank == 0:
+            snapshot_config(config.log_dir, config)
 
         class_choice = [config.category] if config.category else None
         self.train_dataset = train_dataset or PartDataset(
@@ -127,13 +169,15 @@ class Trainer:
                 self.eval_device.num_shapes, config.batch_size,
                 shuffle=False, seed=config.seed + 1, device=self.device)
         elif self.input_mode == "host":
+            shard = (self.rank, world)
             self.train_pipe = BatchPipeline(
                 self.train_dataset, config.batch_size,
                 rotate=not config.no_rotation, shuffle=True,
-                device=self.device, seed=config.seed)
+                device=self.device, seed=config.seed, shard=shard)
             self.eval_pipe = BatchPipeline(
                 self.test_dataset, config.batch_size, rotate=False,
-                shuffle=False, device=self.device, seed=config.seed)
+                shuffle=False, device=self.device, seed=config.seed,
+                shard=shard)
         else:
             raise ValueError(f"input_mode must be 'device' or 'host', got "
                              f"{self.input_mode!r}")
@@ -145,6 +189,7 @@ class Trainer:
             config.num_point, dtype=dtype,
             generator=torch.Generator().manual_seed(config.seed))
         model.to(self.device)
+        model.set_data_group(self.group)
         self.bn_schedule = schedules.bn_momentum_schedule(
             config.batch_size, config.decay_step)
         self.state = TrainState(
@@ -156,7 +201,8 @@ class Trainer:
 
         self.ckpt = checkpoint.CheckpointManager(config.log_dir)
         self._saver = (checkpoint.AsyncSaver(self.ckpt, log=self.logger.log)
-                       if config.async_checkpoints else None)
+                       if config.async_checkpoints and self.rank == 0
+                       else None)
         # (step, snapshot): a best and a periodic save of one step share
         # one clone of the state.
         self._snap_cache: Optional[Tuple[int, Any]] = None
@@ -167,8 +213,15 @@ class Trainer:
         # loops stop at the next step boundary and train() saves.
         self._preempted = False
         self._preempt_signum: Optional[int] = None
+        # Under data parallelism: whether the ranks agreed to stop (any
+        # rank's flag, folded into the metrics' all-reduce).
+        self._stop_agreed = False
         if config.resume:
+            if self.group is not None:
+                self.group.barrier()
             self._try_resume()
+        if self.group is not None:
+            self._check_replicas_agree()
 
     @property
     def model(self):
@@ -186,6 +239,8 @@ class Trainer:
         loss, metrics = self.spec.loss_fn(pred, batch, end_points)
         st.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.group is not None:
+            self.group.average_gradients(st.model.parameters())
         st.optimizer.step()
         st.step += 1
         out: Metrics = {k: v.detach() for k, v in metrics.items()}
@@ -201,6 +256,49 @@ class Trainer:
         out: Metrics = dict(metrics)
         out["loss"] = loss
         return out
+
+    # -- data parallelism ---------------------------------------------------
+
+    def _check_replicas_agree(self) -> None:
+        """Raise on every rank unless all hold rank 0's parameters and BN
+        statistics bit for bit (seeded init, or one checkpoint): one
+        broadcast at start-up."""
+        mine = torch.cat([t.detach().float().reshape(-1)
+                          for t in self.model.state_dict().values()])
+        ranks0 = self.group.broadcast_(mine.clone())
+        if self.group.any(not torch.equal(mine, ranks0)):
+            raise RuntimeError("the ranks' weights differ at start-up; every "
+                               "rank must build the model from one seed or "
+                               "resume from one checkpoint")
+
+    def _should_stop(self) -> bool:
+        """The step loops' test for a stop: this process's signal flag on
+        one device; under data parallelism what the ranks last agreed, so
+        that all stop at one step."""
+        return self._preempted if self.group is None else self._stop_agreed
+
+    def _fetch_windows(self, pending: List[Metrics],
+                       windows: List[Tuple[int, int]]
+                       ) -> List[Dict[str, float]]:
+        """``fetch_metric_windows`` of this rank's metrics. Under data
+        parallelism each step's tensor metrics are first averaged over the
+        ranks (equal shards: the global batch's means) in one all-reduce,
+        which also carries this rank's stop flag: if any rank was
+        signalled, all agree to stop."""
+        if self.group is not None:
+            keys = sorted(k for k, v in pending[0].items()
+                          if torch.is_tensor(v))
+            rows = torch.stack([torch.stack([m[k].float() for k in keys])
+                                for m in pending])
+            buf = torch.cat([rows.reshape(-1), torch.tensor(
+                [float(self._preempted)], device=rows.device)])
+            self.group.sum_(buf)
+            if buf[-1].item() > 0:
+                self._stop_agreed = True
+            rows = (buf[:-1] / self.group.world_size).view(rows.shape)
+            pending = [dict(m, **dict(zip(keys, row)))
+                       for m, row in zip(pending, rows)]
+        return fetch_metric_windows(pending, windows)
 
     # -- checkpoints --------------------------------------------------------
 
@@ -219,6 +317,8 @@ class Trainer:
             f"(best eval loss {self.best_loss:.6f})")
 
     def _save(self, kind: str, epoch: int) -> None:
+        if self.rank != 0:
+            return
         if self._saver is not None:
             step = self.state.step
             if self._snap_cache is None or self._snap_cache[0] != step:
@@ -241,9 +341,14 @@ class Trainer:
     def _save_preempt(self, epoch: int) -> None:
         """A resumable checkpoint whose stored epoch is ``epoch``: the
         interrupted epoch, which ``--resume`` then runs from its start
-        (the updates of its finished steps stay in the weights)."""
-        self.logger.log(f"received signal {self._preempt_signum}: stopping "
-                        f"at a step boundary")
+        (the updates of its finished steps stay in the weights). Under
+        data parallelism rank 0 writes it."""
+        signal_name = (f"signal {self._preempt_signum}" if self._preempted
+                       else "a signal on another rank")
+        self.logger.log(f"received {signal_name}: stopping at a step "
+                        f"boundary")
+        if self.rank != 0:
+            return
         if self._saver is not None:
             # Earlier saves land before this one moves LATEST; this one is
             # synchronous, durable before train() returns.
@@ -291,7 +396,8 @@ class Trainer:
 
     # -- epoch loops --------------------------------------------------------
 
-    def train_one_epoch(self, epoch: int) -> None:
+    def train_one_epoch(self, epoch: int) -> int:
+        """One training epoch; returns the steps it took."""
         cfg = self.config
         log = self.logger
         num_batches = len(self.train_pipe)
@@ -309,6 +415,7 @@ class Trainer:
         if dt > 0:
             log.log(f"epoch throughput: "
                     f"{steps_done * cfg.batch_size / dt:.1f} shapes/sec")
+        return steps_done
 
     def _log_window(self, step: int, batches: int, num_batches: int,
                     means: Dict[str, float]) -> None:
@@ -324,7 +431,7 @@ class Trainer:
         for idxs in pipe.epoch():
             yield assemble_batch(data.data, data.lengths, idxs,
                                  pipe.generator, self.config.num_point,
-                                 rotate)
+                                 rotate, rows=self._rows)
 
     def _train_epoch_device(self, start_step: int, num_batches: int) -> int:
         """Device-input epoch: each batch is built on the device, and the
@@ -335,7 +442,7 @@ class Trainer:
         pending: List[Metrics] = []
         for batch in self._device_batches(self.train_pipe, self.train_device,
                                           rotate=not cfg.no_rotation):
-            if self._preempted:
+            if self._should_stop():
                 break
             pending.append(self.train_step(batch))
         # The reference logs at full log_every marks only.
@@ -343,7 +450,7 @@ class Trainer:
         windows = [(a, a + cfg.log_every)
                    for a in range(0, full, cfg.log_every)]
         if pending:
-            means = fetch_metric_windows(pending, windows)
+            means = self._fetch_windows(pending, windows)
             for (_, stop), m in zip(windows, means):
                 self._log_window(start_step + stop, stop, num_batches, m)
         return len(pending)
@@ -354,13 +461,13 @@ class Trainer:
         cfg = self.config
         pending, last, steps_done = [], None, 0
         for batch_idx, batch in enumerate(self.train_pipe.epoch()):
-            if self._preempted:
+            if self._should_stop():
                 break
             last = self.train_step(batch)
             steps_done += 1
             pending.append(last)
             if (batch_idx + 1) % cfg.log_every == 0:
-                means, = fetch_metric_windows(pending, [(0, len(pending))])
+                means, = self._fetch_windows(pending, [(0, len(pending))])
                 pending = []
                 self._log_window(start_step + batch_idx + 1, batch_idx + 1,
                                  num_batches, means)
@@ -378,7 +485,7 @@ class Trainer:
         if not pending:
             log.log("eval skipped: test split smaller than one batch")
             return float("inf")
-        means, = fetch_metric_windows(pending, [(0, len(pending))])
+        means, = self._fetch_windows(pending, [(0, len(pending))])
         log.log(f"eval mean loss: {means['loss']:.6f}")
         log.log(f"eval mean pc loss: {means['pcloss']:.6f}")
         log.scalars("test", self.state.step, means)
@@ -388,7 +495,7 @@ class Trainer:
         cfg = self.config
         # The flag belongs to one train() call: a preempted Trainer trains
         # again in the same process.
-        self._preempted = False
+        self._preempted = self._stop_agreed = False
         restore_signals = self._install_signal_handlers()
         try:
             if cfg.eval_only:
@@ -397,9 +504,14 @@ class Trainer:
                 return loss
             for epoch in range(self.start_epoch, cfg.max_epoch):
                 self.logger.log(f"**** EPOCH {epoch:03d} ****")
-                self.train_one_epoch(epoch)
-                if self._preempted:
-                    self._save_preempt(epoch)
+                steps = self.train_one_epoch(epoch)
+                if self._should_stop():
+                    # One device stops mid-epoch and restarts it on resume.
+                    # Ranks stop where they agreed: an epoch that ran to
+                    # its end (device input agrees there) is done.
+                    done = (self.group is not None
+                            and steps == len(self.train_pipe))
+                    self._save_preempt(epoch + 1 if done else epoch)
                     return self.best_loss
                 epoch_loss = self.eval_one_epoch(epoch)
                 if epoch_loss < self.best_loss:
@@ -407,7 +519,7 @@ class Trainer:
                     self._save("best", epoch)
                 if epoch % 10 == 0:
                     self._save("periodic", epoch)
-                if self._preempted:
+                if self._should_stop():
                     # The signal came during eval or the saves: this epoch
                     # is complete, so the resume pointer moves past it.
                     self._save_preempt(epoch + 1)

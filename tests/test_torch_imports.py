@@ -40,7 +40,7 @@ def test_every_module_is_listed():
                  "csrc.build", "device", "config", "data.shapenet_part",
                  "data.synthetic", "data.pipeline", "train.schedules",
                  "train.state", "train.checkpoint", "train.logging",
-                 "train.loop"):
+                 "train.loop", "parallel", "parallel.mesh"):
         assert f"pointnet_autoencoder_tpu_torch.{name}" in mods
 
 

@@ -176,9 +176,17 @@ def test_parser_has_the_reference_flags_and_device():
     ("point_parallel", True), ("bf16_params", True), ("bf16_moments", True),
     ("profile_dir", "/nonexistent/prof"),
     ("compilation_cache_dir", "/nonexistent/cache")])
-def test_config_refuses_what_is_not_ported(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(**{field: value}).validate()
+def test_config_refuses_what_is_not_ported(field, value, tmp_path):
+    if field == "data_parallel":
+        # Ported: the config passes, and a Trainer outside a process
+        # group of 2 ranks raises naming it.
+        cfg = TrainConfig(data_parallel=value, log_dir=str(tmp_path / "log"),
+                          data_path=str(tmp_path / "nowhere")).validate()
+        with pytest.raises(ValueError, match="process group of 2 ranks"):
+            Trainer(cfg, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TrainConfig(**{field: value}).validate()
     TrainConfig(data_parallel=1).validate()
 
 

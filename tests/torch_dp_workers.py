@@ -1,0 +1,265 @@
+"""Rank bodies of the port's data-parallel tests (tests/test_torch_dp_*.py).
+
+Each function runs in a process that ``parallel.mesh.launch`` spawned, as
+``fn(device, *args)`` inside a gloo group, so this module imports neither
+JAX nor the JAX package. A rank writes what the test holds to
+``<out_dir>/rank<r>.pt``; the test reads the files once every rank has
+ended.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import shutil
+import signal
+import types
+
+import numpy as np
+import torch
+
+from pointnet_autoencoder_tpu_torch.config import TrainConfig
+from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
+from pointnet_autoencoder_tpu_torch.nn import layers
+from pointnet_autoencoder_tpu_torch.nn.layers import BatchNorm
+from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+from pointnet_autoencoder_tpu_torch.ops import emd as em
+from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+from pointnet_autoencoder_tpu_torch.parallel.mesh import DataGroup
+from pointnet_autoencoder_tpu_torch.train.loop import Trainer
+
+
+def _setup(device):
+    torch.set_num_threads(2)
+    group = DataGroup.current(device)
+    return group, group.rank, group.world_size
+
+
+def _rows(rank: int, world: int, batch: int) -> slice:
+    per = batch // world
+    return slice(rank * per, (rank + 1) * per)
+
+
+def _save(out_dir: str, rank: int, obj) -> None:
+    torch.save(obj, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def load_ranks(out_dir: str, world: int) -> list:
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+# -- BatchNorm and head_stats under a group ----------------------------------
+
+
+def stats_rank(device, out_dir, bn_x, bn_w, head_x, head_w, head_b,
+               head_gm, head_gv):
+    """This rank's rows of ``bn_x`` through a training BatchNorm with the
+    group (loss sum(y * bn_w) over its rows) and of ``head_x`` through
+    ``head_stats`` with the group (loss sum(mean * head_gm + var *
+    head_gv) / k: the statistics are global, so each rank takes a 1/k
+    share); saves the outputs, the gradients and the moving statistics.
+    Either way the ranks' losses sum to the full batch's."""
+    group, rank, world = _setup(device)
+    rows = _rows(rank, world, bn_x.shape[0])
+    x = torch.from_numpy(bn_x[rows]).requires_grad_(True)
+    bn = BatchNorm(bn_x.shape[-1])
+    bn.group = group
+    y = bn(x, True, 0.5)
+    (y * torch.from_numpy(bn_w[rows])).sum().backward()
+    hrows = _rows(rank, world, head_x.shape[0])
+    hx = torch.from_numpy(head_x[hrows]).requires_grad_(True)
+    mean, var = fh.head_stats(hx, torch.from_numpy(head_w),
+                              torch.from_numpy(head_b), group=group)
+    (((mean * torch.from_numpy(head_gm)).sum()
+      + (var * torch.from_numpy(head_gv)).sum()) / world).backward()
+    _save(out_dir, rank, {
+        "y": y.detach(), "gx": x.grad, "moving": (bn.mean, bn.var),
+        "ggamma": bn.gamma.grad, "gbeta": bn.beta.grad,
+        "head": (mean.detach(), var.detach()), "head_gx": hx.grad})
+
+
+# -- one train step, choices shared -------------------------------------------
+
+
+@contextlib.contextmanager
+def shared_choices(store: dict, replay: bool, rows=slice(None)):
+    """Within the block, a train step's discrete choices (the Chamfer
+    argmins, the head's argmax, every ReLU mask) and the EMD's outputs are
+    recorded into ``store`` (``replay`` False, the one-device step on the
+    global batch) or replayed from it (``replay`` True, a rank's step on
+    ``rows`` of that batch), counting in ``store["differed"]`` and
+    ``store["made"]`` where the replaying run's own choices differed (a
+    kind of choice absent from ``store`` stays the run's own). A
+    near-tie falls either way under another summation order of the
+    statistics, and one changed choice moves a whole row of a gradient."""
+    nn_fn, head_fn, emd_fn = (ch.nn_distance_plain, fh.head_max_plain,
+                              em.emd_forward_plain)
+    functional = layers.F
+    store.setdefault("differed", 0)
+    store.setdefault("made", 0)
+    seen = {}
+
+    def take(key, own):
+        calls = seen.setdefault(key, 0)
+        seen[key] = calls + 1
+        if not replay:
+            store.setdefault(key, []).append(own.detach().clone())
+            return own
+        if key not in store:  # a kind of choice not recorded: its own
+            return own
+        want = store[key][calls][rows]
+        store["differed"] += int((own != want).sum())
+        store["made"] += own.numel()
+        return want.to(own.dtype)
+
+    def nn(a, b):
+        d1, i1, d2, i2 = nn_fn(a, b)
+        return d1, take("idx1", i1), d2, take("idx2", i2)
+
+    def head(x, w, scale, shift):
+        maxout, argmax = head_fn(x, w, scale, shift)
+        return maxout, take("argmax", argmax)
+
+    def emd(x1, x2):
+        own = emd_fn(x1, x2)
+        if not replay:
+            store["emd"] = [t.clone() for t in own]
+            return own
+        return tuple(t[rows] for t in store["emd"])
+
+    def relu(x):
+        mask = take("relu", x > 0)
+        return x * mask.to(x.dtype)
+
+    stand_in = types.SimpleNamespace(**vars(functional))
+    stand_in.relu = relu
+    layers.F = stand_in
+    patched = ((ch, "nn_distance_plain", nn_fn, nn),
+               (fh, "head_max_plain", head_fn, head),
+               (em, "emd_forward_plain", emd_fn, emd))
+    for mod, name, _, fn in patched:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        layers.F = functional
+        for mod, name, fn, _ in patched:
+            setattr(mod, name, fn)
+
+
+def step(model_name: str, num_point: int, state_dict, batch, momentum,
+         choices: dict, group=None, rows=slice(None), replay=None):
+    """One train step's forward, loss and backward (and, with a group, the
+    gradient all-reduce) of ``model_name`` from ``state_dict`` on ``rows``
+    (a slice or an index array) of ``batch``, the choices recorded into
+    ``choices`` or, under a group or with ``replay``, replayed from it.
+    Returns the loss, the metrics, every gradient and the new BN
+    statistics; under a group the loss and metrics are the ranks'
+    mean."""
+    spec = get_model_spec(model_name)
+    model = spec.make(num_point)
+    model.load_state_dict(state_dict)
+    model.set_data_group(group)
+    x = torch.from_numpy(np.ascontiguousarray(batch[rows]))
+    if replay is None:
+        replay = group is not None
+    with shared_choices(choices, replay=replay, rows=rows):
+        pred, end_points = model(x, train=True, bn_momentum=momentum)
+        loss, metrics = spec.loss_fn(pred, x, end_points)
+        loss.backward()
+    if group is not None:
+        group.average_gradients(model.parameters())
+    scalars = {"loss": loss.detach(), **{k: v.detach()
+                                          for k, v in metrics.items()}}
+    names = sorted(scalars)
+    values = torch.stack([scalars[k].float() for k in names])
+    if group is not None:
+        values = group.sum_(values) / group.world_size
+    return {"scalars": dict(zip(names, values.tolist())),
+            "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
+            "buffers": {n: b.clone() for n, b in model.named_buffers()},
+            "flips": (choices.get("differed", 0), choices.get("made", 0))}
+
+
+def step_rank(device, cases_path, out_dir):
+    """``step`` of every case in ``cases_path`` on this rank's rows."""
+    group, rank, world = _setup(device)
+    cases = torch.load(cases_path, weights_only=False)
+    out = {}
+    for name, case in cases.items():
+        choices = dict(case["choices"], differed=0, made=0)
+        out[name] = step(case["model"], case["num_point"], case["state"],
+                         case["batch"], case["momentum"], choices, group,
+                         _rows(rank, world, case["batch"].shape[0]))
+    _save(out_dir, rank, out)
+
+
+# -- the Trainer --------------------------------------------------------------
+
+
+def _rank_state(trainer) -> dict:
+    return {"step": trainer.state.step,
+            "state": {k: v.clone() for k, v in
+                      trainer.model.state_dict().items()},
+            "start_epoch": trainer.start_epoch}
+
+
+def trainer_rank(device, config_json, out_dir, snapshot_dir,
+                 resume_epochs):
+    """A Trainer of ``config_json`` on this rank: train; rank 0 copies the
+    run's log directory to ``snapshot_dir``; then a second Trainer resumes
+    (``resume=True``) and trains to ``resume_epochs``. Saves each one's
+    step, weights and start epoch."""
+    group, rank, _ = _setup(device)
+    cfg = TrainConfig.from_json(config_json)
+    first = Trainer(cfg, device=device)
+    first.train()
+    first.close()
+    if rank == 0:
+        shutil.copytree(cfg.log_dir, snapshot_dir)
+    group.barrier()
+    again = Trainer(dataclasses.replace(cfg, resume=True,
+                                        max_epoch=resume_epochs),
+                    device=device)
+    resumed_at = _rank_state(again)
+    again.train()
+    again.close()
+    _save(out_dir, rank, {"first": _rank_state(first),
+                          "resumed_at": resumed_at,
+                          "resumed": _rank_state(again)})
+
+
+def preempt_rank(device, config_jsons, out_dir, signal_step):
+    """For each config of ``config_jsons``, a Trainer on this rank where
+    rank 1 alone sends itself SIGTERM after its step ``signal_step``;
+    then a resume at the same degree trains to ``max_epoch``. Saves, per
+    config, where each stopped and where the resume started."""
+    _, rank, _ = _setup(device)
+    _save(out_dir, rank, [_preempted_run(device, rank, json_text,
+                                         signal_step)
+                          for json_text in config_jsons])
+
+
+def _preempted_run(device, rank, config_json, signal_step):
+    cfg = TrainConfig.from_json(config_json)
+    trainer = Trainer(cfg, device=device)
+    step_fn = trainer.train_step
+
+    def train_step(batch):
+        out = step_fn(batch)
+        if rank == 1 and trainer.state.step == signal_step:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    trainer.train_step = train_step
+    trainer.train()
+    stopped = _rank_state(trainer)
+    trainer.close()
+    again = Trainer(dataclasses.replace(cfg, resume=True), device=device)
+    resumed_at = _rank_state(again)
+    again.train()
+    again.close()
+    return {"stopped": stopped, "resumed_at": resumed_at,
+            "resumed": _rank_state(again)}
