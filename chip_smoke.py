@@ -78,9 +78,11 @@ line each; any failure exits non-zero before the final line:
             K4 once per step, K5 once per eval batch, K1 and K2 once per
             Chamfer call (two per batch for model_hierachy, none for
             model_cpu, whose loss is the dense Chamfer). The host median
-            and a trace of one bf16 train step of each; one f32 step at
-            B=8 on the card against the CPU's, as in phase 6, for the
-            three families with Chamfer kernels.
+            and a trace of one bf16 train step of each (of the two upconv
+            families also with cuDNN deterministic, as the point-parallel
+            step runs them); one f32 step at B=8 on the card against the
+            CPU's, as in phase 6, for the three families with Chamfer
+            kernels.
 10. cli_test: ``cli.test.main`` on phase 6's best checkpoint (16 shapes,
             4 decoder groups, F-score at 0.01): K5 launched once and K1
             twice per shape (chamfer and fscore) and nothing else, each
@@ -123,6 +125,50 @@ line each; any failure exits non-zero before the final line:
             session within 1e-5 (ragged batch included), K5 once per
             replica and batch, a ``PointServer`` over it. No time here is
             a multi-card time.
+14. master: bf16 master weights and moments (``--bf16_params
+            --bf16_moments``, train/master.py). Stochastic rounding of 2^20
+            values (zeros, subnormals, the largest finite, infs, NaNs) on
+            the card bit-equal to the CPU's on one injected noise tensor.
+            ``cli.train`` 2 epochs of ``model``, the default run and the
+            bf16-master run: launches exactly the path's (K3 = K4 = K2 =
+            20, K1 24, K5 4), matmul weights and their Adam slots bf16, BN
+            parameters, slots and statistics f32, eval pcloss falling and
+            under 2x the default run's, the train state's MB beside the
+            default's; each step's host median and trace. 10 steps, a
+            checkpoint, ``--resume`` and 10 more equal 20 uninterrupted
+            steps bit for bit. One ``model_emd --bf16_params`` step runs
+            K6. 2 ranks over gloo, 2 epochs: the ranks' states bit-equal.
+            An f32 session on the bf16 checkpoint equals one on its
+            explicit f32 upcast bit for bit.
+15. point_parallel: 2 ranks sharing the card over gloo, each with 1024
+            of every shape's 2048 points (parallel/sp.py). One f32 step of
+            ``model`` and ``model_emd`` at B=32 and of the other four
+            families at B=8, through ``cli.train``'s build with
+            ``--point_parallel``, against the card alone's step on the
+            same batch and weights, the ranks replaying its ReLU masks and
+            Chamfer argmins: loss rtol 1e-5, BN statistics rtol 1e-4 atol
+            1e-6 and gradients within 1e-5 of the largest element, each
+            raised to twice the card alone's f32 floor (the same step with
+            every shape's points rolled by N/2; for ``model_emd``'s loss
+            also its distance to the float64 EMD on the step's inputs);
+            ``model_emd``'s reference runs the EMD's dense form on the
+            card (the ranks' per-shard formulation), and its SP loss is
+            also held to the card alone's step on K6 within twice the
+            larger of K6's gap to the dense form and the dense form's
+            floor.
+            Per-rank launches per step: K3 = K4 = 1, K1 = K2 = 1 (2 for
+            ``model_hierachy``, 0 for ``model_cpu``), ``model_emd`` K1 = 1
+            and K2 = K6 = 0. The combined Chamfer indices equal K1's on
+            the card alone; the eval embedding bit-equal to the card
+            alone's, K5 once per rank; ``--bf16_params`` for 3 steps: the
+            ranks' states bit-equal; each rank's bf16 step of ``model``,
+            ``model_emd`` and ``model_upconv`` (cuDNN deterministic within
+            the step): host median, trace, peak memory.
+            ``cli.train --point_parallel --data_parallel 2``, 2 bf16 epochs:
+            per-rank launches the path's, the ranks' states bit-equal, eval
+            pcloss falling. K1, K3, K4 and K5 at one rank's shard shapes:
+            device time per call beside each bound. No time here is a
+            multi-card time.
 
 The last three lines are the kernels JSON line, the nvidia-smi line and
 the device JSON line.
@@ -1026,6 +1072,7 @@ def phase_families(torch, counters, data, tmp, gen):
     one f32 step on the card against the CPU's."""
     from pointnet_autoencoder_tpu_torch.inference import InferenceSession
     from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
+    from pointnet_autoencoder_tpu_torch.train.loop import cudnn_deterministic
 
     x = clouds(gen, BATCH, NUM_POINT)
     tb = torch.from_numpy(clouds(gen, BATCH, NUM_POINT)).to("cuda")
@@ -1081,22 +1128,23 @@ def phase_families(torch, counters, data, tmp, gen):
                 f"({steps} steps, {evals} eval batches, {calls} Chamfer "
                 f"calls per batch) ok")
 
-            def step():
-                trainer.train_step(tb)["loss"].item()
-
-            step()
-            host = []
-            for _ in range(10):
-                t0 = time.perf_counter()
-                step()
-                host.append(1e3 * (time.perf_counter() - t0))
+            med, lo, hi, trace = step_timing(
+                torch, trainer, tb, f"chip_smoke.{name}.train_step")
             say("families", f"{name} train step, bf16, B={BATCH} "
                 f"N={NUM_POINT} (host clock, to the loss on the host): median "
-                f"{statistics.median(host):.3f} ms, min {min(host):.3f}, max "
-                f"{max(host):.3f}")
-            trace = device_trace(torch, step, f"chip_smoke.{name}.train_step",
-                                 top=10, own=True)
+                f"{med:.3f} ms, min {lo:.3f}, max {hi:.3f}")
             say("families", f"{name} train step traced: {trace}")
+            if "upconv" in name:
+                # What the point-parallel step's setting costs the
+                # transposed convolutions.
+                with cudnn_deterministic():
+                    med, lo, hi, trace = step_timing(
+                        torch, trainer, tb,
+                        f"chip_smoke.{name}.train_step_deterministic")
+                say("families", f"{name} train step with cuDNN "
+                    f"deterministic (as under --point_parallel): median "
+                    f"{med:.3f} ms, min {lo:.3f}, max {hi:.3f}; traced: "
+                    f"{trace}")
         finally:
             trainer.close()
             logger.close()
@@ -1580,16 +1628,6 @@ def dp_step_result(torch, trainer, metrics, counters, flips=(0, 0)):
         flips=flips)
 
 
-def state_hash(trainer) -> str:
-    import hashlib
-
-    h = hashlib.sha256()
-    for name, t in trainer.model.state_dict().items():
-        h.update(name.encode())
-        h.update(t.detach().cpu().numpy().tobytes())
-    return h.hexdigest()
-
-
 def dp_rank_steps(device, out_dir, data, preempt_argv):
     """A rank of phase data_parallel's 2-rank checks: for each model of
     DP_STEP_MODELS, one f32 train step through ``cli.train``'s build on
@@ -1641,14 +1679,15 @@ def dp_rank_steps(device, out_dir, data, preempt_argv):
 
     tr.train_step = train_step
     tr.train()
-    stopped = (tr.state.step, state_hash(tr))
+    stopped = (tr.state.step, tree_bytes_hash(torch, tr.model.state_dict()))
     tr.close()
     lg.close()
     again, lg = cli_train.build_trainer(parse(preempt_argv + ["--resume"]))
     resumed_at = (again.start_epoch, again.state.step)
     again.train()
     out["preempt"] = dict(stopped=stopped, resumed_at=resumed_at,
-                          resumed=(again.state.step, state_hash(again)))
+                          resumed=(again.state.step, tree_bytes_hash(
+                              torch, again.model.state_dict())))
     again.close()
     lg.close()
     torch.save(out, os.path.join(out_dir, f"dp_rank{rank}.pt"))
@@ -1694,23 +1733,13 @@ def dp_train_report(out_dir, trainer):
 
     launches = {n: fn.launches for n, fn in
                 kernel_counters(ch, fe, fh, em).items()}
-    digest = state_hash(trainer)
+    digest = tree_bytes_hash(torch, trainer.model.state_dict())
     per = BATCH // trainer.group.world_size
     x = torch.from_numpy(clouds(np.random.RandomState(SEED + 22), BATCH,
                                 NUM_POINT)[trainer.rank * per:
                                            (trainer.rank + 1) * per]).to(
         trainer.device)
-
-    def step():
-        trainer.train_step(x)["loss"].item()
-
-    step()
-    host = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        step()
-        host.append(1e3 * (time.perf_counter() - t0))
-    trace = device_trace(torch, step, "chip_smoke.dp_train_step")
+    *host, trace = step_timing(torch, trainer, x, "chip_smoke.dp_train_step")
     with open(os.path.join(out_dir, f"train_rank{trainer.rank}.json"),
               "w") as f:
         json.dump(dict(launches=launches, hash=digest,
@@ -1958,11 +1987,11 @@ def phase_data_parallel(torch, counters, session, weights, data, tmp, rng):
         f"{TRAIN_EPOCHS * eval_batches} eval batches, K1 20 + "
         f"{TRAIN_EPOCHS * eval_batches}) ok")
     for r, rep in enumerate(reports):
-        host = rep["step_host_ms"]
+        med, lo, hi = rep["step_host_ms"]
         say("data_parallel", f"rank {r}: bf16 step on its {BATCH // DP_RANKS}"
             f" rows (2 ranks on one H100 over gloo; host clock to the loss): "
-            f"median {statistics.median(host):.3f} ms, min {min(host):.3f}, "
-            f"max {max(host):.3f}; traced: {rep['trace']}; peak device "
+            f"median {med:.3f} ms, min {lo:.3f}, max {hi:.3f}; traced: "
+            f"{rep['trace']}; peak device "
             f"memory {rep['peak_mb']:.1f} MiB")
 
     # 5. Serving: one process, a replica per entry of the mesh.
@@ -2017,6 +2046,802 @@ def phase_data_parallel(torch, counters, session, weights, data, tmp, rng):
         f"vs {statistics.median(host_one):.3f} ms on one replica, same call "
         f"(not a speedup measurement) ok")
     say("data_parallel", f"phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def tree_bytes_hash(torch, tree) -> str:
+    """sha256 of every tensor's raw bytes (bf16 included) in a nested
+    state dict, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(node, path):
+        if torch.is_tensor(node):
+            t = node.detach().cpu().contiguous().reshape(-1)
+            h.update(f"{path}:{t.dtype}".encode())
+            h.update(t.view(torch.uint8).numpy().tobytes())
+        elif isinstance(node, dict):
+            for k in node:
+                walk(node[k], f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        else:
+            h.update(f"{path}={node!r}".encode())
+
+    walk(tree, "")
+    return h.hexdigest()
+
+
+def step_timing(torch, trainer, x, label):
+    """The host clock of one train step on ``x`` (a batch already on the
+    card) to the loss on the host: (median, min, max) ms of 10 after one,
+    then one trace of a step (``device_trace`` with the port's kernels)."""
+    def step():
+        trainer.train_step(x)["loss"].item()
+
+    step()
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        host.append(1e3 * (time.perf_counter() - t0))
+    trace = device_trace(torch, step, label, top=10, own=True)
+    return statistics.median(host), min(host), max(host), trace
+
+
+def rank_report(out_dir, tag, trainer):
+    """``after`` of a ``cli.train`` run on ranks: this rank's launches of
+    the whole run, whether it ran the point-parallel step, and a hash of
+    its whole train state (weights, optimizer slots, step). Writes
+    ``<out_dir>/<tag>_rank<r>.json``."""
+    import torch
+
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+    from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+
+    with open(os.path.join(out_dir, f"{tag}_rank{trainer.rank}.json"),
+              "w") as f:
+        json.dump(dict(
+            launches={n: fn.launches for n, fn in
+                      kernel_counters(ch, fe, fh, em).items()},
+            hash=tree_bytes_hash(torch, trainer.state.state_dict()),
+            sp=trainer.sp_active, step=trainer.state.step), f)
+
+
+def path_launches(steps, eval_batches, chamfer_grad=True):
+    """Each kernel's launches on a `model` training path of ``steps``
+    steps and ``eval_batches`` eval batches: K3, K4 (and K2) per step, K5
+    per eval batch, K1 per step and eval batch."""
+    return {"fused_head_fwd": steps, "fused_head_bwd": steps,
+            "nn_distance_grad": steps if chamfer_grad else 0,
+            "nn_distance": steps + eval_batches,
+            "fused_encoder_eval": eval_batches, "emd_forward": 0}
+
+
+# ---------------------------------------------------------------------------
+# Phase master: bf16 master weights and moments
+# ---------------------------------------------------------------------------
+
+MASTER_FLAGS = ["--bf16_params", "--bf16_moments"]
+SR_VALUES = 1 << 20
+SR_SPECIAL = np.array(
+    [0.0, -0.0, 1e-45, -1e-45, 1e-40, -3e-39, 1.1754942e-38,
+     np.finfo(np.float32).max, -np.finfo(np.float32).max, np.inf, -np.inf,
+     1.0, -2.5]
+    + list(np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0x7FFFFFFF],
+                    np.uint32).view(np.float32)), np.float32)
+# The train state of the default `model` run, f32 weights with Adam's two
+# f32 slots, as PERF.md §5 records it.
+DEFAULT_STATE_MB = 102.7
+
+
+def phase_master(torch, counters, data, tmp, rng):
+    """bf16 master weights and moments (``train/master.py``) on the card.
+    See the module docstring, phase 14."""
+    import functools
+
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+    from pointnet_autoencoder_tpu_torch.train import checkpoint, master
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(tmp, "master")
+    os.makedirs(out_dir)
+    parse = cli_train.build_parser().parse_args
+    dev = torch.device("cuda")
+
+    # 1. Stochastic rounding on the card against the CPU on one injected
+    # noise tensor (the two generators draw different bits from a seed).
+    x = np.concatenate([SR_SPECIAL, (rng.randn(SR_VALUES - len(SR_SPECIAL))
+                                     * 10.0 ** rng.uniform(
+                                         -40, 38, SR_VALUES
+                                         - len(SR_SPECIAL))).astype(
+        np.float32)])
+    noise = rng.randint(0, 1 << 16, SR_VALUES).astype(np.int32)
+    xt, nt = torch.from_numpy(x), torch.from_numpy(noise)
+    card = master.stochastic_round_bf16(xt.to(dev), nt.to(dev)).cpu()
+    cpu = master.stochastic_round_bf16(xt, nt)
+    require(torch.equal(card.view(torch.int16), cpu.view(torch.int16)),
+            f"stochastic rounding on the card differs from the CPU's at "
+            f"{int((card.view(torch.int16) != cpu.view(torch.int16)).sum())}"
+            f" of {SR_VALUES}")
+    say("master", f"stochastic rounding of {SR_VALUES} f32 values (zeros, "
+        f"subnormals, the largest finite, infs and NaNs among them) on the "
+        f"card bit-equal to the CPU's on the same noise ok")
+
+    # 2. Two epochs of `model`, default and with bf16 weights and moments.
+    steps = TRAIN_EPOCHS * (320 // BATCH)
+    evals = TRAIN_EPOCHS * (64 // BATCH)
+    runs = {}
+    for name, flags in (("default", []), ("master", MASTER_FLAGS)):
+        argv = train_argv("model", data, os.path.join(out_dir, name)) + flags
+        runs[name] = train_run(torch, counters, argv, MODEL_PATH_KERNELS)
+        got = {k: counters[k].launches for k in counters}
+        require(got == path_launches(steps, evals),
+                f"{name} run launches {got}, the path needs "
+                f"{path_launches(steps, evals)}")
+    tr = runs["master"]["trainer"]
+    opt = tr.state.optimizer
+    require(isinstance(opt, master.MasterOptimizer),
+            f"the master run's optimizer is {type(opt).__name__}")
+    for n, p in tr.model.named_parameters():
+        want = (torch.bfloat16 if master.is_matmul_param(n)
+                else torch.float32)
+        require(p.dtype == want
+                and all(s.dtype == want for s in opt.slots[n].values()),
+                f"{n}: parameter {p.dtype}, slots "
+                f"{[s.dtype for s in opt.slots[n].values()]}, expected {want}")
+    require(all(b.dtype == torch.float32 for b in tr.model.buffers()),
+            "a BN statistic is not f32")
+    pc = {name: [r["pcloss"] for r in run["test"]]
+          for name, run in runs.items()}
+    require(len(pc["master"]) == TRAIN_EPOCHS
+            and pc["master"][-1] < pc["master"][0]
+            and pc["master"][-1] < 2.0 * pc["default"][-1],
+            f"eval pcloss with bf16 weights and moments {pc['master']}, "
+            f"default {pc['default']}")
+    mb = {name: state_mb(torch, run["trainer"].state.state_dict())
+          for name, run in runs.items()}
+    say("master", f"cli.train --bf16_params --bf16_moments, {TRAIN_EPOCHS} "
+        f"epochs ({steps} steps) in {runs['master']['seconds']:.1f} s: "
+        f"matmul weights and their Adam slots bf16, BN parameters, slots "
+        f"and statistics f32; eval pcloss "
+        f"{[round(v, 6) for v in pc['master']]} vs the default run's {[round(v, 6) for v in pc['default']]} (held "
+        f"under 2x); launches {path_launches(steps, evals)} as the default "
+        f"path's; train state {mb['master']:.1f} MB vs the default "
+        f"{mb['default']:.1f} MB (PERF.md's record: {DEFAULT_STATE_MB})")
+    xb = torch.from_numpy(clouds(np.random.RandomState(SEED + 30), BATCH,
+                                 NUM_POINT)).to(dev)
+    for name, run in runs.items():
+        med, lo, hi, trace = step_timing(torch, run["trainer"], xb,
+                                         f"chip_smoke.master.{name}_step")
+        say("master", f"{name} model train step, bf16 matmuls, B={BATCH} "
+            f"N={NUM_POINT} (host clock to the loss on the host): median "
+            f"{med:.3f} ms, min {lo:.3f}, max {hi:.3f}; traced: {trace}")
+    best_path = runs["master"]["best_path"]
+    for run in runs.values():
+        run["trainer"].close()
+        run["logger"].close()
+
+    # 3. A run stopped after step 10 and resumed equals 20 steps alone.
+    batches = [torch.from_numpy(clouds(np.random.RandomState(SEED + 40 + i),
+                                       BATCH, NUM_POINT)).to(dev)
+               for i in range(20)]
+    trees = []
+    for stop in (None, 10):
+        log = os.path.join(out_dir, f"resume{stop}")
+        t, lg = cli_train.build_trainer(parse(
+            train_argv("model", data, log) + MASTER_FLAGS
+            + ["--sync_checkpoints"]))
+        for xi in batches[:stop]:
+            t.train_step(xi)
+        if stop is not None:
+            t._save("periodic", 0)
+            t.close()
+            lg.close()
+            t, lg = cli_train.build_trainer(parse(
+                train_argv("model", data, log) + MASTER_FLAGS
+                + ["--sync_checkpoints", "--resume"]))
+            require(t.state.step == stop and t.state.optimizer.steps == stop,
+                    f"resumed at step {t.state.step}")
+            for xi in batches[stop:]:
+                t.train_step(xi)
+        torch.cuda.synchronize()
+        trees.append(checkpoint.to_host(t.state.state_dict()))
+        t.close()
+        lg.close()
+    where = tree_mismatch(torch, trees[0], trees[1])
+    require(where is None, f"the resumed run differs from the uninterrupted "
+            f"one at {where}")
+    say("master", "20 bf16-master steps on fixed batches, and 10 steps, a "
+        "checkpoint, --resume and 10 more: weights, slots and step "
+        "bit-equal ok")
+
+    # 4. model_emd with bf16 weights: one step through K6.
+    t, lg = cli_train.build_trainer(parse(train_argv(
+        "model_emd", data, os.path.join(out_dir, "emd")) + ["--bf16_params"]))
+    for fn in counters.values():
+        fn.launches = 0
+    loss = float(t.train_step(batches[0])["loss"])
+    k6 = counters["emd_forward"].launches
+    require(k6 == 1 and np.isfinite(loss),
+            f"model_emd --bf16_params step: K6 launched {k6}, loss {loss}")
+    t.close()
+    lg.close()
+    say("master", f"model_emd --bf16_params: one step, K6 launched once, "
+        f"loss {loss:.4f} ok")
+
+    # 5. Two ranks on the card over gloo: the replicas stay bit-equal.
+    log = os.path.join(out_dir, "dp")
+    cli_train.main(train_argv("model", data, log) + MASTER_FLAGS
+                   + ["--max_epoch", str(TRAIN_EPOCHS), "--data_parallel",
+                      str(DP_RANKS)],
+                   devices=["cuda:0"] * DP_RANKS, backend="gloo",
+                   after=functools.partial(rank_report, out_dir, "dp"))
+    reps = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, f"dp_rank{r}.json")) as f:
+            reps.append(json.load(f))
+    require(reps[0]["hash"] == reps[1]["hash"]
+            and reps[0]["step"] == steps,
+            "bf16-master data parallel: the ranks' train states differ")
+    say("master", f"cli.train --bf16_params --bf16_moments --data_parallel "
+        f"2 on cuda:0 (gloo), {TRAIN_EPOCHS} epochs: the ranks' weights, "
+        f"slots and step bit-equal (sha256 {reps[0]['hash'][:16]}) ok")
+
+    # 6. Serving the bf16-master checkpoint: an f32 session equals one on
+    # its explicit f32 upcast.
+    stored = checkpoint.load(best_path)["model"]
+    upcast = os.path.join(out_dir, "upcast.pt")
+    torch.save({k: v.float() for k, v in stored.items()}, upcast)
+    xs = clouds(rng, BATCH, NUM_POINT)
+    a = InferenceSession("model", best_path, NUM_POINT, batch_size=BATCH,
+                         device="cuda").reconstruct(xs)
+    b = InferenceSession("model", upcast, NUM_POINT, batch_size=BATCH,
+                         device="cuda").reconstruct(xs)
+    require(np.array_equal(a, b) and np.isfinite(a).all(),
+            f"the bf16-master checkpoint's session vs its f32 upcast: max "
+            f"abs err {max_err(a, b):.3e}")
+    say("master", f"an f32 session on the bf16-master checkpoint "
+        f"reconstructs B={BATCH} bit-equal to one on its explicit f32 "
+        f"upcast ok")
+    say("master", f"phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase point_parallel
+# ---------------------------------------------------------------------------
+
+SP_RANKS = 2
+SP_STEP_MODELS = ("model", "model_emd")
+SP_FAMILIES = ("model_cpu", "model_hierachy", "model_upconv",
+               "model_fc_upconv")
+SP_FAMILY_BATCH = 8
+
+
+@contextlib.contextmanager
+def sp_choices(store: dict, replay: bool, num_points: int = NUM_POINT,
+               points=slice(None), label_first: bool = False):
+    """Within the block, a train step's ReLU masks and Chamfer argmins are
+    recorded into ``store`` (the card alone's step), or, with ``replay``,
+    taken from it at the points ``points`` (a slice or an index tensor) of
+    the ``num_points``-point label: a point-parallel rank's shard
+    (``label_first``: its per-shard call is (label shard, cloud)) or the
+    card alone's label reordered (its call is (cloud, label)). A Chamfer
+    call then takes the recorded nearest point of the cloud for each of
+    its label points, and for each point of the cloud the recorded nearest
+    label point if it is among them, its distance +inf elsewhere, so that
+    the ranks' combine picks the recorded shard. A replay counts in
+    ``store["differed"]`` and ``store["made"]`` where the run's own
+    choices differed. The head's argmax stays each run's own. Launches go
+    to each wrapper's counter."""
+    import torch
+
+    from pointnet_autoencoder_tpu_torch.nn import layers
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+
+    functional = layers.F
+    store.setdefault("differed", 0)
+    store.setdefault("made", 0)
+    calls = {"relu": 0, "nn": 0}
+    order = torch.arange(num_points)[points]
+    position = torch.full((num_points,), -1, dtype=torch.long)
+    position[order] = torch.arange(len(order))
+
+    def relu(x):
+        if not replay:
+            store.setdefault("relu", []).append((x > 0).cpu())
+            return functional.relu(x)
+        want = store["relu"][calls["relu"]]
+        calls["relu"] += 1
+        if want.dim() == 3 and want.shape[1] == num_points:
+            want = want[:, points]
+        want = want.to(x.device)
+        store["differed"] += int(((x > 0) != want).sum())
+        store["made"] += want.numel()
+        return x * want.to(x.dtype)
+
+    def make_nn(fn):
+        def nn(a, b):
+            own = fn(a, b)
+            if not replay:
+                store.setdefault("idx1", []).append(own[1].cpu())
+                store.setdefault("idx2", []).append(own[3].cpu())
+                return own
+            label, cloud = (a, b) if label_first else (b, a)
+            c = calls["nn"]
+            calls["nn"] += 1
+            to_cloud = store["idx2"][c][:, points].to(a.device)
+            local = position.to(a.device)[store["idx1"][c].to(a.device)
+                                          .long()]
+            won = local >= 0
+            to_label = torch.where(won, local, 0)
+            near = label.gather(1, to_label[..., None].expand(-1, -1, 3))
+            sq = (cloud - near) ** 2
+            dist = torch.where(won, (sq[..., 0] + sq[..., 1]) + sq[..., 2],
+                               float("inf"))
+            mine = own[1] if label_first else own[3]
+            store["differed"] += int((mine != to_cloud).sum())
+            store["made"] += to_cloud.numel()
+            if label_first:
+                return own[0], to_cloud.int(), dist, to_label.int()
+            return dist, to_label.int(), own[2], to_cloud.int()
+
+        return nn
+
+    stand_in_f = types.SimpleNamespace(**vars(functional))
+    stand_in_f.relu = relu
+    layers.F = stand_in_f
+    patched = [(name, getattr(ch, name)) for name in ("nn_distance_cuda",
+                                                      "nn_distance_plain")]
+    for name, fn in patched:
+        stand_in = make_nn(fn)
+        stand_in.launches = getattr(fn, "launches", 0)
+        setattr(ch, name, stand_in)
+    try:
+        yield
+    finally:
+        layers.F = functional
+        for name, fn in patched:
+            if hasattr(fn, "launches"):
+                fn.launches = getattr(ch, name).launches
+            setattr(ch, name, fn)
+
+
+@contextlib.contextmanager
+def plain_emd_on_the_card(inputs: dict):
+    """Within the block the EMD runs its plain dense form on the card in
+    place of K6: the formulation of the point-sharded EMD, whose per-level
+    collective no single kernel spans (the JAX package's design). The
+    inputs of the last call go to ``inputs``."""
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+
+    kernel = em.emd_forward_cuda
+
+    def plain(x1, x2):
+        inputs["xyz"] = (x1.detach(), x2.detach())
+        return em.emd_forward_plain(x1, x2)
+
+    em.emd_forward_cuda = plain
+    try:
+        yield
+    finally:
+        em.emd_forward_cuda = kernel
+
+
+def sp_step_argv(model, data, log_dir, batch, ranks=True):
+    """One f32 train step of ``model`` at ``batch`` on host input, as
+    point-parallel ranks (or the card alone)."""
+    argv = dp_step_argv(model, data, log_dir) + ["--batch_size", str(batch)]
+    if ranks:
+        argv += ["--point_parallel", "--data_parallel", str(SP_RANKS)]
+    return argv
+
+
+def sp_rank_steps(device, out_dir, data):
+    """A rank of phase point_parallel: for each model, an f32 step through
+    ``cli.train``'s build (``--point_parallel``) on this rank's points of
+    the card alone's batch, replaying its choices, with the launches
+    counted; `model` and `model_emd` also their combined Chamfer indices
+    on (label, a random cloud) by their own choices, and `model` its eval
+    embedding before the step (K5 counted); 3 steps with --bf16_params;
+    the bf16 step's host median, trace and peak memory of `model` and
+    `model_emd`. Writes ``<out_dir>/sp_rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+    from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+    from pointnet_autoencoder_tpu_torch.parallel import sp
+
+    rank = dist.get_rank()
+    pts = sp.point_slice(NUM_POINT, rank, SP_RANKS)
+    counters = kernel_counters(ch, fe, fh, em)
+    parse = cli_train.build_parser().parse_args
+    out = {}
+    for model in SP_STEP_MODELS + SP_FAMILIES:
+        case = torch.load(os.path.join(out_dir, f"{model}_sp_case.pt"))
+        x = case["x"]
+        tr, lg = cli_train.build_trainer(parse(sp_step_argv(
+            model, data, os.path.join(out_dir, f"{model}_sp_log"),
+            x.shape[0])))
+        require(tr.sp_active, "the point-parallel step is not active")
+        xl = x[:, pts].contiguous().to(tr.device)
+        res = {}
+        if model in SP_STEP_MODELS:
+            with torch.no_grad():
+                _, i1, _, i2 = sp.nn_distance_point_sharded(
+                    xl, case["y"].to(tr.device), tr.group)
+            res["nn"] = (i1.cpu(), i2.cpu())
+        if model == "model":
+            fe.encoder_extrema_cuda.launches = 0
+            with torch.no_grad():
+                emb = tr.model.encoder(xl, train=False)
+            torch.cuda.synchronize()
+            res["eval"] = (emb.cpu(), fe.encoder_extrema_cuda.launches)
+        store = dict(case["choices"], differed=0, made=0)
+        for fn in counters.values():
+            fn.launches = 0
+        with sp_choices(store, replay=True, points=pts, label_first=True):
+            m = tr.train_step(xl)
+        torch.cuda.synchronize()
+        res.update(dp_step_result(torch, tr, m, counters,
+                                  (store["differed"], store["made"])))
+        out[model] = res
+        tr.close()
+        lg.close()
+
+    # bf16 weights under point parallelism: 3 steps.
+    x = torch.load(os.path.join(out_dir, "model_sp_case.pt"))["x"]
+    tr, lg = cli_train.build_trainer(parse(
+        train_argv("model", data, os.path.join(out_dir, "bf16_sp_log"))
+        + ["--input_mode", "host", "--point_parallel", "--data_parallel",
+           str(SP_RANKS), "--bf16_params"]))
+    xl = x[:, pts].contiguous().to(tr.device)
+    for _ in range(3):
+        tr.train_step(xl)
+    torch.cuda.synchronize()
+    out["bf16"] = tree_bytes_hash(torch, tr.state.state_dict())
+    tr.close()
+    lg.close()
+
+    # The bf16 step of each (and of model_upconv, whose transposed
+    # convolutions run deterministic here) on this rank's points: host
+    # clock, a trace and the peak device memory.
+    out["timing"] = {}
+    for model in SP_STEP_MODELS + ("model_upconv",):
+        tr, lg = cli_train.build_trainer(parse(
+            train_argv(model, data, os.path.join(out_dir, f"t_{model}"))
+            + ["--input_mode", "host", "--point_parallel",
+               "--data_parallel", str(SP_RANKS)]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(tr.device)
+        timing = step_timing(torch, tr, xl, f"chip_smoke.sp.{model}_step")
+        out["timing"][model] = timing + (
+            torch.cuda.max_memory_allocated(tr.device) / 2**20,)
+        tr.close()
+        lg.close()
+    torch.save(out, os.path.join(out_dir, f"sp_rank{rank}.pt"))
+
+
+def sp_kernel_times(torch, ch, fe, fh, rng):
+    """K1, K3, K4 and K5 on one rank's shard of the training shapes
+    (N/2 = 1024 points of the label; K1 also against model_hierachy's 64
+    centers): the device time per call, median of 50 traced calls, beside
+    each bound (bf16 for K3, K4 and K5, the training type), and K1's
+    library yardstick."""
+    dev = torch.device("cuda")
+    n = NUM_POINT // SP_RANKS
+    a = torch.from_numpy(clouds(rng, BATCH, n)).to(dev)
+    b = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to(dev)
+    c = torch.from_numpy(clouds(rng, BATCH, HIER_CENTERS)).to(dev)
+    lines = []
+    for m, other in ((NUM_POINT, b), (HIER_CENTERS, c)):
+        ms, counts = median_device_ms(
+            torch, lambda o=other: ch.nn_distance_cuda(a, o))
+        lib, lib_counts = median_device_ms(
+            torch, lambda o=other: cdist_yardstick(torch, a, o),
+            repeats=True)
+        bd = bound(10.0 * BATCH * n * m, 20.0 * BATCH * (n + m))
+        lines.append(f"K1 B={BATCH} N={n} M={m}: {ms:.5f} ms "
+                     f"({_event_counts(counts)}), bound {bd['bound_ms']:.5f} "
+                     f"({bd['bound_by']}); library (torch.cdist + two min) "
+                     f"{lib:.5f} ms ({_event_counts(lib_counts)})")
+    x, w, scale, shift = head_inputs(torch, rng, BATCH, n, torch.bfloat16)
+    _, arg = fh.head_max_cuda(x, w, scale, shift)
+    f = w.shape[1]
+    gvals = torch.from_numpy((1e-3 * rng.randn(BATCH, f)).astype(
+        np.float32)).to(dev)
+    rows_x = int(torch.unique(arg.long() + n * torch.arange(
+        BATCH, device=dev)[:, None]).numel())
+    for what, fn, bd in (
+            ("K3 bf16", lambda: fh.head_max_cuda(x, w, scale, shift),
+             bound(2.0 * BATCH * n * 128 * f,
+                   x.numel() * 2 + w.numel() * 2 + 2 * f * 4
+                   + BATCH * f * 8, PEAK_BF16_FLOPS)),
+            ("K4 bf16", lambda: fh.head_bwd_cuda(x, w, gvals, arg),
+             bound(4.0 * BATCH * f * 128,
+                   x.numel() * 2 + rows_x * 128 * 2 + w.numel() * 2
+                   + BATCH * f * 8 + 128 * f * 4, PEAK_BF16_FLOPS))):
+        ms, counts = median_device_ms(torch, fn)
+        lines.append(f"{what} B={BATCH} N={n}: {ms:.5f} ms "
+                     f"({_event_counts(counts)}), bound {bd['bound_ms']:.5f} "
+                     f"({bd['bound_by']})")
+    chain = fe.fold_layers(
+        [tuple(torch.from_numpy(t).to(dev) for t in layer)
+         for layer in random_layers(rng)], eps=EPS, dtype=torch.bfloat16)
+    p16 = a.to(torch.bfloat16)
+    macs = sum(ci * co for ci, co in zip(ENCODER_WIDTHS[:-1],
+                                         ENCODER_WIDTHS[1:]))
+    bd = bound(2.0 * BATCH * n * macs,
+               p16.numel() * 2 + sum(t.numel() * t.element_size()
+                                     for t in chain.weights)
+               + chain.affine.numel() * 4 + 2 * BATCH * 1024 * 4,
+               PEAK_BF16_FLOPS)
+    ms, counts = median_device_ms(torch, lambda: fe.encoder_extrema_cuda(
+        p16, chain))
+    lines.append(f"K5 bf16 B={BATCH} N={n}: {ms:.5f} ms "
+                 f"({_event_counts(counts)}), bound {bd['bound_ms']:.5f} "
+                 f"({bd['bound_by']})")
+    return lines
+
+
+def sp_kernel_rank(device, out_dir):
+    """``sp_kernel_times`` in a process of its own; writes its lines to
+    ``<out_dir>/kernel_times.json``."""
+    import torch
+
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+    from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+
+    lines = sp_kernel_times(torch, ch, fe, fh,
+                            np.random.RandomState(SEED + 61))
+    with open(os.path.join(out_dir, "kernel_times.json"), "w") as f:
+        json.dump(lines, f)
+
+
+def phase_point_parallel(torch, counters, data, tmp, rng):
+    """Point parallelism on the one card: 2 ranks over gloo on cuda:0.
+    See the module docstring, phase 15."""
+    import functools
+
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+    from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+    from pointnet_autoencoder_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(tmp, "sp")
+    os.makedirs(out_dir)
+    parse = cli_train.build_parser().parse_args
+    cards = ["cuda:0"] * SP_RANKS
+    say("point_parallel", f"2 ranks sharing one H100 over gloo "
+        f"({nvidia_smi_line()}), each with {NUM_POINT // SP_RANKS} of every "
+        f"shape's {NUM_POINT} points; nothing here is a multi-card time or "
+        f"a speedup")
+
+    # 1. The card alone: each model's f32 step, its choices recorded, and
+    # the same step with every shape's points rolled by N/2 (the choices
+    # rolled with them): the f32 floor. model_emd's reference runs the
+    # EMD's dense form, the per-shard formulation of the ranks.
+    single, floor, k6_loss = {}, {}, None
+    roll = torch.roll(torch.arange(NUM_POINT), NUM_POINT // 2)
+    for model in SP_STEP_MODELS + SP_FAMILIES:
+        b = BATCH if model in SP_STEP_MODELS else SP_FAMILY_BATCH
+        x = torch.from_numpy(clouds(np.random.RandomState(SEED + 50), b,
+                                    NUM_POINT))
+        y = torch.from_numpy(clouds(np.random.RandomState(SEED + 51), b,
+                                    NUM_POINT))
+        choices = {}
+        for run, (replay, points) in enumerate(((False, slice(None)),
+                                                (True, roll))):
+            tr, lg = cli_train.build_trainer(parse(sp_step_argv(
+                model, data, os.path.join(out_dir, f"{model}_{run}"), b,
+                ranks=False)))
+            if model == "model" and run == 0:
+                with torch.no_grad():
+                    emb = tr.model.encoder(x.to(tr.device), train=False)
+            store = dict(choices, differed=0, made=0) if replay else choices
+            for fn in counters.values():
+                fn.launches = 0
+            emd_inputs = {}
+            emd = (plain_emd_on_the_card(emd_inputs) if model == "model_emd"
+                   else contextlib.nullcontext())
+            with sp_choices(store, replay=replay, points=points), emd:
+                m = tr.train_step(x[:, points].contiguous().to(tr.device))
+            torch.cuda.synchronize()
+            (floor if replay else single)[model] = dp_step_result(
+                torch, tr, m, counters, (store["differed"], store["made"]))
+            if emd_inputs and not replay:
+                # The EMD's own f32 floor: the loss in float64 on the
+                # step's inputs.
+                x1, x2 = emd_inputs["xyz"]
+                single[model]["loss_f64"] = float(em.emd_forward_plain(
+                    x1.double(), x2.double())[0].mean())
+            tr.close()
+            lg.close()
+        if model == "model_emd":
+            tr, lg = cli_train.build_trainer(parse(sp_step_argv(
+                model, data, os.path.join(out_dir, "k6"), b, ranks=False)))
+            k6_loss = float(tr.train_step(x.to(tr.device))["loss"])
+            tr.close()
+            lg.close()
+        if model in SP_STEP_MODELS:
+            _, i1, _, i2 = ch.nn_distance_cuda(y.cuda(), x.cuda())
+            single[model]["nn"] = (i2.cpu(), i1.cpu())
+        if model == "model":
+            single[model]["eval"] = emb.cpu()
+        torch.save({"x": x, "y": y, "choices": choices},
+                   os.path.join(out_dir, f"{model}_sp_case.pt"))
+
+    t0 = time.perf_counter()
+    mesh.launch(sp_rank_steps, devices=cards, backend="gloo",
+                args=(out_dir, data))
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"sp_rank{r}.pt"))
+             for r in range(SP_RANKS)]
+    chamfer_calls = {"model_cpu": 0, "model_hierachy": 2}
+    for model in SP_STEP_MODELS + SP_FAMILIES:
+        one, fl = single[model], floor[model]
+        got = [r[model] for r in ranks]
+        b = BATCH if model in SP_STEP_MODELS else SP_FAMILY_BATCH
+        calls = chamfer_calls.get(model, 1)
+        want = {"fused_head_fwd": 1, "fused_head_bwd": 1,
+                "nn_distance": calls,
+                "nn_distance_grad": 0 if model == "model_emd" else calls,
+                "emd_forward": 0, "fused_encoder_eval": 0}
+        for r, g in enumerate(got):
+            require(g["launches"] == want,
+                    f"{model} SP step rank {r} launches {g['launches']}, the "
+                    f"path needs {want}")
+        require(all(torch.equal(t, got[1]["grads"][n])
+                    for n, t in got[0]["grads"].items())
+                and all(torch.equal(t, got[1]["buffers"][n])
+                        for n, t in got[0]["buffers"].items()),
+                f"{model} SP step: the ranks' gradients or BN statistics "
+                f"differ after the sum")
+        # The loss at rtol 1e-5, raised to twice the rolled points' own
+        # gap where that is larger, and for model_emd to twice the card
+        # alone's f32 EMD's distance to its float64 value on the same
+        # inputs (the ranks sum shorter column sums: the 10 annealing
+        # levels amplify their rounding past the rolled points' gap).
+        loss, want_loss = (sum(g["scalars"]["loss"] for g in got),
+                           one["scalars"]["loss"])
+        loss_floor = max(abs(fl["scalars"]["loss"] - want_loss),
+                         abs(one.get("loss_f64", want_loss) - want_loss))
+        require(abs(loss - want_loss) <= max(1e-5 * abs(want_loss),
+                                             2 * loss_floor),
+                f"{model} SP loss {loss} vs the card alone {want_loss} "
+                f"(rtol 1e-5; the rolled points read "
+                f"{fl['scalars']['loss']})")
+        floored = 0
+        for n, want_b in one["buffers"].items():
+            want_b = want_b.numpy()
+            err = np.abs(got[0]["buffers"][n].numpy() - want_b)
+            bound_ = 1e-6 + 1e-4 * np.abs(want_b)
+            reorder = float(np.abs(fl["buffers"][n].numpy() - want_b).max())
+            floored += int((err > bound_).sum())
+            require(bool(np.all(err <= np.maximum(bound_, 2 * reorder))),
+                    f"{model} SP BN statistic {n}: max abs err "
+                    f"{float(err.max()):.3e} past rtol 1e-4, atol 1e-6 and "
+                    f"twice the rolled batch's largest gap {reorder:.3e}")
+        sp_leaf, sp_whole, sp_norm = dp_gaps(got[0]["grads"], one["grads"])
+        fl_leaf, fl_whole, fl_norm = dp_gaps(fl["grads"], one["grads"])
+        require(sp_whole <= max(1e-5, 2 * fl_whole)
+                and sp_norm <= max(1e-5, 2 * fl_norm),
+                f"{model} SP gradients: {sp_whole:.3e} of the largest "
+                f"element, relative norm {sp_norm:.3e}; the rolled points "
+                f"on one card {fl_whole:.3e}, {fl_norm:.3e}")
+        extra = ""
+        if model in SP_STEP_MODELS:
+            i1 = torch.cat([g["nn"][0] for g in got], dim=1)
+            require(torch.equal(i1, one["nn"][0])
+                    and all(torch.equal(g["nn"][1], one["nn"][1])
+                            for g in got),
+                    f"{model}: the combined Chamfer indices differ from "
+                    f"K1's on the card alone")
+            extra = "; combined Chamfer indices equal to K1's on one card"
+        if model == "model_emd":
+            # The SP EMD against the EMD the card trains on (K6): within
+            # twice the larger of K6's gap to the dense form and the dense
+            # form's own floor.
+            k6_gap = 2 * max(abs(k6_loss - want_loss), loss_floor)
+            require(abs(loss - k6_loss) <= k6_gap,
+                    f"model_emd SP loss {loss} vs the card alone's step on "
+                    f"K6 {k6_loss}: past {k6_gap:.3e}")
+            extra += (f"; the card alone's step on K6 reads loss "
+                      f"{k6_loss:.6f}, the SP loss within {k6_gap:.3e} of "
+                      f"it")
+        say("point_parallel", f"{model} f32 step, B={b} N={NUM_POINT}, 2 "
+            f"ranks of {NUM_POINT // SP_RANKS} points vs one card: loss "
+            f"{loss:.6f} vs {want_loss:.6f}, the rolled points "
+            f"{fl['scalars']['loss']:.6f}"
+            + (f", float64 {one['loss_f64']:.6f}" if "loss_f64" in one
+               else "")
+            + f" (held at rtol 1e-5 or twice the floor); BN statistics: "
+            f"{floored} entries past rtol 1e-4, atol 1e-6 (held within twice the rolled batch's gap); gradient "
+            f"gap {sp_whole:.3e} of its largest element, largest leaf gap "
+            f"{sp_leaf:.3e}, relative norm {sp_norm:.3e}; the rolled points "
+            f"on one card (f32 floor): {fl_whole:.3e}, {fl_leaf:.3e}, "
+            f"{fl_norm:.3e}; the ranks' own choices differed at "
+            f"{got[0]['flips'][0]} + {got[1]['flips'][0]} of "
+            f"{got[0]['flips'][1] + got[1]['flips'][1]}; per-rank launches "
+            f"{got[0]['launches']}{extra} ok")
+    embs = [r["model"]["eval"] for r in ranks]
+    require(all(torch.equal(e[0], single["model"]["eval"]) and e[1] == 1
+                for e in embs),
+            f"SP eval embedding vs one card: equal "
+            f"{[torch.equal(e[0], single['model']['eval']) for e in embs]}, "
+            f"K5 launches {[e[1] for e in embs]}")
+    require(ranks[0]["bf16"] == ranks[1]["bf16"],
+            "--point_parallel --bf16_params: the ranks' states differ after "
+            "3 steps")
+    say("point_parallel", f"f32 eval embedding of B={BATCH}, each rank's "
+        f"K5 once on its points and the extrema combined: bit-equal to the "
+        f"card alone's; --point_parallel --bf16_params, 3 steps: the ranks' "
+        f"weights, slots and step bit-equal; the ranks' run took "
+        f"{ranks_s:.1f} s ok")
+    for r, rep in enumerate(ranks):
+        for model, (med, lo, hi, trace, peak) in rep["timing"].items():
+            say("point_parallel", f"rank {r}: {model} bf16 SP step on its "
+                f"{NUM_POINT // SP_RANKS} points of B={BATCH} (2 ranks on "
+                f"one H100 over gloo; host clock to the loss): median "
+                f"{med:.3f} ms, min {lo:.3f}, max {hi:.3f}; traced: {trace}; "
+                f"peak device memory {peak:.1f} MiB")
+
+    # 2. cli.train --point_parallel: 2 bf16 epochs of device input.
+    log_dir = os.path.join(out_dir, "train_log")
+    t0 = time.perf_counter()
+    cli_train.main(train_argv("model", data, log_dir)
+                   + ["--max_epoch", str(TRAIN_EPOCHS), "--point_parallel",
+                      "--data_parallel", str(SP_RANKS)],
+                   devices=cards, backend="gloo",
+                   after=functools.partial(rank_report, out_dir, "train"))
+    train_s = time.perf_counter() - t0
+    reps = []
+    for r in range(SP_RANKS):
+        with open(os.path.join(out_dir, f"train_rank{r}.json")) as f:
+            reps.append(json.load(f))
+    want = path_launches(TRAIN_EPOCHS * (320 // BATCH),
+                         TRAIN_EPOCHS * (64 // BATCH))
+    for r, rep in enumerate(reps):
+        require(rep["sp"] and rep["launches"] == want,
+                f"SP training rank {r}: point-parallel {rep['sp']}, launches "
+                f"{rep['launches']}, the path needs {want}")
+    require(reps[0]["hash"] == reps[1]["hash"],
+            "SP training: the ranks' states differ after 2 epochs")
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    evals = [r["pcloss"] for r in recs if r["split"] == "test"]
+    require(len(evals) == TRAIN_EPOCHS and all(np.isfinite(evals))
+            and evals[-1] < evals[0], f"SP eval pcloss {evals}")
+    say("point_parallel", f"cli.train --point_parallel --data_parallel 2 on "
+        f"cuda:0 twice (gloo), bf16, device input: {TRAIN_EPOCHS} epochs in "
+        f"{train_s:.1f} s (rank start and data loading included); eval "
+        f"pcloss {[round(v, 6) for v in evals]}; the ranks' states "
+        f"bit-equal (sha256 {reps[0]['hash'][:16]}); per-rank launches "
+        f"{reps[0]['launches']} ok")
+
+    # 3. The kernels at the shard shapes, traced in a process of their own
+    # (a fresh profiler: in one run the parent's traces of K4, after
+    # dozens of earlier traces, kept 45 of 50 events in each of 6
+    # attempts).
+    mesh.launch(sp_kernel_rank, devices=["cuda:0"], backend="gloo",
+                args=(out_dir,))
+    with open(os.path.join(out_dir, "kernel_times.json")) as f:
+        for line in json.load(f):
+            say("point_parallel", f"device time per call, median of 50 "
+                f"traced calls, at one rank's shard: {line}")
+    say("point_parallel", f"phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def state_mb(torch, tree) -> float:
@@ -2431,22 +3256,11 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
     # traced.
     tb = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to(dev)
     for model, tr in (("model", trainer), ("model_emd", emd_trainer)):
-
-        def step():
-            tr.train_step(tb)["loss"].item()
-
-        step()
-        host = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            step()
-            host.append(1e3 * (time.perf_counter() - t0))
+        med, lo, hi, trace = step_timing(torch, tr, tb,
+                                         f"chip_smoke.{model}.train_step")
         say("timings", f"{model} train step, bf16, B={BATCH} N={NUM_POINT} "
-            f"(host clock, to the loss on the host): median "
-            f"{statistics.median(host):.3f} ms, min {min(host):.3f}, max "
-            f"{max(host):.3f}")
-        trace = device_trace(torch, step, f"chip_smoke.{model}.train_step",
-                             top=10, own=True)
+            f"(host clock, to the loss on the host): median {med:.3f} ms, "
+            f"min {lo:.3f}, max {hi:.3f}")
         say("timings", f"{model} train step traced: {trace}")
     input_step_timings(torch, trainer)
 
@@ -2764,6 +3578,12 @@ def main() -> int:
             phase = "data_parallel"
             phase_data_parallel(torch, counters, session, weights, data, tmp,
                                 np.random.RandomState(SEED + 20))
+            phase = "master"
+            phase_master(torch, counters, data, tmp,
+                         np.random.RandomState(SEED + 60))
+            phase = "point_parallel"
+            phase_point_parallel(torch, counters, data, tmp,
+                                 np.random.RandomState(SEED + 60))
         smi = nvidia_smi_line()
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAIL in phase {phase}: {type(e).__name__}: {e}",

@@ -18,10 +18,13 @@ written on a background thread unless ``--sync_checkpoints``.
 k local ranks on cards 0..k-1 (NCCL), or k CPU ranks with ``--device cpu``
 (gloo). Unset, it means every visible card, as in the JAX package. Asking
 for more cards than exist raises; nothing falls back to fewer cards or to
-the CPU. Flags whose feature the port does not run yet
-(``--model_parallel`` above 1, ``--point_parallel``, ``--bf16_params``,
-``--bf16_moments``, ``--profile_dir``, ``--compilation_cache_dir``) raise
-NotImplementedError naming their ROADMAP item. A ``--num_point`` that
+the CPU. With ``--point_parallel`` the k ranks split every shape's points
+instead of the batch (``parallel/sp.py``; num_point must divide by k).
+``--bf16_params`` and ``--bf16_moments`` store the matmul parameters and
+their optimizer moments in bfloat16 (``train/master.py``). Flags whose
+feature the port does not run yet (``--model_parallel`` above 1,
+``--profile_dir``, ``--compilation_cache_dir``) raise NotImplementedError
+naming their ROADMAP item. A ``--num_point`` that
 the model's decoder cannot emit fails with ValueError before any data
 loads. SIGTERM or SIGINT saves a resumable checkpoint at the next step
 boundary and ends the run (under data parallelism where the ranks agree:
@@ -90,16 +93,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_parallel", type=int, default=d.model_parallel,
                    help="Not ported yet above 1")
     p.add_argument("--point_parallel", action="store_true",
-                   default=d.point_parallel, help="Not ported yet")
+                   default=d.point_parallel,
+                   help="Shard the batch's POINT axis over the data axis "
+                        "(parallel/sp.py): the long-N training mode -- "
+                        "each rank runs the encoder and the losses on its "
+                        "points and combines them over the ranks. "
+                        "num_point must divide by the axis size; exclusive "
+                        "with --model_parallel")
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction,
                    default=d.bf16,
                    help="bfloat16 matmuls in the network (default on; "
-                        "--no-bf16 runs f32 everywhere; losses, BN "
-                        "statistics and master weights always f32)")
+                        "--no-bf16 runs f32 everywhere; losses and BN "
+                        "statistics always f32, master weights f32 "
+                        "unless --bf16_params)")
     p.add_argument("--bf16_params", action="store_true",
-                   default=d.bf16_params, help="Not ported yet")
+                   default=d.bf16_params,
+                   help="Store matmul MASTER weights in bf16; f32 Adam "
+                        "updates applied with stochastic rounding "
+                        "(train/master.py; BN parameters and optimizer "
+                        "state stay f32)")
     p.add_argument("--bf16_moments", action="store_true",
-                   default=d.bf16_moments, help="Not ported yet")
+                   default=d.bf16_moments,
+                   help="Store Adam moment slots for matmul params in "
+                        "bf16 (stochastically rounded f32 updates); "
+                        "halves the optimizer state of that class")
     p.add_argument("--profile_dir", default=None, help="Not ported yet")
     p.add_argument("--lr_floor", type=float, default=None,
                    help="Optional LR clamp (the reference intended 1e-5 but "

@@ -3,10 +3,13 @@
 with the same field names and defaults.
 
 ``TrainConfig.validate`` refuses every field this port does not run yet
-(model and point parallelism, bf16 master weights and moments, the
-profiler, the XLA compilation cache), naming the ROADMAP item that brings
-it, instead of ignoring it. ``data_parallel`` k runs k ranks
-(``parallel/mesh.py``; the Trainer checks that it is in a group of k).
+(model parallelism, the profiler, the XLA compilation cache), naming the
+ROADMAP item that brings it, instead of ignoring it. ``data_parallel`` k
+runs k ranks (``parallel/mesh.py``; the Trainer checks that it is in a
+group of k); with ``point_parallel`` the k ranks split every shape's
+points instead of the batch (``parallel/sp.py``). ``bf16_params`` and
+``bf16_moments`` store the matmul parameters and their optimizer moments
+in bfloat16 (``train/master.py``).
 """
 
 from __future__ import annotations
@@ -20,9 +23,6 @@ from typing import Optional
 _NOT_PORTED = (
     ("model_parallel", lambda v: v > 1,
      "model_parallel > 1 (ROADMAP item 11)"),
-    ("point_parallel", bool, "point_parallel (ROADMAP item 11)"),
-    ("bf16_params", bool, "bf16_params (ROADMAP item 12a)"),
-    ("bf16_moments", bool, "bf16_moments (ROADMAP item 12a)"),
     ("profile_dir", lambda v: v is not None,
      "profile_dir (ROADMAP item 14b)"),
     ("compilation_cache_dir", lambda v: v is not None,
@@ -81,8 +81,16 @@ class TrainConfig:
                                     # (train/checkpoint.py:AsyncSaver)
 
     def validate(self) -> "TrainConfig":
-        """Raise NotImplementedError for a field the port does not run
-        yet; return self."""
+        """Raise ValueError for point parallelism with model parallelism
+        (they do not compose, as in the JAX package: the TP decoder's
+        point-sharded output meets the SP losses' replicated prediction),
+        NotImplementedError for a field the port does not run yet; return
+        self."""
+        if self.point_parallel and self.model_parallel > 1:
+            raise ValueError(
+                "--point_parallel does not compose with --model_parallel "
+                "(the TP decoder's point-sharded output conflicts with the "
+                "SP losses' replicated pred seam)")
         for name, _, _ in _NOT_PORTED:
             refuse_unported(name, getattr(self, name))
         return self

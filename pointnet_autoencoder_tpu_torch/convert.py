@@ -10,7 +10,10 @@ variable tree or from its reference-named array archive.
   flax correlates the un-flipped kernel over the dilated input where
   ``F.conv_transpose2d`` (like TF's conv2d_transpose) scatters it; BN
   ``gamma``/``beta`` come from params and ``mean``/``var`` from
-  batch_stats.
+  batch_stats. Leaves of a ``--bf16_params`` run (the ``ml_dtypes``
+  bfloat16 arrays ``np.asarray`` gives) are upcast to f32 exactly, or
+  kept in bf16 with ``keep_bf16`` (the port's ``--bf16_params`` storage,
+  ``train/master.py``).
 - ``from_reference_arrays(npz)``: the flat archive written by the JAX
   package's ``cli.export --format reference_npz``, keyed by the reference
   TF stack's variable names (``conv1/weights`` (1,3,1,64),
@@ -55,8 +58,23 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
-def from_flax_variables(tree: Mapping) -> StateDict:
-    """``{params, batch_stats}`` tree of arrays -> the port's state_dict."""
+def _is_bf16(arr: np.ndarray) -> bool:
+    """An ``ml_dtypes`` bfloat16 array (what ``np.asarray`` gives of a JAX
+    bf16 leaf)."""
+    return arr.dtype.name == "bfloat16"
+
+
+def _bf16_tensor(a: np.ndarray) -> torch.Tensor:
+    """A bfloat16 numpy array as a torch bf16 tensor, bit for bit."""
+    bits = np.ascontiguousarray(a).view(np.int16)
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+
+
+def from_flax_variables(tree: Mapping, keep_bf16: bool = False
+                        ) -> StateDict:
+    """``{params, batch_stats}`` tree of arrays -> the port's state_dict.
+    bf16 leaves are upcast to f32 (exact), or stay bf16 with
+    ``keep_bf16``; every other leaf becomes f32."""
     out: StateDict = {}
 
     def walk(node, path, collection):
@@ -64,21 +82,27 @@ def from_flax_variables(tree: Mapping) -> StateDict:
             for k, v in node.items():
                 walk(v, path + (str(k),), collection)
             return
-        arr = np.asarray(node, dtype=np.float32)
+        raw = np.asarray(node)
+        if keep_bf16 and _is_bf16(raw):
+            put = _bf16_tensor
+            arr = raw
+        else:
+            put = _tensor
+            arr = np.asarray(raw, dtype=np.float32)
         *mods, leaf = path
         if collection == "params" and leaf == "kernel" and mods[-1] == "dense":
             if arr.ndim != 2:
                 raise ValueError(f"{'/'.join(path)}: expected a 2-D dense "
                                  f"kernel, got {arr.shape}")
-            out[".".join(mods + ["weight"])] = _tensor(arr.T)
+            out[".".join(mods + ["weight"])] = put(arr.T)
         elif collection == "params" and leaf == "kernel" and mods[-1] == "convt":
             if arr.ndim != 4:
                 raise ValueError(f"{'/'.join(path)}: expected a 4-D "
                                  f"ConvTranspose kernel, got {arr.shape}")
-            out[".".join(mods + ["weight"])] = _tensor(
+            out[".".join(mods + ["weight"])] = put(
                 arr[::-1, ::-1].transpose(2, 3, 0, 1))
         elif leaf in ("bias", "gamma", "beta", "mean", "var"):
-            out[".".join(path)] = _tensor(arr)
+            out[".".join(path)] = put(arr)
         else:
             raise ValueError(f"no port counterpart for {collection}/"
                              f"{'/'.join(path)}")

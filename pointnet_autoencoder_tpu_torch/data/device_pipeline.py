@@ -101,13 +101,15 @@ def assemble_from(data: Tensor, lengths: Tensor, idxs: Tensor, u: Tensor,
 
 def assemble_batch(data: Tensor, lengths: Tensor, idxs: Tensor,
                    generator: torch.Generator, num_point: int,
-                   rotate: bool, rows: slice = slice(None)) -> Tensor:
+                   rotate: bool, rows: slice = slice(None),
+                   points: slice = slice(None)) -> Tensor:
     """``draw`` then ``assemble_from``: one batch of shapes ``idxs``, or
-    its ``rows``. A data-parallel rank draws the global batch's numbers,
-    as one device does, and assembles its own rows only, so the ranks'
+    its ``rows`` and ``points``. A data-parallel rank draws the global
+    batch's numbers, as one device does, and assembles its own rows only
+    (a point-parallel rank its own points of every row), so the ranks'
     slices concatenated are the one-device batch bit for bit."""
     u, angles = draw(generator, idxs.shape[0], num_point, rotate)
-    return assemble_from(data, lengths, idxs[rows], u[rows],
+    return assemble_from(data, lengths, idxs[rows], u[rows, points],
                          None if angles is None else angles[rows])
 
 

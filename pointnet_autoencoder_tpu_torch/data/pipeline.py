@@ -18,7 +18,8 @@ Data parallelism (``shard=(r, k)``): every rank assembles the global batch
 exactly as one device would (the same seed, order, resampling and
 rotation draws) and keeps rows [r*B/k, (r+1)*B/k); only those are copied
 to its device. The ranks' slices, concatenated, are the one-device batch
-bit for bit.
+bit for bit. Point parallelism (``point_shard=(r, k)``) keeps every row
+and the points [r*N/k, (r+1)*N/k) of each shape instead.
 """
 
 from __future__ import annotations
@@ -49,12 +50,14 @@ class _ProducerError:
 
 class BatchPipeline:
     """Iterable over (B, N, 3) float32 batches on ``device``, or over
-    rank r's (B/k, N, 3) rows of each with ``shard=(r, k)``."""
+    rank r's (B/k, N, 3) rows of each with ``shard=(r, k)``, or its
+    (B, N/k, 3) points of each with ``point_shard=(r, k)``."""
 
     def __init__(self, dataset, batch_size: int, rotate: bool = True,
                  shuffle: bool = True, device: torch.device | str = "cpu",
                  seed: Optional[int] = None,
-                 shard: Tuple[int, int] = (0, 1)):
+                 shard: Tuple[int, int] = (0, 1),
+                 point_shard: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.rotate = rotate
@@ -64,6 +67,9 @@ class BatchPipeline:
         rank, world = shard
         rows = batch_size // world
         self._rows = slice(rank * rows, (rank + 1) * rows)
+        rank, world = point_shard
+        points = dataset.npoints // world
+        self._points = slice(rank * points, (rank + 1) * points)
 
     def __len__(self) -> int:
         return len(self.dataset) // self.batch_size
@@ -76,7 +82,8 @@ class BatchPipeline:
             batch[j] = pts
         if self.rotate:
             batch = rotate_point_cloud(batch, self._rng)
-        host = torch.from_numpy(batch[self._rows])
+        host = torch.from_numpy(np.ascontiguousarray(
+            batch[self._rows, self._points]))
         return host.pin_memory() if self.device.type == "cuda" else host
 
     @staticmethod

@@ -140,7 +140,10 @@ class InferenceSession:
       model: registry name (``available_models()``); raises ValueError
         if its decoder cannot emit ``num_point`` points.
       model_path: reference-named ``.npz``, a serving bundle of the port,
-        a ``.pt`` state_dict or a training checkpoint of the port.
+        a ``.pt`` state_dict or a training checkpoint of the port. A
+        ``--bf16_params`` checkpoint's bf16 weights load into the
+        session's own type (into f32 exactly, as the JAX package's
+        session upcasts them).
       num_point: points per shape the model was trained with.
       batch_size: rows per launch; inputs are padded and split to it.
       bf16: bfloat16 parameters and matmul inputs (BN statistics f32).

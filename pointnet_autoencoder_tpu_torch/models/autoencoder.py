@@ -78,10 +78,25 @@ class PointAutoencoder(nn.Module):
     def set_data_group(self, group) -> None:
         """Give every BatchNorm (the encoder's fused head included) the
         data-parallel ``group`` (``parallel.mesh.DataGroup``, or None):
-        training statistics then cover the global batch."""
+        training statistics then cover the global batch. The points are
+        not split (``set_point_group`` is undone)."""
         for m in self.modules():
             if isinstance(m, BatchNorm):
                 m.group = group
+        self.encoder.point_group = None
+
+    def set_point_group(self, group) -> None:
+        """Point parallelism: the ranks of ``group`` (a
+        ``parallel.mesh.DataGroup``, or None) each feed their share of
+        every shape's points. The encoder's BatchNorms (its fused head
+        included) take the group, so their statistics cover every point,
+        and the encoder combines its max over the ranks; the neck and the
+        decoder see the whole batch on every rank and take none."""
+        self.set_data_group(None)
+        for m in self.encoder.modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
+        self.encoder.point_group = group
 
     def forward(self, points: Tensor, train: bool = False,
                 bn_momentum: float = 0.9,

@@ -11,6 +11,11 @@ points.
   (the reference's default, ``moment_stats=False``) and conv5 as the fused
   head the TPU takes (``FusedPointMLPMax`` with ``impl == "pallas"``):
   ``head_stats``, the BN moving update, then ``fused_dense_bn_relu_max``.
+- Under point parallelism (``point_group``, set by
+  ``PointAutoencoder.set_point_group``) the points are this rank's share:
+  the head's max and the eval extrema are combined over the ranks
+  (``parallel/sp.py``), so the feature is the whole cloud's on every
+  rank.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from torch import nn
 
 from pointnet_autoencoder_tpu_torch.nn.layers import PointMLP
 from pointnet_autoencoder_tpu_torch.ops import fused_encoder, fused_head
+from pointnet_autoencoder_tpu_torch.parallel import sp
 
 Tensor = torch.Tensor
 
@@ -39,6 +45,8 @@ class PointNetEncoder(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
+        # A parallel.mesh.DataGroup whose ranks split the points, or None.
+        self.point_group = None
         c = 3
         for i, f in enumerate(self.WIDTHS):
             self.add_module(f"conv{i + 1}", PointMLP(
@@ -63,7 +71,12 @@ class PointNetEncoder(nn.Module):
         if train:
             return self._train_forward(points, bn_momentum)
         chain = folded if folded is not None else self.fold()
-        return fused_encoder.fused_encoder_eval(points, chain).to(self.dtype)
+        if self.point_group is not None:
+            out = sp.encoder_eval_point_sharded(points, chain,
+                                                self.point_group)
+        else:
+            out = fused_encoder.fused_encoder_eval(points, chain)
+        return out.to(self.dtype)
 
     def _train_forward(self, points: Tensor, bn_momentum: float) -> Tensor:
         x = points
@@ -80,4 +93,6 @@ class PointNetEncoder(nn.Module):
         out = fused_head.fused_dense_bn_relu_max(
             xc, kc, bc, head.bn.gamma, head.bn.beta, mean, var,
             eps=head.bn.epsilon)
+        if self.point_group is not None:
+            out = sp.max_point_sharded(out, self.point_group)
         return out.to(x.dtype)

@@ -27,7 +27,7 @@ multiR = N // M or 1). Per level:
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -59,21 +59,33 @@ def _capacities(n: int, m: int) -> Tuple[float, float]:
     return float(m // n), 1.0
 
 
-def _level_weights(k: Tensor, remain_l: Tensor, remain_r: Tensor):
+ColumnReduce = Optional[Callable[[Tensor], Tensor]]
+
+
+def _level_weights(k: Tensor, remain_l: Tensor, remain_r: Tensor,
+                   reduce_columns: ColumnReduce = None):
     """One level's row normalizers and column saturation from K (B, N, M):
-    (ratioL (B, N), ratioR (B, M), the new remainR)."""
+    (ratioL (B, N), ratioR (B, M), the new remainR). ``reduce_columns``,
+    if given, completes the (B, M) column sums over K's rows in place
+    (the point-sharded EMD sums them over the ranks that hold the rows)."""
     suml = 1e-9 + torch.einsum("bnm,bm->bn", k, remain_r)
     ratio_l = remain_l / suml
-    sumr = torch.einsum("bnm,bn->bm", k, ratio_l) * remain_r
+    colsum = torch.einsum("bnm,bn->bm", k, ratio_l)
+    if reduce_columns is not None:
+        reduce_columns(colsum)
+    sumr = colsum * remain_r
     ratio_r = torch.clamp_max(remain_r / (sumr + 1e-9), 1.0) * remain_r
     return ratio_l, ratio_r, torch.clamp_min(remain_r - sumr, 0.0)
 
 
-def _init_remains(xyz1: Tensor, xyz2: Tensor) -> Tuple[Tensor, Tensor]:
-    """Initial (remainL (B, N), remainR (B, M)): the capacities."""
+def _init_remains(xyz1: Tensor, xyz2: Tensor,
+                  n_total: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """Initial (remainL (B, N), remainR (B, M)): the capacities, from
+    ``n_total`` points in xyz1's cloud (default its own N; the
+    point-sharded EMD holds N/k rows of an N-point cloud)."""
     b, n, _ = xyz1.shape
     m = xyz2.shape[1]
-    multi_l, multi_r = _capacities(n, m)
+    multi_l, multi_r = _capacities(n if n_total is None else n_total, m)
     return xyz1.new_full((b, n), multi_l), xyz1.new_full((b, m), multi_r)
 
 
@@ -137,21 +149,29 @@ def match_cost(xyz1: Tensor, xyz2: Tensor, match: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def emd_forward_plain(xyz1: Tensor, xyz2: Tensor) -> Forward:
+def emd_forward_plain(xyz1: Tensor, xyz2: Tensor,
+                      reduce_columns: ColumnReduce = None,
+                      n_total: Optional[int] = None) -> Forward:
     """Plain PyTorch version of the kernel, the dense scan of
     ``_emd_forward`` (emd.py:177-225): (B,N,3), (B,M,3) f32 -> cost (B,),
     grad1 (B,N,3), grad2 (B,M,3) f32, the gradients of the cost with the
-    plan held constant. Keeps about six (B, N, M) f32 buffers live."""
+    plan held constant. Keeps about six (B, N, M) f32 buffers live.
+
+    ``reduce_columns`` and ``n_total`` make it the per-rank body of the
+    point-sharded EMD (``parallel/sp.py``): xyz1 is then a rank's rows of
+    an ``n_total``-point cloud, each level's column sums are completed
+    over the ranks, and cost and grad2 are this rank's rows' shares."""
     d2 = sqdist_matrix(xyz1, xyz2)
     d = torch.sqrt(d2)
     rinv = torch.rsqrt(torch.clamp_min(d2, 1e-20))
-    remain_l, remain_r = _init_remains(xyz1, xyz2)
+    remain_l, remain_r = _init_remains(xyz1, xyz2, n_total)
     cost = xyz1.new_zeros(xyz1.shape[0])
     grad1 = torch.zeros_like(xyz1)
     grad2 = torch.zeros_like(xyz2)
     for level in _LEVELS:
         k = torch.exp(level * d2)
-        ratio_l, ratio_r, remain_r = _level_weights(k, remain_l, remain_r)
+        ratio_l, ratio_r, remain_r = _level_weights(k, remain_l, remain_r,
+                                                    reduce_columns)
         w = k * ratio_l[:, :, None] * ratio_r[:, None, :]
         remain_l = torch.clamp_min(remain_l - w.sum(dim=2), 0.0)
         cost = cost + torch.einsum("bnm,bnm->b", w, d)

@@ -12,7 +12,9 @@ port inserts the collectives by hand:
   the group with ``DataGroup.all_reduce_mean``, a differentiable all-reduce,
   so the statistics and their gradients are the global batch's;
 - after ``backward`` one flat all-reduce averages every gradient
-  (``DataGroup.average_gradients``), before the optimizer steps;
+  (``DataGroup.average_gradients``; under point parallelism, where each
+  rank's loss is its share of the global loss, it sums them:
+  ``sum_gradients``), before the optimizer steps;
 - metrics and the preemption flag ride one all-reduce where the host
   waits anyway (``train/loop.py``).
 
@@ -173,12 +175,26 @@ class DataGroup:
         mean loss, so the mean of the ranks' gradients is the gradient of
         the global batch's mean loss. The ranks run one graph, so the same
         parameters have gradients on every rank."""
+        self._reduce_gradients(params, divide=True)
+
+    def sum_gradients(self, params) -> None:
+        """Replace every ``.grad`` of ``params`` by its sum over the ranks,
+        in one flat all-reduce: under point parallelism each rank's loss is
+        its share of the global loss (``parallel/sp.py``)."""
+        self._reduce_gradients(params, divide=False)
+
+    def _reduce_gradients(self, params, divide: bool) -> None:
+        """The gradients are reduced in f32 whatever their dtype: bf16
+        gradients (of bf16 master weights) are upcast exactly, summed (and
+        scaled) in f32, and each result is rounded back to its gradient's
+        dtype to nearest even, the rounding of ``Tensor.copy_``."""
         grads = [p.grad for p in params if p.grad is not None]
         if not grads:
             return
-        flat = torch.cat([g.reshape(-1) for g in grads])
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
-        flat.div_(self.world_size)
+        if divide:
+            flat.div_(self.world_size)
         offset = 0
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))

@@ -40,13 +40,26 @@ one device or as one rank of a data-parallel group:
   where the host waits anyway: at the end of the epoch with device input,
   at the next log line (every ``log_every`` steps) with host input, and
   at the end of eval. No step waits for it.
+- Point parallelism (``point_parallel`` in a group of k > 1 ranks): every
+  rank draws the whole global batch and keeps its N/k points of every
+  shape; the encoder combines over the ranks, the decoder runs on every
+  rank (cuDNN deterministic within each step, so that every rank's
+  prediction is the same bits; the setting outside the step is left as
+  it was), and the point-sharded losses of ``parallel/sp.py`` give
+  each rank its share of the loss. The gradients and the logged metrics
+  are then summed over the ranks instead of averaged. At k = 1 (or
+  without a group) the plain step runs.
+- bf16 master weights and moments (``bf16_params``, ``bf16_moments``):
+  the matmul parameters, or their optimizer moments, are stored in
+  bfloat16 and the optimizer is ``train/master.MasterOptimizer`` (f32
+  arithmetic, stochastic rounding into the bf16 leaves).
 
-Not ported yet (ROADMAP queue 1): model and point parallelism and bf16
-master weights and moments.
+Not ported yet (ROADMAP queue 1): model parallelism.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import time
@@ -65,11 +78,16 @@ from pointnet_autoencoder_tpu_torch.data.pipeline import BatchPipeline
 from pointnet_autoencoder_tpu_torch.data.shapenet_part import PartDataset
 from pointnet_autoencoder_tpu_torch.device import resolve_device
 from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
+from pointnet_autoencoder_tpu_torch.parallel import sp
 from pointnet_autoencoder_tpu_torch.parallel.mesh import (
     DataGroup,
     check_batch_divisible,
 )
-from pointnet_autoencoder_tpu_torch.train import checkpoint, schedules
+from pointnet_autoencoder_tpu_torch.train import (
+    checkpoint,
+    master,
+    schedules,
+)
 from pointnet_autoencoder_tpu_torch.train.logging import (
     Logger,
     NullLogger,
@@ -78,6 +96,18 @@ from pointnet_autoencoder_tpu_torch.train.logging import (
 from pointnet_autoencoder_tpu_torch.train.state import TrainState, make_optimizer
 
 Metrics = Dict[str, object]  # scalar tensors on the device, or floats
+
+
+@contextlib.contextmanager
+def cudnn_deterministic() -> Iterator[None]:
+    """cuDNN's deterministic algorithms within the block; the previous
+    setting is restored after it."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 def fetch_metric_windows(pending: List[Metrics], windows: List[Tuple[int, int]]
@@ -101,8 +131,9 @@ def fetch_metric_windows(pending: List[Metrics], windows: List[Tuple[int, int]]
 class Trainer:
     """End-to-end training on one device, or as this process's rank of a
     data-parallel group (the default process group, when one is
-    initialized). Datasets may be injected (tests, custom data); otherwise
-    they are built from config.data_path.
+    initialized), or of a point-parallel one (``config.point_parallel``).
+    Datasets may be injected (tests, custom data); otherwise they are
+    built from config.data_path.
 
     device: ``"cuda"`` (default; raises without a card) or ``"cpu"``,
     which runs the kernels' plain PyTorch versions. ``config.data_parallel``
@@ -133,11 +164,28 @@ class Trainer:
                 f"(cli.train --data_parallel, parallel.mesh.launch or "
                 f"torchrun); this process is in "
                 f"{'none' if self.group is None else f'one of {world}'}")
-        check_batch_divisible(config.batch_size, world)
         self.rank = 0 if self.group is None else self.group.rank
-        rows = config.batch_size // world
-        # This rank's rows of every global batch.
-        self._rows = slice(self.rank * rows, (self.rank + 1) * rows)
+        # Whether the ranks split the points (the batch otherwise).
+        self.sp_active = config.point_parallel and world > 1
+        if self.sp_active:
+            # This rank's points of every shape, of every row.
+            self._rows = slice(None)
+            self._points = sp.point_slice(config.num_point, self.rank, world)
+            self.loss_fn = sp.sp_loss_fn(config.model, self.group)
+        else:
+            check_batch_divisible(config.batch_size, world)
+            rows = config.batch_size // world
+            # This rank's rows of every global batch.
+            self._rows = slice(self.rank * rows, (self.rank + 1) * rows)
+            self._points = slice(None)
+            self.loss_fn = self.spec.loss_fn
+        # The decoder runs on every point-parallel rank and must give each
+        # the same prediction: cuDNN's transposed convolutions (the upconv
+        # decoders) otherwise may pick algorithms that add in arrival
+        # order. Only the steps take the setting.
+        self._replicated = (cudnn_deterministic if self.sp_active
+                            and self.device.type == "cuda"
+                            else contextlib.nullcontext)
         self._owns_logger = logger is None
         if logger is None:
             logger = Logger(config.log_dir) if self.rank == 0 else NullLogger()
@@ -169,15 +217,16 @@ class Trainer:
                 self.eval_device.num_shapes, config.batch_size,
                 shuffle=False, seed=config.seed + 1, device=self.device)
         elif self.input_mode == "host":
-            shard = (self.rank, world)
+            shard = dict(point_shard=(self.rank, world)) if self.sp_active \
+                else dict(shard=(self.rank, world))
             self.train_pipe = BatchPipeline(
                 self.train_dataset, config.batch_size,
                 rotate=not config.no_rotation, shuffle=True,
-                device=self.device, seed=config.seed, shard=shard)
+                device=self.device, seed=config.seed, **shard)
             self.eval_pipe = BatchPipeline(
                 self.test_dataset, config.batch_size, rotate=False,
                 shuffle=False, device=self.device, seed=config.seed,
-                shard=shard)
+                **shard)
         else:
             raise ValueError(f"input_mode must be 'device' or 'host', got "
                              f"{self.input_mode!r}")
@@ -189,12 +238,23 @@ class Trainer:
             config.num_point, dtype=dtype,
             generator=torch.Generator().manual_seed(config.seed))
         model.to(self.device)
-        model.set_data_group(self.group)
+        if self.sp_active:
+            model.set_point_group(self.group)
+        else:
+            model.set_data_group(self.group)
+        if config.bf16_params:
+            master.cast_master_bf16(model)
+        if config.bf16_params or config.bf16_moments:
+            optimizer = master.MasterOptimizer(
+                model.named_parameters(), config.optimizer, config.momentum,
+                bf16_moments=config.bf16_moments)
+        else:
+            optimizer = make_optimizer(config.optimizer, model.parameters(),
+                                       config.momentum)
         self.bn_schedule = schedules.bn_momentum_schedule(
             config.batch_size, config.decay_step)
         self.state = TrainState(
-            model, make_optimizer(config.optimizer, model.parameters(),
-                                  config.momentum),
+            model, optimizer,
             schedules.learning_rate_schedule(
                 config.learning_rate, config.decay_rate, config.batch_size,
                 config.decay_step, floor=config.lr_floor))
@@ -234,12 +294,15 @@ class Trainer:
         st = self.state
         bn_momentum = self.bn_schedule(st.step)
         lr = st.set_lr()
-        pred, end_points = st.model(batch, train=True,
-                                    bn_momentum=bn_momentum)
-        loss, metrics = self.spec.loss_fn(pred, batch, end_points)
-        st.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.group is not None:
+        with self._replicated():
+            pred, end_points = st.model(batch, train=True,
+                                        bn_momentum=bn_momentum)
+            loss, metrics = self.loss_fn(pred, batch, end_points)
+            st.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if self.sp_active:
+            self.group.sum_gradients(st.model.parameters())
+        elif self.group is not None:
             self.group.average_gradients(st.model.parameters())
         st.optimizer.step()
         st.step += 1
@@ -251,8 +314,9 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: torch.Tensor) -> Metrics:
-        pred, end_points = self.state.model(batch, train=False)
-        loss, metrics = self.spec.loss_fn(pred, batch, end_points)
+        with self._replicated():
+            pred, end_points = self.state.model(batch, train=False)
+            loss, metrics = self.loss_fn(pred, batch, end_points)
         out: Metrics = dict(metrics)
         out["loss"] = loss
         return out
@@ -284,7 +348,8 @@ class Trainer:
         parallelism each step's tensor metrics are first averaged over the
         ranks (equal shards: the global batch's means) in one all-reduce,
         which also carries this rank's stop flag: if any rank was
-        signalled, all agree to stop."""
+        signalled, all agree to stop. Under point parallelism they are
+        summed (each rank's are its shares)."""
         if self.group is not None:
             keys = sorted(k for k, v in pending[0].items()
                           if torch.is_tensor(v))
@@ -295,7 +360,9 @@ class Trainer:
             self.group.sum_(buf)
             if buf[-1].item() > 0:
                 self._stop_agreed = True
-            rows = (buf[:-1] / self.group.world_size).view(rows.shape)
+            rows = buf[:-1].view(rows.shape)
+            if not self.sp_active:
+                rows = rows / self.group.world_size
             pending = [dict(m, **dict(zip(keys, row)))
                        for m, row in zip(pending, rows)]
         return fetch_metric_windows(pending, windows)
@@ -431,7 +498,8 @@ class Trainer:
         for idxs in pipe.epoch():
             yield assemble_batch(data.data, data.lengths, idxs,
                                  pipe.generator, self.config.num_point,
-                                 rotate, rows=self._rows)
+                                 rotate, rows=self._rows,
+                                 points=self._points)
 
     def _train_epoch_device(self, start_step: int, num_batches: int) -> int:
         """Device-input epoch: each batch is built on the device, and the

@@ -40,7 +40,8 @@ def test_every_module_is_listed():
                  "csrc.build", "device", "config", "data.shapenet_part",
                  "data.synthetic", "data.pipeline", "train.schedules",
                  "train.state", "train.checkpoint", "train.logging",
-                 "train.loop", "parallel", "parallel.mesh"):
+                 "train.loop", "train.master", "parallel", "parallel.mesh",
+                 "parallel.sp"):
         assert f"pointnet_autoencoder_tpu_torch.{name}" in mods
 
 

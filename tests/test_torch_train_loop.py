@@ -22,8 +22,8 @@ from pointnet_autoencoder_tpu_torch.config import TrainConfig
 from pointnet_autoencoder_tpu_torch.data import shapenet_part, synthetic
 from pointnet_autoencoder_tpu_torch.data.pipeline import BatchPipeline
 from pointnet_autoencoder_tpu_torch.inference import InferenceSession
-from pointnet_autoencoder_tpu_torch.train import checkpoint
-from pointnet_autoencoder_tpu_torch.train.loop import Trainer
+from pointnet_autoencoder_tpu_torch.train import checkpoint, master
+from pointnet_autoencoder_tpu_torch.train.loop import Trainer, cudnn_deterministic
 
 torch.set_num_threads(2)
 
@@ -176,18 +176,55 @@ def test_parser_has_the_reference_flags_and_device():
     ("point_parallel", True), ("bf16_params", True), ("bf16_moments", True),
     ("profile_dir", "/nonexistent/prof"),
     ("compilation_cache_dir", "/nonexistent/cache")])
-def test_config_refuses_what_is_not_ported(field, value, tmp_path):
-    if field == "data_parallel":
+def test_config_refuses_what_is_not_ported(field, value, tmp_path,
+                                           fixture_root):
+    if field in ("data_parallel", "point_parallel"):
         # Ported: the config passes, and a Trainer outside a process
         # group of 2 ranks raises naming it.
-        cfg = TrainConfig(data_parallel=value, log_dir=str(tmp_path / "log"),
+        cfg = TrainConfig(**dict({field: value}, data_parallel=2),
+                          log_dir=str(tmp_path / "log"),
                           data_path=str(tmp_path / "nowhere")).validate()
         with pytest.raises(ValueError, match="process group of 2 ranks"):
             Trainer(cfg, device="cpu")
+    elif field in ("bf16_params", "bf16_moments"):
+        # Ported: the flag builds the port's optimizer on the CPU, with
+        # the matmul parameters (or their moments) in bf16.
+        cfg = TrainConfig(**{field: value}, data_path=fixture_root,
+                          category="Chair", num_point=NUM_POINT,
+                          batch_size=BATCH, log_dir=str(tmp_path / "log"),
+                          bf16=False).validate()
+        trainer = Trainer(cfg, device="cpu")
+        opt = trainer.state.optimizer
+        assert isinstance(opt, master.MasterOptimizer)
+        weight = trainer.model.encoder.conv1.dense.weight
+        slot = opt.slots["encoder.conv1.dense.weight"]["exp_avg"]
+        assert (weight.dtype, slot.dtype) == (
+            (torch.bfloat16, torch.float32) if field == "bf16_params"
+            else (torch.float32, torch.bfloat16))
+        assert trainer.model.encoder.conv1.bn.gamma.dtype == torch.float32
+        trainer.close()
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrainConfig(**{field: value}).validate()
     TrainConfig(data_parallel=1).validate()
+
+
+@pytest.mark.parametrize("before", [False, True])
+def test_cudnn_deterministic_is_scoped(before):
+    """The point-parallel step's cuDNN setting holds within its block only,
+    an exception included: the process's own setting comes back."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = before
+    try:
+        with cudnn_deterministic():
+            assert torch.backends.cudnn.deterministic
+        assert torch.backends.cudnn.deterministic == before
+        with pytest.raises(KeyError):
+            with cudnn_deterministic():
+                raise KeyError("step failed")
+        assert torch.backends.cudnn.deterministic == before
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 def test_trainer_defaults_to_the_card(fixture_root, tmp_path):

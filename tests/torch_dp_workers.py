@@ -1,4 +1,6 @@
-"""Rank bodies of the port's data-parallel tests (tests/test_torch_dp_*.py).
+"""Rank bodies of the port's data- and point-parallel tests
+(tests/test_torch_dp_*.py, tests/test_torch_parallel.py,
+tests/test_torch_sp*.py).
 
 Each function runs in a process that ``parallel.mesh.launch`` spawned, as
 ``fn(device, *args)`` inside a gloo group, so this module imports neither
@@ -263,3 +265,191 @@ def _preempted_run(device, rank, config_json, signal_step):
     again.close()
     return {"stopped": stopped, "resumed_at": resumed_at,
             "resumed": _rank_state(again)}
+
+
+# -- point parallelism --------------------------------------------------------
+
+
+def sp_ops_rank(device, out_dir, cases):
+    """The point-sharded ops of ``parallel/sp.py`` on this rank's points of
+    each case (numpy arrays): the Chamfer forward and its loss's
+    gradients, the tie case, the EMD cost and its loss's gradients, the
+    conv5 head's combined max with the gradients of sum(feat * g) / k, and the eval encoder's combined embedding. Saves
+    each rank's outputs and its gradient shares."""
+    from pointnet_autoencoder_tpu_torch.parallel import sp
+
+    group, rank, world = _setup(device)
+    out = {}
+
+    def local(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            a[:, sp.point_slice(a.shape[1], rank, world)]))
+
+    for name in ("chamfer", "tie"):
+        x, y = cases[name]
+        out[name] = [t.clone() for t in sp.nn_distance_point_sharded(
+            local(x), torch.from_numpy(y), group)]
+    x, y = cases["chamfer"]
+    xl = local(x).requires_grad_(True)
+    yt = torch.from_numpy(y).requires_grad_(True)
+    share = sp.chamfer_loss_point_sharded(xl, yt, group)
+    share.backward()
+    out["chamfer_loss"] = (share.detach(), xl.grad, yt.grad)
+    x, y = cases["emd"]
+    xl = local(x).requires_grad_(True)
+    yt = torch.from_numpy(y).requires_grad_(True)
+    cost = sp.emd_cost_point_sharded(xl, yt, group)
+    loss = sp.emd_loss_point_sharded(yt, xl, group)
+    loss.backward()
+    out["emd"] = (cost.detach(), loss.detach(), xl.grad, yt.grad)
+    hx, hw, hb, gamma, beta, mean, var, g = (
+        torch.from_numpy(a) for a in cases["head"])
+    xl = local(hx.numpy()).requires_grad_(True)
+    params = [t.clone().requires_grad_(True) for t in (hw, hb, gamma, beta)]
+    feat = sp.max_point_sharded(fh.fused_dense_bn_relu_max(
+        xl, *params, mean, var), group)
+    ((feat * g).sum() / world).backward()
+    out["head_grad"] = (feat.detach(), xl.grad, [p.grad for p in params])
+    state, points = cases["eval"]
+    model = get_model_spec("model").make(points.shape[1])
+    model.load_state_dict(state)
+    with torch.no_grad():
+        out["eval"] = sp.encoder_eval_point_sharded(
+            local(points), model.encoder.fold(), group)
+    _save(out_dir, rank, out)
+
+
+def sp_step(model_name: str, num_point: int, state_dict, batch, momentum,
+            group=None, choices=None, points=slice(None)):
+    """One point-sharded train step's forward, loss, backward and gradient
+    sum of ``model_name`` from ``state_dict`` on this rank's points of
+    ``batch``, as the Trainer runs it; without a group the plain step on
+    ``batch[:, points]`` (a slice or an index tensor). With ``choices``
+    the one-device step's (``step``) are replayed (``replayed_choices``).
+    Returns the loss and metrics (summed over the
+    ranks), every gradient and the new BN statistics."""
+    from pointnet_autoencoder_tpu_torch.parallel import sp
+
+    spec = get_model_spec(model_name)
+    model = spec.make(num_point)
+    model.load_state_dict(state_dict)
+    loss_fn = spec.loss_fn
+    if group is not None:
+        points = sp.point_slice(batch.shape[1], group.rank, group.world_size)
+        model.set_point_group(group)
+        loss_fn = sp.sp_loss_fn(model_name, group)
+    x = torch.from_numpy(np.ascontiguousarray(batch[:, points]))
+    replay = contextlib.nullcontext() if choices is None else \
+        replayed_choices(choices, batch.shape[1], points,
+                         label_first=group is not None)
+    with replay:
+        pred, end_points = model(x, train=True, bn_momentum=momentum)
+        loss, metrics = loss_fn(pred, x, end_points)
+        loss.backward()
+    scalars = {"loss": loss.detach(), **{k: v.detach()
+                                          for k, v in metrics.items()}}
+    names = sorted(scalars)
+    values = torch.stack([scalars[k].float() for k in names])
+    if group is not None:
+        group.sum_gradients(model.parameters())
+        values = group.sum_(values)
+    return {"scalars": dict(zip(names, values.tolist())),
+            "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
+            "buffers": {n: b.clone() for n, b in model.named_buffers()}}
+
+
+@contextlib.contextmanager
+def replayed_choices(store: dict, num_points: int, points,
+                     label_first: bool):
+    """Within the block a step takes the one-device step's discrete
+    choices that ``shared_choices`` recorded into ``store``, at the points
+    ``points`` (a slice or an index tensor) of the input clouds: every
+    ReLU mask, (B, num_points, C) masks taken at ``points``, and the
+    Chamfer argmins. A call ``nn_distance_plain(label, cloud)`` on those
+    points of the label (a point-parallel rank's shard, or the whole
+    label reordered) takes the recorded nearest point of ``cloud`` for
+    each of its label points, and for each point of ``cloud`` the
+    recorded nearest label point if it is among them; elsewhere that
+    distance is +inf, so that the ranks' combine picks the recorded
+    shard. A near-tie falls either way under another summation order,
+    and with the decoders' near-duplicate points at init (the upconv
+    families) many do."""
+    functional, nn_fn = layers.F, ch.nn_distance_plain
+    calls = {"relu": 0, "nn": 0}
+    order = torch.arange(num_points)[points]
+    position = torch.full((num_points,), -1, dtype=torch.long)
+    position[order] = torch.arange(len(order))
+
+    def relu(x):
+        want = store["relu"][calls["relu"]]
+        calls["relu"] += 1
+        if want.dim() == 3 and want.shape[1] == num_points:
+            want = want[:, points]
+        return x * want.to(x.dtype)
+
+    def nn(a, b):
+        # A point-parallel rank calls (label shard, cloud); the plain
+        # step (cloud, label).
+        label, cloud = (a, b) if label_first else (b, a)
+        own = nn_fn(a, b)
+        c = calls["nn"]
+        calls["nn"] += 1
+        to_cloud = store["idx2"][c][:, points].to(torch.int32)
+        local = position[store["idx1"][c].long()]
+        won = local >= 0
+        to_label = torch.where(won, local, 0)
+        near = torch.gather(label, 1, to_label[..., None].expand(-1, -1, 3))
+        sq = (cloud - near) ** 2
+        dist = torch.where(won, (sq[..., 0] + sq[..., 1]) + sq[..., 2],
+                           float("inf"))
+        to_label = to_label.to(torch.int32)
+        if label_first:
+            return own[0], to_cloud, dist, to_label
+        return dist, to_label, own[2], to_cloud
+
+    stand_in = types.SimpleNamespace(**vars(functional))
+    stand_in.relu = relu
+    layers.F = stand_in
+    ch.nn_distance_plain = nn
+    try:
+        yield
+    finally:
+        layers.F = functional
+        ch.nn_distance_plain = nn_fn
+
+
+def sp_step_rank(device, cases_path, out_dir):
+    """``sp_step`` of every case in ``cases_path`` on this rank's points."""
+    group, rank, _ = _setup(device)
+    cases = torch.load(cases_path, weights_only=False)
+    out = {name: sp_step(case["model"], case["num_point"], case["state"],
+                         case["batch"], case["momentum"], group,
+                         case.get("choices"))
+           for name, case in cases.items()}
+    _save(out_dir, rank, out)
+
+
+def bf16_ranks_rank(device, config_jsons, out_dir, steps):
+    """For each config, a Trainer on this rank takes ``steps`` steps on
+    its share of the pipeline's batches; saves the weights and slots."""
+    _, rank, _ = _setup(device)
+    out = []
+    for text in config_jsons:
+        tr = Trainer(TrainConfig.from_json(text), device=device)
+        batches = tr._device_batches(tr.train_pipe, tr.train_device,
+                                     rotate=True)
+        for _ in range(steps):
+            tr.train_step(next(batches))
+        out.append({"sp": tr.sp_active, "state": tr.state.state_dict(),
+                    "batch_shape": tuple(next(batches).shape)})
+        tr.close()
+    _save(out_dir, rank, out)
+
+
+def save_state(out_dir, trainer):
+    """``after`` of a ``cli.train`` run: this rank's step, weights and
+    whether the point-parallel step ran."""
+    _save(out_dir, trainer.rank, {
+        "step": trainer.state.step, "sp": trainer.sp_active,
+        "state": {k: v.clone() for k, v in
+                  trainer.model.state_dict().items()}})
