@@ -8,7 +8,9 @@ line each; any failure exits non-zero before the final line:
 
 1. card:    device name, power limit.
 2. build:   nvcc builds every kernel source in csrc/, all at once; then
-            g++ builds the native renderer (csrc/render_balls.cpp).
+            g++ builds the host sources: the native renderer
+            (csrc/render_balls.cpp) and the data loader's parser
+            (csrc/fastio.cpp).
 3. kernels: each kernel against its plain PyTorch version on the card,
             at the main paths' shapes and at ragged shapes. K1, K2, K3, K4,
             K5 bf16 and K6 are also held bit-equal over two calls; K1
@@ -169,6 +171,52 @@ line each; any failure exits non-zero before the final line:
             pcloss falling. K1, K3, K4 and K5 at one rank's shard shapes:
             device time per call beside each bound. No time here is a
             multi-card time.
+16. fastio: (run after phase 6 writes its fixture) the data loader's
+            native parser (data/fastio.py over csrc/fastio.cpp) on every
+            .pts and .seg file of the 384-shape fixture, bit-equal to its
+            numpy version; both paths refuse a .pts with normals (3
+            columns expected, 6 found), a .seg with a confidence column
+            and a .pts of 5 values, as the JAX package's loader does.
+17. tensor_parallel: 2 ranks sharing the card over gloo, 1 data x 2
+            model: the decoder's fc1 and fc3 split by columns and fc2 by
+            rows (parallel/tp.py). One f32 step of ``model`` and of
+            ``model_emd`` (K6 on each rank) at B=32 through ``cli.train``'s
+            build with ``--model_parallel 2``, against the card alone's
+            step on the same batch, the ranks replaying its choices (a
+            split layer's masks at the rank's columns): loss rtol 1e-4, BN
+            statistics rtol 1e-4 atol 2e-5 (JAX's
+            test_tp_matches_single_device), the gradients gathered over
+            the model group within 1e-5 of the largest element or twice
+            the card alone's f32 floor (its batch rows swapped in pairs);
+            the replicated leaves' gradients bit-equal across the ranks;
+            per-rank launches K3 = K4 = K1 = K2 = 1 (``model_emd``: K6 = 1,
+            no K2). The split leaves of ``model_hierachy`` and
+            ``model_fc_upconv``. ``cli.train --model_parallel 2
+            --bf16_params``, 2 bf16 epochs of device input: per-rank
+            launches the path's, the replicated leaves bit-equal across
+            the model group, eval pcloss falling; each rank's step host
+            median, trace and peak memory. The run's best checkpoint (the
+            one-card format) in a one-card session against
+            ``InferenceSession(model_parallel=2)`` on cuda:0 twice, within
+            rtol and atol 1e-5.
+18. pipeline_parallel: ``PipelinedSession`` on ["cuda:0", "cuda:0"]
+            (a stream per stage), B=32 in 4 microbatches, f32 and bf16:
+            reconstruct, embed and decode against the unpipelined session
+            at rtol 1e-5, atol 1e-6 (JAX's
+            test_pipelined_session_matches_unpipelined); K5 4 launches per
+            batch; one batch's host time pipelined and unpipelined, and a
+            trace of the pipelined one (device busy, idle share).
+19. dp_sp:  4 ranks sharing the card over gloo, 2 data x 2 point
+            (``parallel/sp.py``'s ``make_sp_step_fns(..., batch_axis=
+            DATA_AXIS)``): each rank holds 16 rows and 1024 points of every
+            shape. One f32 step of ``model`` and of ``model_emd`` against
+            the card alone's (its EMD in the dense form, the ranks'
+            per-shard form): loss and pcloss rtol 1e-5, BN statistics rtol
+            1e-4 atol 2e-5 (JAX's
+            test_dp_sp_train_step_matches_single_device); per-rank
+            launches K3 = K4 = K1 = 1, K2 = 1 (``model_emd`` 0), K6 = 0;
+            the combined Chamfer indices equal to K1's on the card alone.
+            No time in phases 17-19 is a multi-card time.
 
 The last three lines are the kernels JSON line, the nvidia-smi line and
 the device JSON line.
@@ -1542,15 +1590,17 @@ DP_STEP_MODELS = ("model", "model_emd")
 
 
 @contextlib.contextmanager
-def dp_choices(store: dict, replay: bool, rows=slice(None)):
+def dp_choices(store: dict, replay: bool, rows=slice(None), cols=None):
     """Within the block, a train step's discrete choices on the card (the
     Chamfer argmins, the head's argmax, every ReLU mask) and K6's outputs
     are recorded into ``store`` (the one-device step on the global batch)
     or, with ``replay``, replayed from it on ``rows`` of that batch (a
     rank's step, or the same batch in another order), counting in
     ``store["differed"]`` and ``store["made"]`` where the replaying run's
-    own choices differed. The kernels run on both sides; a wrapper's
-    launches go to its counter as in ``shared_choices``."""
+    own choices differed. ``cols`` (index, parts): a tensor-parallel
+    rank, whose masks of a split layer are its index's slice of the last
+    axis. The kernels run on both sides; a wrapper's launches go to its
+    counter as in ``shared_choices``."""
     from pointnet_autoencoder_tpu_torch.nn import layers
     from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
     from pointnet_autoencoder_tpu_torch.ops import emd as em
@@ -1570,6 +1620,9 @@ def dp_choices(store: dict, replay: bool, rows=slice(None)):
             store.setdefault(key, []).append(own.cpu())
             return own
         want = store[key][calls][rows].to(own.device, own.dtype)
+        if cols is not None and want.shape[-1] != own.shape[-1]:
+            width = own.shape[-1]
+            want = want[..., cols[0] * width:(cols[0] + 1) * width]
         store["differed"] += int((own != want).sum())
         store["made"] += own.numel()
         return want
@@ -2844,6 +2897,599 @@ def phase_point_parallel(torch, counters, data, tmp, rng):
     say("point_parallel", f"phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase fastio: the native loader
+# ---------------------------------------------------------------------------
+
+
+def phase_fastio(data, tmp):
+    """The data loader's native parser (csrc/fastio.cpp, built with g++)
+    against its numpy version on every file of the fixture, and both
+    against the files the JAX package's loader rejects. See the module
+    docstring, phase 16."""
+    import glob
+
+    from pointnet_autoencoder_tpu_torch.data import fastio
+
+    pts = sorted(glob.glob(os.path.join(data, "*", "points", "*.pts")))
+    segs = sorted(glob.glob(os.path.join(data, "*", "points_label",
+                                         "*.seg")))
+    require(len(pts) == len(segs) == 384, f"{len(pts)} .pts, {len(segs)} "
+            f".seg files in the fixture")
+    times = {}
+    decoded = {}
+    for path_kind, load in (("native", (fastio.load_pts, fastio.load_seg)),
+                            ("numpy", (fastio.load_pts_numpy,
+                                       fastio.load_seg_numpy))):
+        t0 = time.perf_counter()
+        decoded[path_kind] = ([load[0](p) for p in pts],
+                              [load[1](p) for p in segs])
+        times[path_kind] = time.perf_counter() - t0
+    for a, b in zip(decoded["native"][0] + decoded["native"][1],
+                    decoded["numpy"][0] + decoded["numpy"][1]):
+        require(a.dtype == b.dtype and np.array_equal(a, b),
+                "a native decode differs from np.loadtxt's")
+    bad = os.path.join(tmp, "f1")
+    os.makedirs(bad)
+    files = {"normals.pts": ("1 2 3 0.1 0.2 0.3\n4 5 6 0.4 0.5 0.6\n",
+                             "expected 3 columns, found 6"),
+             "twocol.seg": ("1 0.9\n2 0.8\n", "expected 1 columns, found 2"),
+             "ragged.pts": ("1 2 3\n4 5\n", "")}
+    refused = []
+    for name, (text, message) in files.items():
+        path = os.path.join(bad, name)
+        with open(path, "w") as f:
+            f.write(text)
+        kind = "pts" if name.endswith(".pts") else "seg"
+        for load in (getattr(fastio, f"load_{kind}"),
+                     getattr(fastio, f"load_{kind}_numpy")):
+            try:
+                load(path)
+            except ValueError as e:
+                require(message in str(e), f"{load.__name__}({name}): {e}")
+                refused.append(f"{load.__name__}({name})")
+                continue
+            raise RuntimeError(f"{load.__name__} accepted {name}")
+    npts = sum(len(p) for p in decoded["native"][0])
+    say("fastio", f"{len(pts)} .pts and {len(segs)} .seg files "
+        f"({npts} points): native decode bit-equal to np.loadtxt's; host "
+        f"time native {times['native']:.3f} s, numpy {times['numpy']:.3f} s "
+        f"(host clock, this machine's CPU); refused on both paths: "
+        f"{', '.join(refused)} ok")
+
+
+# ---------------------------------------------------------------------------
+# Phase tensor_parallel: the decoder's FC layers over 2 ranks
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+TP_STEP_MODELS = ("model", "model_emd")
+
+
+def tp_rank_steps(device, out_dir, data):
+    """A rank of phase tensor_parallel: for each model of TP_STEP_MODELS,
+    one f32 train step through ``cli.train``'s build (``--model_parallel
+    2``) on the card alone's batch, replaying its choices, with the
+    launches counted, and the gradients and BN statistics gathered over
+    the model group; the split leaves' shapes of `model_hierachy` and
+    `model_fc_upconv`. Writes ``<out_dir>/tp_rank<r>.pt``."""
+    import torch
+
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+    from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+    from pointnet_autoencoder_tpu_torch.parallel import tp
+
+    counters = kernel_counters(ch, fe, fh, em)
+    parse = cli_train.build_parser().parse_args
+    out = {}
+    for model in TP_STEP_MODELS:
+        case = torch.load(os.path.join(out_dir, f"{model}_tp_case.pt"))
+        tr, lg = cli_train.build_trainer(parse(dp_step_argv(
+            model, data, os.path.join(out_dir, f"{model}_tp_log"))
+            + ["--model_parallel", str(TP_RANKS)]))
+        group = tr.model_group
+        require(group is not None and group.world_size == TP_RANKS,
+                "the Trainer holds no model group of 2")
+        store = dict(case["choices"], differed=0, made=0)
+        for fn in counters.values():
+            fn.launches = 0
+        with dp_choices(store, replay=True, cols=(group.rank, TP_RANKS)):
+            m = tr.train_step(case["x"].to(tr.device))
+        torch.cuda.synchronize()
+
+        def full(name, t):
+            dim = tp.spec_for_name(name)
+            return (t if dim is None else tp.gather_tensor(t, dim, group)
+                    ).detach().cpu()
+
+        params = dict(tr.model.named_parameters())
+        out[model] = dict(
+            scalars={k: float(m[k]) for k in ("loss", "pcloss")},
+            grads={n: full(n, p.grad) for n, p in params.items()},
+            buffers={n: full(n, b) for n, b in tr.model.named_buffers()},
+            replicated=tree_bytes_hash(torch, {
+                n: params[n].grad for n in tp.replicated_names(tr.model)
+                if n in params}),
+            launches={n: fn.launches for n, fn in counters.items()},
+            flips=(store["differed"], store["made"]),
+            fc1=tuple(params["decoder.fc1.dense.weight"].shape))
+        tr.close()
+        lg.close()
+    shapes = {}
+    for model, n in (("model_hierachy", NUM_POINT),
+                     ("model_fc_upconv", NUM_POINT)):
+        net = get_model_spec(model).make(n).to(device)
+        net.set_model_group(group)
+        shapes[model] = {k: tuple(v.shape) for k, v in
+                         net.state_dict().items()
+                         if tp.spec_for_name(k) is not None}
+    out["shapes"] = shapes
+    torch.save(out, os.path.join(out_dir, f"tp_rank{group.rank}.pt"))
+
+
+def phase_tensor_parallel(torch, counters, data, tmp, rng):
+    """Tensor parallelism on the one card: 2 ranks over gloo on cuda:0.
+    See the module docstring, phase 17."""
+    import functools
+
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+    from pointnet_autoencoder_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(tmp, "tp")
+    os.makedirs(out_dir)
+    parse = cli_train.build_parser().parse_args
+    cards = ["cuda:0"] * TP_RANKS
+    say("tensor_parallel", f"2 ranks sharing one H100 over gloo "
+        f"({nvidia_smi_line()}), each with half of the decoder's fc1, fc2 "
+        f"and fc3 and every row; nothing here is a multi-card time or a "
+        f"speedup")
+
+    # 1. The card alone: each model's f32 step, its choices recorded, and
+    # the same step with the batch's rows swapped in pairs (the f32
+    # floor, PR 9's).
+    x = clouds(np.random.RandomState(SEED + 70), BATCH, NUM_POINT)
+    pairs = torch.from_numpy(
+        np.arange(BATCH).reshape(-1, 2)[:, ::-1].reshape(-1).copy())
+    single, floor = {}, {}
+    for model in TP_STEP_MODELS:
+        choices = {}
+        for run, (replay, rows) in enumerate(((False, slice(None)),
+                                              (True, pairs))):
+            tr, lg = cli_train.build_trainer(parse(dp_step_argv(
+                model, data, os.path.join(out_dir, f"{model}_{run}_log"))))
+            store = dict(choices, differed=0, made=0) if replay else choices
+            for fn in counters.values():
+                fn.launches = 0
+            with dp_choices(store, replay=replay, rows=rows):
+                m = tr.train_step(torch.from_numpy(x)[rows].to(tr.device))
+            torch.cuda.synchronize()
+            (floor if replay else single)[model] = dp_step_result(
+                torch, tr, m, counters)
+            tr.close()
+            lg.close()
+        torch.save({"x": torch.from_numpy(x), "choices": choices},
+                   os.path.join(out_dir, f"{model}_tp_case.pt"))
+
+    t0 = time.perf_counter()
+    mesh.launch(tp_rank_steps, devices=cards, backend="gloo",
+                args=(out_dir, data))
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"tp_rank{r}.pt"))
+             for r in range(TP_RANKS)]
+    want_launches = {
+        "model": {"fused_head_fwd": 1, "fused_head_bwd": 1, "nn_distance": 1,
+                  "nn_distance_grad": 1, "emd_forward": 0,
+                  "fused_encoder_eval": 0},
+        "model_emd": {"fused_head_fwd": 1, "fused_head_bwd": 1,
+                      "nn_distance": 1, "nn_distance_grad": 0,
+                      "emd_forward": 1, "fused_encoder_eval": 0}}
+    for model in TP_STEP_MODELS:
+        one, fl = single[model], floor[model]
+        got = [r[model] for r in ranks]
+        for r, g in enumerate(got):
+            require(g["launches"] == want_launches[model],
+                    f"{model} TP step rank {r} launches {g['launches']}")
+            require(g["fc1"] == (1024 // TP_RANKS, 1024),
+                    f"{model} TP rank {r} fc1 weight {g['fc1']}")
+        require(got[0]["replicated"] == got[1]["replicated"],
+                f"{model} TP step: the replicated leaves' gradients differ "
+                f"across the model group")
+        require(all(torch.equal(t, got[1]["grads"][n])
+                    for n, t in got[0]["grads"].items()),
+                f"{model} TP step: the ranks' gathered gradients differ")
+        loss = got[0]["scalars"]["loss"]
+        want_loss = one["scalars"]["loss"]
+        require(close(loss, want_loss, 1e-4, 0.0)
+                and close(got[0]["scalars"]["pcloss"],
+                          one["scalars"]["pcloss"], 1e-4, 0.0),
+                f"{model} TP loss {loss} vs one card {want_loss} (rtol "
+                f"1e-4)")
+        buf_err = 0.0
+        for n, b in one["buffers"].items():
+            b = b.numpy()
+            err = np.abs(got[0]["buffers"][n].numpy() - b)
+            require(bool(np.all(err <= 2e-5 + 1e-4 * np.abs(b))),
+                    f"{model} TP BN statistic {n}: max abs err "
+                    f"{float(err.max()):.3e} past rtol 1e-4, atol 2e-5")
+            buf_err = max(buf_err, float(err.max()))
+        tp_leaf, tp_whole, tp_norm = dp_gaps(got[0]["grads"], one["grads"])
+        fl_leaf, fl_whole, fl_norm = dp_gaps(fl["grads"], one["grads"])
+        require(tp_whole <= max(1e-5, 2 * fl_whole)
+                and tp_norm <= max(1e-5, 2 * fl_norm),
+                f"{model} TP gradients: {tp_whole:.3e} of the largest "
+                f"element, relative norm {tp_norm:.3e}; the reordered batch "
+                f"on one card {fl_whole:.3e}, {fl_norm:.3e}")
+        say("tensor_parallel", f"{model} f32 step, B={BATCH} N={NUM_POINT}, "
+            f"1 data x 2 model ranks on cuda:0 (gloo) vs one card: loss "
+            f"{loss:.6f} vs {want_loss:.6f} (rtol 1e-4); BN statistics "
+            f"within rtol 1e-4, atol 2e-5 (largest abs gap {buf_err:.3e}); "
+            f"gathered gradient gap {tp_whole:.3e} of its largest element, "
+            f"largest leaf gap {tp_leaf:.3e}, relative norm {tp_norm:.3e}; "
+            f"the same step on one card with the batch's rows swapped in "
+            f"pairs (f32 floor): {fl_whole:.3e}, {fl_leaf:.3e}, "
+            f"{fl_norm:.3e}; replicated leaves' gradients bit-equal across "
+            f"the model group; the ranks' own choices differed at "
+            f"{got[0]['flips'][0]} + {got[1]['flips'][0]} of "
+            f"{got[0]['flips'][1] + got[1]['flips'][1]}; per-rank launches "
+            f"{got[0]['launches']} ok")
+    for model, shapes in ranks[0]["shapes"].items():
+        say("tensor_parallel", f"{model} split leaves per rank: "
+            + ", ".join(f"{k} {v}" for k, v in shapes.items()))
+    say("tensor_parallel", f"the 2-rank step run took {ranks_s:.1f} s")
+
+    # 2. cli.train --model_parallel 2 --bf16_params: 2 bf16 epochs.
+    log_dir = os.path.join(out_dir, "train_log")
+    t0 = time.perf_counter()
+    cli_train.main(train_argv("model", data, log_dir)
+                   + ["--max_epoch", str(TRAIN_EPOCHS), "--model_parallel",
+                      str(TP_RANKS), "--bf16_params"],
+                   devices=cards, backend="gloo",
+                   after=functools.partial(tp_train_report, out_dir))
+    train_s = time.perf_counter() - t0
+    reps = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(out_dir, f"tp_train_rank{r}.json")) as f:
+            reps.append(json.load(f))
+    want = path_launches(TRAIN_EPOCHS * (320 // BATCH),
+                         TRAIN_EPOCHS * (64 // BATCH))
+    for r, rep in enumerate(reps):
+        require(rep["launches"] == want,
+                f"TP training rank {r}: launches {rep['launches']}, the path "
+                f"needs {want}")
+    require(reps[0]["replicated"] == reps[1]["replicated"],
+            "TP --bf16_params: the replicated leaves differ across the "
+            "model group after 2 epochs")
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    evals = [r["pcloss"] for r in recs if r["split"] == "test"]
+    require(len(evals) == TRAIN_EPOCHS and all(np.isfinite(evals))
+            and evals[-1] < evals[0], f"TP eval pcloss {evals}")
+    bests = sorted(n for n in os.listdir(log_dir)
+                   if n.startswith("best_model_epoch_"))
+    require(bool(bests), f"TP training checkpoints: {os.listdir(log_dir)}")
+    say("tensor_parallel", f"cli.train --model_parallel 2 --bf16_params on "
+        f"cuda:0 twice (gloo), bf16, device input: {TRAIN_EPOCHS} epochs in "
+        f"{train_s:.1f} s (rank start and data loading included); eval "
+        f"pcloss {[round(v, 6) for v in evals]}; the replicated leaves "
+        f"bit-equal across the model group (sha256 "
+        f"{reps[0]['replicated'][:16]}); per-rank launches "
+        f"{reps[0]['launches']} ok")
+    for r, rep in enumerate(reps):
+        med, lo, hi = rep["step_host_ms"]
+        say("tensor_parallel", f"rank {r}: bf16 TP step of B={BATCH} (2 "
+            f"ranks on one H100 over gloo; host clock to the loss): median "
+            f"{med:.3f} ms, min {lo:.3f}, max {hi:.3f}; traced: "
+            f"{rep['trace']}; peak device memory {rep['peak_mb']:.1f} MiB")
+
+    # 3. The gathered checkpoint on one card against the split session.
+    best = os.path.join(log_dir, bests[-1])
+    one = InferenceSession("model", best, NUM_POINT, batch_size=BATCH,
+                           device="cuda")
+    split = InferenceSession("model", best, NUM_POINT, batch_size=BATCH,
+                             devices=cards, model_parallel=TP_RANKS)
+    batch = clouds(rng, 45, NUM_POINT)
+    emb = one.embed(batch)
+    gaps = {}
+    for what, a, b in (("reconstruct", split.reconstruct(batch),
+                        one.reconstruct(batch)),
+                       ("embed", split.embed(batch), emb),
+                       ("decode", split.decode(emb), one.decode(emb))):
+        require(close(a, b, 1e-5, 1e-5),
+                f"TP serving {what}: max abs err {max_err(a, b):.3e}")
+        gaps[what] = max_err(a, b)
+    say("tensor_parallel", f"the TP run's best checkpoint "
+        f"({os.path.basename(best)}, the one-card format) in a one-card "
+        f"session and in InferenceSession(model_parallel=2) on cuda:0 "
+        f"twice, f32, a ragged batch of 45: max abs gap "
+        + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+        + " (rtol, atol 1e-5) ok")
+    say("tensor_parallel", f"phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def tp_train_report(out_dir, trainer):
+    """``after`` of phase tensor_parallel's ``cli.train`` run, in each
+    rank: the launches of the whole run, a hash of the replicated leaves,
+    the host median of 10 bf16 steps on a batch already on the card and a
+    trace of one, the peak device memory. Writes
+    ``<out_dir>/tp_train_rank<r>.json``."""
+    import torch
+
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+    from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+    from pointnet_autoencoder_tpu_torch.parallel import tp
+
+    launches = {n: fn.launches for n, fn in
+                kernel_counters(ch, fe, fh, em).items()}
+    sd = trainer.model.state_dict()
+    replicated = tree_bytes_hash(torch, {
+        n: sd[n] for n in tp.replicated_names(trainer.model)})
+    x = torch.from_numpy(clouds(np.random.RandomState(SEED + 72), BATCH,
+                                NUM_POINT)).to(trainer.device)
+    torch.cuda.reset_peak_memory_stats(trainer.device)
+    *host, trace = step_timing(torch, trainer, x, "chip_smoke.tp_step")
+    with open(os.path.join(out_dir, f"tp_train_rank{trainer.rank}.json"),
+              "w") as f:
+        json.dump(dict(launches=launches, replicated=replicated,
+                       step_host_ms=host, trace=trace,
+                       peak_mb=torch.cuda.max_memory_allocated(
+                           trainer.device) / 2**20), f)
+
+
+# ---------------------------------------------------------------------------
+# Phase pipeline_parallel: the encoder and the decoder as two stages
+# ---------------------------------------------------------------------------
+
+PP_MICROBATCHES = 4
+
+
+def phase_pipeline_parallel(torch, fe, session, weights, rng):
+    """Pipeline-parallel serving on the one card. See the module
+    docstring, phase 18."""
+    from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+    from pointnet_autoencoder_tpu_torch.parallel.pp import PipelinedSession
+
+    t_phase = time.perf_counter()
+    x = clouds(rng, BATCH, NUM_POINT)
+    bf16 = InferenceSession("model", weights, NUM_POINT, batch_size=BATCH,
+                            bf16=True, device="cuda")
+    for kind, ref in (("f32", session), ("bf16", bf16)):
+        pp = PipelinedSession(ref, devices=["cuda:0", "cuda:0"],
+                              num_microbatches=PP_MICROBATCHES)
+        emb = ref.embed(x)
+        gaps, past = {}, {}
+        for what, a, b in (("reconstruct", pp.reconstruct(x),
+                            ref.reconstruct(x)),
+                           ("embed", pp.embed(x), emb),
+                           ("decode", pp.decode(emb), ref.decode(emb))):
+            gaps[what] = max_err(a, b)
+            past[what] = int((np.abs(a - b) > 1e-6 + 1e-5 * np.abs(b)).sum())
+            require(past[what] == 0,
+                    f"PP {kind} {what}: {past[what]} entries past rtol 1e-5, "
+                    f"atol 1e-6 of the unpipelined session (max abs gap "
+                    f"{gaps[what]:.3e})")
+        fe.encoder_extrema_cuda.launches = 0
+        pp.reconstruct(x)
+        k5 = fe.encoder_extrema_cuda.launches
+        require(k5 == PP_MICROBATCHES,
+                f"PP {kind}: K5 launched {k5} times for one batch, not once "
+                f"per microbatch")
+        host_pp, host_one = [], []
+        for _ in range(10):
+            for s, into in ((pp, host_pp), (ref, host_one)):
+                t0 = time.perf_counter()
+                s.reconstruct(x)
+                into.append(1e3 * (time.perf_counter() - t0))
+        trace = device_trace(torch, lambda: pp.reconstruct(x),
+                             f"chip_smoke.pp_{kind}", own=True)
+        say("pipeline_parallel", f"{kind}, B={BATCH} in {PP_MICROBATCHES} "
+            f"microbatches, both stages on cuda:0 (a stream each): "
+            f"reconstruct, embed and decode against the unpipelined "
+            f"session, max abs gap "
+            + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+            + f" (rtol 1e-5, atol 1e-6; entries past it {past}); K5 "
+            f"{k5} launches per batch; reconstruct host median "
+            f"{statistics.median(host_pp):.3f} ms pipelined vs "
+            f"{statistics.median(host_one):.3f} ms unpipelined (same call, "
+            f"one H100, {nvidia_smi_line()}); pipelined trace: {trace} ok")
+    say("pipeline_parallel",
+        f"phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase dp_sp: 2 data x 2 point ranks
+# ---------------------------------------------------------------------------
+
+DPSP_DATA = 2
+DPSP_POINT = 2
+
+
+def dp_sp_rank_steps(device, out_dir):
+    """A rank of phase dp_sp on a (2 data, 2 model) grid: for `model` and
+    `model_emd`, one f32 step of ``sp.make_sp_step_fns(..., axis=
+    MODEL_AXIS, batch_axis=DATA_AXIS)`` from the card alone's weights on
+    this rank's rows and points of its batch, with the launches counted;
+    the combined Chamfer indices of (its points, its rows of a second
+    batch).
+    Writes ``<out_dir>/dpsp_rank<r>.pt``."""
+    import torch
+
+    from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+    from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+    from pointnet_autoencoder_tpu_torch.parallel import mesh, sp
+    from pointnet_autoencoder_tpu_torch.train import schedules
+    from pointnet_autoencoder_tpu_torch.train.state import (
+        TrainState,
+        make_optimizer,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grid = mesh.ProcessMesh(device, DPSP_POINT)
+    axes = (mesh.MODEL_AXIS, mesh.DATA_AXIS)
+    counters = kernel_counters(ch, fe, fh, em)
+    out = {}
+    for model in ("model", "model_emd"):
+        case = torch.load(os.path.join(out_dir, f"{model}_dpsp_case.pt"))
+        net = get_model_spec(model).make(NUM_POINT)
+        net.load_state_dict(case["state"])
+        net.to(device)
+        state = TrainState(net, make_optimizer("adam", net.parameters()),
+                           schedules.learning_rate_schedule(
+                               0.001, 0.7, BATCH, 200000))
+        step, _ = sp.make_sp_step_fns(state, model, lambda _: case["momentum"],
+                                      grid, *axes)
+        x = case["x"].to(device)
+        xl = sp.point_batch_shard(x, grid, *axes)
+        per = BATCH // DPSP_DATA
+        rows = slice(grid.data_index * per, (grid.data_index + 1) * per)
+        with torch.no_grad():
+            _, i1, _, i2 = sp.nn_distance_point_sharded(
+                xl, case["y"][rows].to(device), grid.model)
+        for fn in counters.values():
+            fn.launches = 0
+        m = step(xl)
+        torch.cuda.synchronize()
+        out[model] = dict(
+            scalars={k: float(m[k]) for k in ("loss", "pcloss")},
+            buffers={n: b.detach().cpu() for n, b in net.named_buffers()},
+            launches={n: fn.launches for n, fn in counters.items()},
+            nn=(i1.cpu(), i2.cpu()), shape=tuple(xl.shape))
+    torch.save(out, os.path.join(out_dir, f"dpsp_rank{grid.world.rank}.pt"))
+
+
+def phase_dp_sp(torch, tmp):
+    """DP x SP on the one card: 4 ranks over gloo on cuda:0. See the
+    module docstring, phase 19."""
+    from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
+    from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+    from pointnet_autoencoder_tpu_torch.parallel import mesh
+    from pointnet_autoencoder_tpu_torch.train import schedules
+    from pointnet_autoencoder_tpu_torch.train.state import (
+        TrainState,
+        make_optimizer,
+    )
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(tmp, "dpsp")
+    os.makedirs(out_dir)
+    ranks_n = DPSP_DATA * DPSP_POINT
+    say("dp_sp", f"4 ranks sharing one H100 over gloo ({nvidia_smi_line()}):"
+        f" 2 data x 2 point, each with {BATCH // DPSP_DATA} rows and "
+        f"{NUM_POINT // DPSP_POINT} points of every shape; nothing here is "
+        f"a multi-card time or a speedup")
+    x = torch.from_numpy(clouds(np.random.RandomState(SEED + 80), BATCH,
+                                NUM_POINT))
+    y = torch.from_numpy(clouds(np.random.RandomState(SEED + 82), BATCH,
+                                NUM_POINT))
+    momentum = 0.5
+    single = {}
+    for model in ("model", "model_emd"):
+        net = get_model_spec(model).make(
+            NUM_POINT, generator=torch.Generator().manual_seed(SEED + 81))
+        torch.save({"state": net.state_dict(), "x": x, "y": y,
+                    "momentum": momentum},
+                   os.path.join(out_dir, f"{model}_dpsp_case.pt"))
+        net.to("cuda")
+        state = TrainState(net, make_optimizer("adam", net.parameters()),
+                           schedules.learning_rate_schedule(
+                               0.001, 0.7, BATCH, 200000))
+        # The card alone on the EMD's dense form: the per-shard form's.
+        emd_inputs = {}
+        emd = (plain_emd_on_the_card(emd_inputs) if model == "model_emd"
+               else contextlib.nullcontext())
+        with emd:
+            m = state.train_step(x.cuda(), get_model_spec(model).loss_fn,
+                                 lambda _: momentum)
+        torch.cuda.synchronize()
+        single[model] = dict(
+            scalars={k: float(m[k]) for k in ("loss", "pcloss")},
+            buffers={n: b.detach().cpu() for n, b in net.named_buffers()})
+        if emd_inputs:
+            # The dense EMD's own f32 floor (PR 10's bound): its loss in
+            # float64 on the step's inputs. Its 10 annealing levels amplify
+            # the order of the column sums, which the ranks split.
+            x1, x2 = emd_inputs["xyz"]
+            single[model]["loss_f64"] = float(em.emd_forward_plain(
+                x1.double(), x2.double())[0].mean())
+    _, c1, _, c2 = ch.nn_distance_cuda(x.cuda(), y.cuda())
+    t0 = time.perf_counter()
+    mesh.launch(dp_sp_rank_steps, devices=["cuda:0"] * ranks_n,
+                backend="gloo", args=(out_dir,))
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"dpsp_rank{r}.pt"))
+             for r in range(ranks_n)]
+    per_b, per_n = BATCH // DPSP_DATA, NUM_POINT // DPSP_POINT
+    for model in ("model", "model_emd"):
+        one = single[model]
+        # model_emd: K1 for the pcloss metric, no K2; the per-shard EMD is
+        # the dense form (no K6).
+        want_l = {"fused_head_fwd": 1, "fused_head_bwd": 1,
+                  "nn_distance": 1,
+                  "nn_distance_grad": 1 if model == "model" else 0,
+                  "emd_forward": 0, "fused_encoder_eval": 0}
+        idx_equal = True
+        buf_err = 0.0
+        for r, rank in enumerate(ranks):
+            got = rank[model]
+            d, t = divmod(r, DPSP_POINT)
+            require(got["shape"] == (per_b, per_n, 3),
+                    f"dp_sp rank {r} holds {got['shape']}")
+            for key in ("loss", "pcloss"):
+                want_v = one["scalars"][key]
+                floor = (abs(one["loss_f64"] - want_v) if key == "loss"
+                         and "loss_f64" in one else 0.0)
+                require(abs(got["scalars"][key] - want_v)
+                        <= max(1e-5 * abs(want_v), 2 * floor),
+                        f"{model} DP x SP {key} {got['scalars'][key]} vs one "
+                        f"card {want_v} (rtol 1e-5; twice the dense EMD's "
+                        f"f32 floor {floor:.3e})")
+            for n, b in one["buffers"].items():
+                b = b.numpy()
+                err = np.abs(got["buffers"][n].numpy() - b)
+                require(bool(np.all(err <= 2e-5 + 1e-4 * np.abs(b))),
+                        f"{model} DP x SP BN statistic {n}: max abs err "
+                        f"{float(err.max()):.3e} past rtol 1e-4, atol 2e-5")
+                buf_err = max(buf_err, float(err.max()))
+            rows = slice(d * per_b, (d + 1) * per_b)
+            pts = slice(t * per_n, (t + 1) * per_n)
+            i1, i2 = got["nn"]
+            idx_equal &= (torch.equal(i1, c1[rows, pts].cpu())
+                          and torch.equal(i2, c2[rows].cpu()))
+            require(got["launches"] == want_l,
+                    f"{model} DP x SP rank {r} launches {got['launches']}, "
+                    f"the path needs {want_l}")
+        require(idx_equal, f"{model} DP x SP: the combined Chamfer indices "
+                f"differ from K1's on the card alone")
+        say("dp_sp", f"{model} f32 step, B={BATCH} N={NUM_POINT}, 2 data x "
+            f"2 point ranks on cuda:0 (gloo) vs one card"
+            + (" (its EMD in the dense form, the ranks' per-shard form)"
+               if model == "model_emd" else "")
+            + f": loss {ranks[0][model]['scalars']['loss']:.6f} vs "
+            f"{one['scalars']['loss']:.6f}, pcloss "
+            f"{ranks[0][model]['scalars']['pcloss']:.6f} vs "
+            f"{one['scalars']['pcloss']:.6f} (rtol 1e-5"
+            + (f"; the loss also within twice the dense EMD's f32 floor, "
+               f"its float64 value {one['loss_f64']:.6f}"
+               if "loss_f64" in one else "")
+            + f"); BN statistics "
+            f"within rtol 1e-4, atol 2e-5 (largest abs gap {buf_err:.3e}); "
+            f"the combined Chamfer indices equal to K1's on one card; "
+            f"per-rank launches {ranks[0][model]['launches']} ok")
+    say("dp_sp", f"the 4-rank run took {ranks_s:.1f} s; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def state_mb(torch, tree) -> float:
     """MB of the tensors in a (nested) state dict."""
     if torch.is_tensor(tree):
@@ -3518,7 +4164,8 @@ def main() -> int:
         t0 = time.perf_counter()
         host_logs = build.build(build.HOST_SOURCES)
         say(phase, f"g++ built {', '.join(host_logs) or 'nothing (cached)'} "
-            f"(the native renderer) in {time.perf_counter() - t0:.1f} s")
+            f"(the native renderer and the data loader's parser) in "
+            f"{time.perf_counter() - t0:.1f} s")
 
         rng = np.random.RandomState(SEED)
         phase = "kernels"
@@ -3547,6 +4194,9 @@ def main() -> int:
 
             phase = "train"
             data, fixture_s = write_chair_fixture(tmp)
+            phase = "fastio"
+            phase_fastio(data, tmp)
+            phase = "train"
             trainer, logger, train_launches, best_path = phase_train(
                 torch, counters, data, fixture_s, tmp, rng)
             phase = "train_emd"
@@ -3584,6 +4234,14 @@ def main() -> int:
             phase = "point_parallel"
             phase_point_parallel(torch, counters, data, tmp,
                                  np.random.RandomState(SEED + 60))
+            phase = "tensor_parallel"
+            phase_tensor_parallel(torch, counters, data, tmp,
+                                  np.random.RandomState(SEED + 71))
+            phase = "pipeline_parallel"
+            phase_pipeline_parallel(torch, fe, session, weights,
+                                    np.random.RandomState(SEED + 75))
+            phase = "dp_sp"
+            phase_dp_sp(torch, tmp)
         smi = nvidia_smi_line()
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAIL in phase {phase}: {type(e).__name__}: {e}",

@@ -2,8 +2,9 @@
 card.
 
 The port's copy of ``pointnet_autoencoder_tpu/cli/parity.py``, with the
-same flags (less the XLA compile cache), the same record keys and the same
-table, plus ``--device``. Pointed at a
+same flags, the same record keys and the same table, plus ``--device``;
+``--compilation_cache_dir`` (an XLA cache there) has no counterpart and is
+refused. Pointed at a
 ``shapenetcore_partanno_segmentation_benchmark_v0`` directory, it:
 
 1. checks the dataset against the real archive's split sizes (Chair
@@ -34,6 +35,8 @@ import os
 import subprocess
 import sys
 import time
+
+from pointnet_autoencoder_tpu_torch.config import refuse_unported
 
 # Real-archive invariants (train_test_split/*.json of the 635 MB archive,
 # reference README.md:18; counts quoted in SURVEY.md).
@@ -68,6 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Results file to append to [default: "
                         "docs/RESULTS_TORCH.md next to the package]")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--compilation_cache_dir", default=None,
+                   help="Not ported (no XLA programs to cache)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     return p
@@ -95,6 +100,7 @@ def check_splits(data_path: str, category: str):
 
 def run(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    refuse_unported("compilation_cache_dir", args.compilation_cache_dir)
 
     if args.synth_fixture and not os.path.exists(
             os.path.join(args.data_path, "synsetoffset2category.txt")):

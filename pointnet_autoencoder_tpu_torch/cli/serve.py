@@ -3,7 +3,7 @@
     python -m pointnet_autoencoder_tpu_torch.cli.serve \\
         --model model --model_path weights.npz --num_point 2048 \\
         --batch_size 32 --port 7433 [--bf16] [--device cuda] \\
-        [--data_parallel N]
+        [--data_parallel N | --pipeline_parallel [--num_microbatches 4]]
 
 ``--model_path`` is a reference-named ``.npz`` (written by the JAX
 package's ``cli.export --format reference_npz``), a ``.pt`` state_dict
@@ -13,7 +13,12 @@ saved from the port, or a training checkpoint of the port's
 ``--num_point`` that its decoder cannot emit fails with ValueError before
 the weights load. ``--data_parallel N`` serves from N replicas, on cards
 0..N-1 (N CPU replicas with ``--device cpu``), each taking batch_size/N
-rows of every batch. SIGTERM drains cleanly:
+rows of every batch. ``--pipeline_parallel`` serves through a 2-stage
+pipeline (``parallel/pp.py``): the encoder on card 0 and the decoder on
+card 1 (both on the CPU with ``--device cpu``), each batch in
+``--num_microbatches`` microbatches; it is exclusive with
+``--data_parallel``. ``--compilation_cache_dir`` (an XLA cache in the JAX
+package) has no counterpart and is refused. SIGTERM drains cleanly:
 queued requests get 'server shutting down' errors instead of dead sockets.
 """
 
@@ -25,6 +30,7 @@ import sys
 
 import torch
 
+from pointnet_autoencoder_tpu_torch.config import refuse_unported
 from pointnet_autoencoder_tpu_torch.models.registry import available_models
 
 
@@ -61,6 +67,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "statistics stay f32); default full f32")
     p.add_argument("--data_parallel", type=int, default=None,
                    help="Shard server batches over N devices")
+    p.add_argument("--pipeline_parallel", action="store_true",
+                   help="Two-stage encoder|decoder pipeline on the first "
+                        "two devices (parallel/pp.py); exclusive with "
+                        "--data_parallel")
+    p.add_argument("--num_microbatches", type=int, default=4,
+                   help="Microbatches per batch under --pipeline_parallel")
+    p.add_argument("--compilation_cache_dir", default=None,
+                   help="Not ported (no XLA programs to cache)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     return p
@@ -69,17 +83,26 @@ def build_parser() -> argparse.ArgumentParser:
 def build_server(args: argparse.Namespace):
     """The session and the (not yet started) server the flags describe."""
     from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+    from pointnet_autoencoder_tpu_torch.parallel.pp import PipelinedSession
     from pointnet_autoencoder_tpu_torch.serve import PointServer
 
+    refuse_unported("compilation_cache_dir", args.compilation_cache_dir)
+    if args.pipeline_parallel and args.data_parallel:
+        raise SystemExit(
+            "--pipeline_parallel is exclusive with --data_parallel")
+    cpu = torch.device(args.device).type == "cpu"
     devices = None
-    if (args.data_parallel or 1) > 1 and torch.device(args.device).type \
-            == "cpu":
+    if (args.data_parallel or 1) > 1 and cpu:
         devices = [args.device] * args.data_parallel
     session = InferenceSession(args.model, args.model_path, args.num_point,
                                batch_size=args.batch_size, bf16=args.bf16,
                                device=args.device,
                                data_parallel=args.data_parallel,
                                devices=devices)
+    if args.pipeline_parallel:
+        session = PipelinedSession(
+            session, devices=[args.device] * 2 if cpu else None,
+            num_microbatches=args.num_microbatches)
     server = PointServer(session, host=args.host, port=args.port,
                          max_delay_ms=args.max_delay_ms,
                          max_pending_shapes=args.max_pending_shapes,

@@ -20,11 +20,13 @@ k local ranks on cards 0..k-1 (NCCL), or k CPU ranks with ``--device cpu``
 for more cards than exist raises; nothing falls back to fewer cards or to
 the CPU. With ``--point_parallel`` the k ranks split every shape's points
 instead of the batch (``parallel/sp.py``; num_point must divide by k).
-``--bf16_params`` and ``--bf16_moments`` store the matmul parameters and
-their optimizer moments in bfloat16 (``train/master.py``). Flags whose
-feature the port does not run yet (``--model_parallel`` above 1,
-``--profile_dir``, ``--compilation_cache_dir``) raise NotImplementedError
-naming their ROADMAP item. A ``--num_point`` that
+``--model_parallel m`` splits the decoder's FC layers over m ranks of each
+data shard (``parallel/tp.py``): ``--data_parallel k --model_parallel m``
+runs k*m ranks (``--model_parallel 2`` alone, 2). ``--bf16_params`` and
+``--bf16_moments`` store the matmul parameters and their optimizer moments
+in bfloat16 (``train/master.py``). Flags whose feature the port does not
+run (``--profile_dir``, ``--compilation_cache_dir``) raise
+NotImplementedError naming their ROADMAP item. A ``--num_point`` that
 the model's decoder cannot emit fails with ValueError before any data
 loads. SIGTERM or SIGINT saves a resumable checkpoint at the next step
 boundary and ends the run (under data parallelism where the ranks agree:
@@ -91,7 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "each (with --device cpu: CPU ranks over gloo) "
                         "[default: every visible card]")
     p.add_argument("--model_parallel", type=int, default=d.model_parallel,
-                   help="Not ported yet above 1")
+                   help="Tensor-parallel degree over the decoder FC "
+                        "stacks (parallel/tp.py): ranks per data shard, "
+                        "one process each; 1 = off [default: 1]")
     p.add_argument("--point_parallel", action="store_true",
                    default=d.point_parallel,
                    help="Shard the batch's POINT axis over the data axis "
@@ -206,18 +210,22 @@ def rank_devices(args: argparse.Namespace,
                  devices: Optional[Sequence] = None
                  ) -> Optional[List[torch.device]]:
     """The devices to spawn one rank on each, or None to train in this
-    process: ``devices`` if given, else ``--data_parallel`` CPU ranks
-    with ``--device cpu``, else ``--data_parallel`` cards (every visible
-    card when unset). One device, or a CUDA device named by index, trains
-    in this process."""
+    process: ``devices`` if given, else ``--data_parallel`` x
+    ``--model_parallel`` CPU ranks with ``--device cpu``, else as many
+    cards (``--data_parallel`` unset: every visible card). One device, or
+    a CUDA device named by index, trains in this process."""
+    m = args.model_parallel
     if devices is not None:
-        return mesh.make_mesh(devices, args.data_parallel)
+        return mesh.make_mesh(devices, args.data_parallel, m)
     dev = torch.device(args.device)
     k = args.data_parallel
-    if k == 1 or (k is None and (dev.type == "cpu" or dev.index is not None
-                                 or torch.cuda.device_count() < 2)):
+    if m == 1 and (k == 1 or (k is None and (
+            dev.type == "cpu" or dev.index is not None
+            or torch.cuda.device_count() < 2))):
         return None
-    return [dev] * k if dev.type == "cpu" else mesh.make_mesh(None, k)
+    if dev.type == "cpu":
+        return [dev] * ((k or 1) * m)
+    return mesh.make_mesh(None, k, m)
 
 
 def main(argv=None, devices: Optional[Sequence] = None,

@@ -1,4 +1,4 @@
-"""Builds the port's CUDA kernels, and its host C++ renderer, into shared
+"""Builds the port's CUDA kernels, and its host C++ sources, into shared
 libraries with a plain C interface, loaded with ``ctypes``.
 
     python -m pointnet_autoencoder_tpu_torch.csrc.build
@@ -11,9 +11,10 @@ and the CUDA toolkit's ``nvcc``; one ``nvcc`` runs per source, all started
 together. A missing ``nvcc`` or a failed compile raises: there is no
 fallback to the plain PyTorch versions for CUDA tensors.
 
-``csrc/render_balls.cpp`` (the point-cloud renderer, host code) is built
-the same way with ``g++ -O3 -std=c++17 -shared -fPIC``, at its first use;
-a missing ``g++`` or a failed compile raises as well.
+The host sources, ``csrc/render_balls.cpp`` (the point-cloud renderer)
+and ``csrc/fastio.cpp`` (the data loader's text parser), are built the
+same way with ``g++ -O3 -std=c++17 -shared -fPIC``, each at its first
+use; a missing ``g++`` or a failed compile raises as well.
 
 Every C entry point of a CUDA source returns ``cudaGetLastError()`` after
 its launches; ``check`` turns a non-zero code into an exception.
@@ -40,7 +41,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # Host C++ sources (``csrc/<name>.cpp``), built with g++.
-HOST_SOURCES = ("render_balls",)
+HOST_SOURCES = ("render_balls", "fastio")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -65,8 +66,9 @@ def find_gxx() -> str:
     """Path of ``g++`` on ``PATH``; raises if there is none."""
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found on PATH; the native renderer "
-                           "(csrc/render_balls.cpp) cannot be built")
+        raise RuntimeError("g++ not found on PATH; the host sources "
+                           "(csrc/render_balls.cpp, csrc/fastio.cpp) "
+                           "cannot be built")
     return gxx
 
 

@@ -6,10 +6,10 @@ Same on-disk layout and observable behavior:
 - category map from ``synsetoffset2category.txt``;
 - official shuffled train/val/test splits from
   ``train_test_split/shuffled_*_file_list.json``;
-- per-shape ``.pts`` xyz and ``.seg`` label files, parsed with
-  ``np.loadtxt`` (the reference's native C++ parser is a host-side
-  speed-up, queued in ROADMAP slice 2);
-- unit-sphere normalization;
+- per-shape ``.pts`` xyz and ``.seg`` label files, parsed natively
+  (``data/fastio.py``), which rejects a file with another column count;
+- unit-sphere normalization (``normalize``, on by default);
+- segmentation items, or classification items (``classification``);
 - random resample *with replacement* to ``npoints`` on every access, fresh
   randomness even on cache hits, from an explicit seeded
   ``numpy.random.Generator``;
@@ -27,6 +27,8 @@ import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from pointnet_autoencoder_tpu_torch.data import fastio
 
 _CACHE_SIZE = 18000
 
@@ -57,32 +59,31 @@ def rotate_point_cloud(batch: np.ndarray,
     return np.einsum("bnc,bcd->bnd", batch, rot).astype(np.float32)
 
 
-def _load_pts(path: str) -> np.ndarray:
-    # Parsed as f64 and then rounded, as the reference's loader does.
-    return np.loadtxt(path, ndmin=2).astype(np.float32).reshape(-1, 3)
-
-
-def _load_seg(path: str) -> np.ndarray:
-    return np.loadtxt(path, ndmin=1).astype(np.int64)
-
-
 class PartDataset:
     """Indexable ShapeNetPart dataset.
 
-    Args: ``root``, ``npoints``, ``class_choice`` (an iterable of category
-    names or None for all), ``split`` in {train, val, trainval, test},
-    ``seed`` and ``cache_dir``, as the reference's constructor (its
-    classification mode and un-normalized clouds have no caller here).
+    Args mirror the reference constructor (part_dataset.py:42): ``root``,
+    ``npoints``, ``classification``, ``class_choice`` (an iterable of
+    category names or None for all), ``split`` in {train, val, trainval,
+    test}, ``normalize``; then ``seed`` and ``cache_dir``.
 
-    ``dataset[i]`` returns (points (npoints,3) f32, seg (npoints,) i64).
+    ``dataset[i]`` returns (points (npoints,3) f32, seg (npoints,) i64) or,
+    in classification mode, (points, cls (1,) i32). ``classes`` maps each
+    chosen category to its index, ``num_seg_classes`` is the largest count
+    of distinct part labels over a 2% sample of the shapes (0 in
+    classification mode), as the reference's (part_dataset.py:94-98).
     """
 
     def __init__(self, root: str, npoints: int = 2500,
+                 classification: bool = False,
                  class_choice: Optional[Sequence[str]] = None,
-                 split: str = "train", seed: Optional[int] = None,
+                 split: str = "train", normalize: bool = True,
+                 seed: Optional[int] = None,
                  cache_dir: Optional[str] = None):
         self.root = root
         self.npoints = npoints
+        self.classification = classification
+        self.normalize = normalize
         self._rng = np.random.default_rng(seed)
         self.cache_dir = cache_dir
         if cache_dir:
@@ -124,7 +125,9 @@ class PartDataset:
                     os.path.join(dir_seg, token + ".seg"),
                 ))
 
-        self._cache: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self.classes = {cat: i for i, cat in enumerate(self.cat)}
+        self.num_seg_classes = self._scan_seg_classes()
+        self._cache: Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
 
     def drop_item_cache(self) -> None:
         """Release the in-RAM item cache. Items decode (and cache) again
@@ -145,6 +148,12 @@ class PartDataset:
             return ids(split)
         raise ValueError(f"unknown split {split!r}")
 
+    def _scan_seg_classes(self) -> int:
+        if self.classification or not self.datapath:
+            return 0
+        return max(len(np.unique(fastio.load_seg(self.datapath[i][2])))
+                   for i in range(max(1, len(self.datapath) // 50)))
+
     def _disk_cache_path(self, pts_path: str) -> Optional[str]:
         if not self.cache_dir:
             return None
@@ -159,7 +168,8 @@ class PartDataset:
 
     def _decode(self, pts_path: str, seg_path: str):
         """Raw (points f32, 1-based seg i64), through the on-disk cache when
-        enabled. Cache writes are atomic (tmp + rename)."""
+        enabled. Cache writes are atomic (tmp + rename); a file the parser
+        rejects raises before anything is cached."""
         cpath = self._disk_cache_path(pts_path)
         if cpath is not None:
             try:
@@ -170,8 +180,8 @@ class PartDataset:
                         return z["pts"], z["seg"]
             except (OSError, KeyError, ValueError):
                 pass  # missing, stale or corrupt entry: decode and rewrite
-        point_set = _load_pts(pts_path)
-        seg = _load_seg(seg_path)
+        point_set = fastio.load_pts(pts_path)
+        seg = fastio.load_seg(seg_path)
         if cpath is not None:
             tmp = f"{cpath}.tmp-{os.getpid()}.npz"
             try:
@@ -182,20 +192,27 @@ class PartDataset:
         return point_set, seg
 
     def _load(self, index: int):
+        """(points f32, 0-based seg i64, cls (1,) i32) of shape ``index``,
+        normalized unless ``normalize`` is off."""
         if index in self._cache:
             return self._cache[index]
-        _, pts_path, seg_path = self.datapath[index]
+        cat, pts_path, seg_path = self.datapath[index]
+        cls = np.array([self.classes[cat]], dtype=np.int32)
         point_set, seg = self._decode(pts_path, seg_path)
+        if self.normalize:
+            point_set = pc_normalize(point_set)
         # Labels on disk are 1-based.
-        item = (pc_normalize(point_set).astype(np.float32), seg - 1)
+        item = (point_set.astype(np.float32), seg - 1, cls)
         if len(self._cache) < _CACHE_SIZE:
             self._cache[index] = item
         return item
 
     def __getitem__(self, index: int):
-        point_set, seg = self._load(index)
+        point_set, seg, cls = self._load(index)
         # Resample with replacement: fresh randomness on every access.
         choice = self._rng.integers(0, len(seg), size=self.npoints)
+        if self.classification:
+            return point_set[choice, :], cls
         return point_set[choice, :], seg[choice]
 
     def __len__(self) -> int:

@@ -18,6 +18,14 @@ and splits every padded chunk k ways, a part per replica. CUDA launches
 are asynchronous, so one thread launches every part of every chunk
 before it fetches any result; results are gathered in order.
 
+Tensor parallelism (``model_parallel=m``): each replica spans m devices
+(``make_mesh`` rank order, replica d on entries d*m..d*m+m-1; one device
+may repeat). Its decoder's fc1 and fc3 column slices and fc2 row slices
+sit on those devices (``parallel/tp.py``: ``InProcessFC``), and the
+partial sums and slices are combined in this process on the replica's
+first device, where the encoder, the neck and the rest of the decoder
+run. It composes with ``data_parallel``.
+
 Numerics: f32 mode is full f32. Matmuls and cuDNN's convolutions run
 with TF32 off, which the session sets
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -45,6 +53,7 @@ from pointnet_autoencoder_tpu_torch.device import resolve_device
 from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
 from pointnet_autoencoder_tpu_torch.ops.chamfer import fscore as _fscore_op
 from pointnet_autoencoder_tpu_torch.ops.chamfer import nn_distance
+from pointnet_autoencoder_tpu_torch.parallel import tp
 from pointnet_autoencoder_tpu_torch.parallel.mesh import (
     check_batch_divisible,
     make_mesh,
@@ -153,21 +162,35 @@ class InferenceSession:
         chunk (batch_size must divide); on cards 0..k-1 unless ``devices``
         names them. None or 1 with no ``devices``: ``device`` alone.
       devices: the replicas' devices, in order (``make_mesh``; one device
-        may repeat). ``device`` is then ignored.
+        may repeat); under ``model_parallel`` m, m per replica. ``device``
+        is then ignored.
+      model_parallel: devices per replica over which its decoder's FC
+        layers split (``parallel/tp.py``); 1: whole replicas. With no
+        ``devices``, cards 0..k*m-1.
+
+    ``devices`` is the list of the replicas' first devices; ``model``
+    holds the whole weights (on the CPU under ``model_parallel``).
     """
 
     def __init__(self, model: str, model_path: str, num_point: int,
                  batch_size: int = 32, bf16: bool = False,
                  device: str = "cuda", data_parallel: Optional[int] = None,
-                 devices: Optional[Sequence] = None):
+                 devices: Optional[Sequence] = None,
+                 model_parallel: int = 1):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if not os.path.exists(model_path):
             raise FileNotFoundError(model_path)
+        m = model_parallel
         if devices is None and (data_parallel or 1) == 1:
-            self.devices = [resolve_device(device)]
+            # One replica: on ``device``, or on m of them.
+            first = resolve_device(device)
+            grid = ([first] * m if m == 1 or first.type == "cpu"
+                    else make_mesh(None, 1, m))
         else:
-            self.devices = make_mesh(devices, data_parallel)
+            grid = make_mesh(devices, data_parallel, m)
+        self.devices = grid[::m]
+        if len(self.devices) > 1:
             check_batch_divisible(batch_size, len(self.devices))
         self.device = self.devices[0]
         self.model_name = model
@@ -195,12 +218,16 @@ class InferenceSession:
             for p in self._model.parameters():
                 p.data = p.data.to(torch.bfloat16)
         # One replica per device, copied on the host; replica 0 is
-        # ``self.model``.
-        self._replicas = [self._model] + [
+        # ``self.model`` unless the replicas split their decoders.
+        self._replicas = [self._model if m == 1 else
+                          copy.deepcopy(self._model)] + [
             copy.deepcopy(self._model) for _ in self.devices[1:]]
         self._folded = []
-        for rep, dev in zip(self._replicas, self.devices):
+        for i, (rep, dev) in enumerate(zip(self._replicas, self.devices)):
             rep.to(dev).eval().requires_grad_(False)
+            if m > 1:
+                tp.parallelize_in_process_(rep.decoder,
+                                           grid[i * m:(i + 1) * m])
             with torch.inference_mode(), _on(dev):
                 self._folded.append(rep.encoder.fold())
 

@@ -37,6 +37,7 @@ from pointnet_autoencoder_tpu_torch.ops.chamfer import (
 )
 from pointnet_autoencoder_tpu_torch.ops.emd import emd_loss
 from pointnet_autoencoder_tpu_torch.ops.fused_encoder import FoldedChain
+from pointnet_autoencoder_tpu_torch.parallel import tp
 
 Tensor = torch.Tensor
 EndPoints = Dict[str, Tensor]
@@ -85,18 +86,37 @@ class PointAutoencoder(nn.Module):
                 m.group = group
         self.encoder.point_group = None
 
-    def set_point_group(self, group) -> None:
+    def set_point_group(self, group, data_group=None,
+                        stats_group=None) -> None:
         """Point parallelism: the ranks of ``group`` (a
         ``parallel.mesh.DataGroup``, or None) each feed their share of
         every shape's points. The encoder's BatchNorms (its fused head
-        included) take the group, so their statistics cover every point,
-        and the encoder combines its max over the ranks; the neck and the
-        decoder see the whole batch on every rank and take none."""
-        self.set_data_group(None)
+        included) take ``stats_group`` (default ``group``), so their
+        statistics cover every point, and the encoder combines its max
+        over ``group``; the neck and the decoder see every point of their
+        rows and take ``data_group``: None when every rank holds the whole
+        batch, the data group under DP x SP, where the rows split over
+        it and the statistics are taken over every rank."""
+        self.set_data_group(data_group)
         for m in self.encoder.modules():
             if isinstance(m, BatchNorm):
-                m.group = group
+                m.group = group if stats_group is None else stats_group
         self.encoder.point_group = group
+
+    def set_model_group(self, group) -> None:
+        """Tensor parallelism: split the decoder's FC layers over the
+        model ``group`` (``parallel/tp.py``; a ``parallel.mesh.DataGroup``
+        of m > 1 ranks). The model must hold the full weights."""
+        tp.shard_model_(self, group)
+
+    def encode(self, points: Tensor, train: bool = False,
+               bn_momentum: float = 0.9,
+               folded: Optional[FoldedChain] = None) -> Tensor:
+        """The encoder and the neck: (B, N, 3) -> the embedding (B, D)."""
+        feat = self.encoder(points, train, bn_momentum, folded=folded)
+        for name in self.neck_names:
+            feat = getattr(self, name)(feat, train, bn_momentum)
+        return feat
 
     def forward(self, points: Tensor, train: bool = False,
                 bn_momentum: float = 0.9,
@@ -108,9 +128,7 @@ class PointAutoencoder(nn.Module):
         momentum ``bn_momentum``; else the moving statistics, unchanged.
         folded: the encoder chain from ``encoder.fold()``, to skip folding
         per eval call."""
-        feat = self.encoder(points, train, bn_momentum, folded=folded)
-        for name in self.neck_names:
-            feat = getattr(self, name)(feat, train, bn_momentum)
+        feat = self.encode(points, train, bn_momentum, folded=folded)
         end_points = {"embedding": feat}
         pred, extras = self.decoder(feat, train, bn_momentum)
         end_points.update(extras)

@@ -7,6 +7,13 @@ returns (points (B, P, 3), extras). Its products stay ordinary
 ``F.linear`` and ``F.conv_transpose2d`` calls, as the reference leaves
 them to XLA. The upconv families keep their maps channels-last,
 (B, H, W, C), and flatten the final xyz map row-major over (H, W).
+
+The FC layers' names carry their tensor-parallel roles
+(``parallel/tp.py``): ``fc1`` and ``fc3`` column-parallel, ``fc2``
+row-parallel. ``tp.shard_model_`` gives each its slices and the model
+group (the layer runs the collectives, ``nn/layers.py``), and
+``tp.parallelize_in_process_`` replaces them for serving; the forward
+code here is the same either way.
 """
 
 from __future__ import annotations

@@ -23,6 +23,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from pointnet_autoencoder_tpu_torch.parallel import tp
+
 Tensor = torch.Tensor
 
 
@@ -101,7 +103,15 @@ class BatchNorm(nn.Module):
 
 
 class PointMLP(nn.Module):
-    """Per-point shared MLP: Dense over the channel axis, BN, ReLU."""
+    """Per-point shared MLP: Dense over the channel axis, BN, ReLU.
+
+    Under tensor parallelism (``set_tensor_parallel``, by
+    ``parallel/tp.shard_model_``) the layer holds this rank's slices and
+    runs its role over the model group: a column-parallel layer sums its
+    input's gradient over the group, computes its output channels and, if
+    it gathers, concatenates the ranks' channels; a row-parallel layer
+    sums the ranks' partial products in f32 and adds its bias once. With
+    no group it runs the one-device code."""
 
     def __init__(self, in_features: int, features: int, bn: bool = True,
                  relu: bool = True, dtype: torch.dtype = torch.float32,
@@ -112,13 +122,38 @@ class PointMLP(nn.Module):
                            generator=generator)
         self.bn = BatchNorm(features, device=device) if bn else None
         self.relu = relu
+        self.tp_role: Optional[str] = None
+        self.tp_group = None
+        self.tp_gathers = False
 
-    def forward(self, x: Tensor, train: bool = False,
-                bn_momentum: float = 0.9) -> Tensor:
-        x = self.dense(x)
+    def set_tensor_parallel(self, role: str, group, gathers: bool) -> None:
+        """Take the tensor-parallel ``role`` ("column" or "row") over the
+        model ``group``; ``gathers``: a column-parallel layer's output is
+        concatenated over the group."""
+        if role not in ("column", "row"):
+            raise ValueError(f"unknown tensor-parallel role {role!r}")
+        self.tp_role, self.tp_group, self.tp_gathers = role, group, gathers
+
+    def activate(self, x: Tensor, train: bool, bn_momentum: float) -> Tensor:
+        """BN (if any) and ReLU (if any) of the dense output ``x``."""
         if self.bn is not None:
             x = self.bn(x, train, bn_momentum)
         return F.relu(x) if self.relu else x
+
+    def forward(self, x: Tensor, train: bool = False,
+                bn_momentum: float = 0.9) -> Tensor:
+        group = self.tp_group
+        if group is None:
+            return self.activate(self.dense(x), train, bn_momentum)
+        if self.tp_role == "row":
+            d = self.dense
+            partial = F.linear(x.to(d.dtype), d.weight.to(d.dtype))
+            y = (tp.reduce_from_model(partial, group)
+                 + d.bias.float()).to(d.dtype)
+            return self.activate(y, train, bn_momentum)
+        y = self.activate(self.dense(tp.copy_to_model(x, group)), train,
+                          bn_momentum)
+        return tp.gather_from_model(y, group) if self.tp_gathers else y
 
 
 class FC(PointMLP):

@@ -1,5 +1,7 @@
-"""Data parallelism over ``torch.distributed``: the devices of the data
-axis, the process group of a rank and its collectives, and the launcher.
+"""Data parallelism over ``torch.distributed``, and the (data, model)
+grid of ranks that tensor parallelism and DP x SP add to it: the devices
+of the ranks, the process groups of a rank and their collectives, and the
+launcher.
 
 Counterpart of ``pointnet_autoencoder_tpu/parallel/mesh.py``. The JAX
 package runs one program over a mesh and lets GSPMD insert the gradient
@@ -17,6 +19,13 @@ port inserts the collectives by hand:
   ``sum_gradients``), before the optimizer steps;
 - metrics and the preemption flag ride one all-reduce where the host
   waits anyway (``train/loop.py``).
+
+With ``model_parallel`` m > 1 the k ranks form a (k/m, m) grid in JAX's
+row-major order, rank = d*m + t (``ProcessMesh``): the ranks of one model
+group (same d) hold one data shard and split the decoder's FC layers
+(``parallel/tp.py``), or, under DP x SP, the points (``parallel/sp.py``);
+the ranks of one data group (same t) hold the same slices and average
+over the batch. At m = 1 the data group is the whole world.
 
 Serving is one process with a model replica per device of ``make_mesh``
 (``inference.py``); it needs no process group.
@@ -44,38 +53,49 @@ Tensor = torch.Tensor
 LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                 "MASTER_PORT")
 
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
 
 def make_mesh(devices: Optional[Sequence] = None,
-              data_parallel: Optional[int] = None) -> List[torch.device]:
-    """The devices of the data axis, one per rank or replica.
+              data_parallel: Optional[int] = None,
+              model_parallel: int = 1) -> List[torch.device]:
+    """The devices of the (data, model) grid, one per rank or replica
+    shard, in rank order: rank d*m + t is data index d, model index t.
 
     With ``devices`` None they are distinct cards ``cuda:0..k-1``, k =
-    ``data_parallel``, or every visible card when that is None. An explicit
-    ``devices`` list is taken in order (its first ``data_parallel``
-    entries) and may name one device more than once: that puts several
-    replicas on one card or on the CPU. Raises ValueError when more
-    devices are asked for than exist, and RuntimeError for a CUDA device
-    without a card; nothing moves to fewer devices or to the CPU."""
+    ``data_parallel`` * ``model_parallel``; ``data_parallel`` None takes
+    every visible card (as many model groups as fit). An explicit
+    ``devices`` list is taken in order (its first k entries; with
+    ``data_parallel`` None as many model groups as it holds) and may name
+    one device more than once: that puts several ranks or replicas on one
+    card or on the CPU. Raises ValueError when more devices are asked for
+    than exist, and RuntimeError for a CUDA device without a card; nothing
+    moves to fewer devices or to the CPU."""
     if data_parallel is not None and data_parallel < 1:
         raise ValueError(f"data_parallel={data_parallel} must be >= 1")
+    if model_parallel < 1:
+        raise ValueError(f"model_parallel={model_parallel} must be >= 1")
+    m = model_parallel
+    grid = "" if m == 1 else f" x model_parallel={m}"
     if devices is None:
         count = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        k = count if data_parallel is None else data_parallel
-        if k == 0 or k > count:
+        d = count // m if data_parallel is None else data_parallel
+        if d == 0 or d * m > count:
             asked = ("None (every visible card)" if data_parallel is None
                      else data_parallel)
             raise ValueError(
-                f"data_parallel={asked} needs {max(k, 1)} CUDA device(s) "
-                f"but {count} are available; pass devices=[...] to name "
-                f"the devices (the CPU included) explicitly")
-        return [torch.device("cuda", i) for i in range(k)]
+                f"data_parallel={asked}{grid} needs {max(d * m, m)} CUDA "
+                f"device(s) but {count} are available; pass devices=[...] "
+                f"to name the devices (the CPU included) explicitly")
+        return [torch.device("cuda", i) for i in range(d * m)]
     devices = list(devices)
-    k = len(devices) if data_parallel is None else data_parallel
-    if k == 0 or k > len(devices):
+    d = len(devices) // m if data_parallel is None else data_parallel
+    if d == 0 or d * m > len(devices):
         raise ValueError(
-            f"data_parallel={k} needs {k} devices but only {len(devices)} "
-            f"are given ({[str(d) for d in devices]})")
-    return [resolve_device(d) for d in devices[:k]]
+            f"data_parallel={d}{grid} needs {max(d * m, m)} devices but only "
+            f"{len(devices)} are given ({[str(x) for x in devices]})")
+    return [resolve_device(x) for x in devices[:d * m]]
 
 
 def check_batch_divisible(batch_size: int, data_parallel: int) -> None:
@@ -175,26 +195,29 @@ class DataGroup:
         mean loss, so the mean of the ranks' gradients is the gradient of
         the global batch's mean loss. The ranks run one graph, so the same
         parameters have gradients on every rank."""
-        self._reduce_gradients(params, divide=True)
+        self.reduce_gradients(params, self.world_size)
 
     def sum_gradients(self, params) -> None:
         """Replace every ``.grad`` of ``params`` by its sum over the ranks,
         in one flat all-reduce: under point parallelism each rank's loss is
         its share of the global loss (``parallel/sp.py``)."""
-        self._reduce_gradients(params, divide=False)
+        self.reduce_gradients(params, 1)
 
-    def _reduce_gradients(self, params, divide: bool) -> None:
-        """The gradients are reduced in f32 whatever their dtype: bf16
-        gradients (of bf16 master weights) are upcast exactly, summed (and
-        scaled) in f32, and each result is rounded back to its gradient's
-        dtype to nearest even, the rounding of ``Tensor.copy_``."""
+    def reduce_gradients(self, params, divisor: int) -> None:
+        """Replace every ``.grad`` of ``params`` by its sum over the ranks
+        divided by ``divisor``, in one flat all-reduce (DP x SP divides
+        the sum over every rank by the batch axis's size). The gradients
+        are reduced in f32 whatever their dtype: bf16 gradients (of bf16
+        master weights) are upcast exactly, summed (and scaled) in f32,
+        and each result is rounded back to its gradient's dtype to nearest
+        even, the rounding of ``Tensor.copy_``."""
         grads = [p.grad for p in params if p.grad is not None]
         if not grads:
             return
         flat = torch.cat([g.reshape(-1).float() for g in grads])
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
-        if divide:
-            flat.div_(self.world_size)
+        if divisor != 1:
+            flat.div_(divisor)
         offset = 0
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -213,7 +236,10 @@ class DataGroup:
         return bool(t.item() > 0)
 
     def broadcast_(self, x: Tensor, src: int = 0) -> Tensor:
-        """Overwrite ``x`` with rank ``src``'s in place; returns x."""
+        """Overwrite ``x`` with rank ``src``'s (of this group) in place;
+        returns x."""
+        if self.group is not None:
+            src = dist.get_global_rank(self.group, src)
         dist.broadcast(x, src=src, group=self.group)
         return x
 
@@ -221,6 +247,63 @@ class DataGroup:
         """Wait until every rank has arrived (an all-reduce, which both
         backends run on the group's device)."""
         self.any(False)
+
+
+class ProcessMesh:
+    """This process's place on the (data, model) grid of the ranks of the
+    default process group: ``world`` (every rank), ``data`` (the ranks of
+    this model index, which hold the same model slices or point shards
+    and split the batch) and ``model`` (the ranks of this data index,
+    which split the decoder's FC layers or the points; None at m = 1),
+    each a ``DataGroup``; ``data_index`` d and ``model_index`` t with
+    world rank d*m + t, and ``shape`` {DATA_AXIS: k/m, MODEL_AXIS: m}.
+
+    At ``model_parallel`` 1 the data group is the default group itself.
+    Otherwise every rank creates every subgroup, in one order (all data
+    groups, then all model groups): ``torch.distributed.new_group`` is a
+    collective of the whole world, and a rank that created another group,
+    or one in another order, would hang the others."""
+
+    def __init__(self, device: torch.device, model_parallel: int = 1):
+        self.world = DataGroup(device)
+        m = model_parallel
+        if m < 1 or self.world.world_size % m:
+            raise ValueError(
+                f"model_parallel={m} does not divide the "
+                f"{self.world.world_size} ranks of the process group")
+        d = self.world.world_size // m
+        self.shape = {DATA_AXIS: d, MODEL_AXIS: m}
+        self.data_index, self.model_index = divmod(self.world.rank, m)
+        if m == 1:
+            self.data, self.model = self.world, None
+            return
+        data_groups = [dist.new_group([i * m + t for i in range(d)])
+                       for t in range(m)]
+        model_groups = [dist.new_group([i * m + t for t in range(m)])
+                        for i in range(d)]
+        self.data = DataGroup(device, data_groups[self.model_index])
+        self.model = DataGroup(device, model_groups[self.data_index])
+
+    @classmethod
+    def current(cls, device: torch.device,
+                model_parallel: int = 1) -> Optional["ProcessMesh"]:
+        """The grid of the default process group, or None when this
+        process is in none."""
+        if not (dist.is_available() and dist.is_initialized()):
+            return None
+        return cls(device, model_parallel)
+
+    def group(self, axis: str) -> Optional[DataGroup]:
+        """The group along ``axis`` (DATA_AXIS or MODEL_AXIS)."""
+        if axis not in self.shape:
+            raise ValueError(f"unknown mesh axis {axis!r}; the axes are "
+                             f"{DATA_AXIS!r} and {MODEL_AXIS!r}")
+        return self.data if axis == DATA_AXIS else self.model
+
+    def index(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        self.group(axis)
+        return self.data_index if axis == DATA_AXIS else self.model_index
 
 
 def _rank_entry(local_rank: int, fn: Callable, mesh: List[torch.device],

@@ -48,19 +48,30 @@ every x, -0.0 included), which gloo runs on CUDA tensors; every rank then
 picks the same winner locally. ``model_cpu`` keeps its meaning, the
 dense Chamfer without a kernel, on every shard (the JAX package's SP loss
 sends it through the point-sharded Chamfer of ``model``; the values are
-the same). The DP x SP composition (the JAX package's ``batch_axis``)
-needs a 2-D process group and is not ported yet (ROADMAP item 11).
+the same).
+
+DP x SP (``make_sp_step_fns(..., batch_axis=...)``, the JAX package's
+``batch_axis``; a library API, as there, with no CLI flag): on a (data,
+model) grid of ranks (``parallel.mesh.ProcessMesh``) the batch splits over
+one axis and the points over the other. The point combines stay within
+the point group, the encoder's BN and head moments are taken over every
+rank (equal shards of rows and points), the neck's and decoder's over the
+batch group, and the gradients and metrics are summed over every rank and
+divided by the batch axis's size: summed over the point shares, averaged
+over the rows.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import contextlib
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
 from pointnet_autoencoder_tpu_torch.ops import chamfer
 from pointnet_autoencoder_tpu_torch.ops import emd as emdlib
 from pointnet_autoencoder_tpu_torch.ops import fused_encoder, fused_head
+from pointnet_autoencoder_tpu_torch.parallel.mesh import DATA_AXIS
 
 Tensor = torch.Tensor
 LossFn = Callable[[Tensor, Tensor, Dict[str, Tensor]],
@@ -72,6 +83,13 @@ def check_points_divisible(num_point: int, world_size: int) -> None:
         raise ValueError(
             f"point axis N={num_point} must divide by the point-parallel "
             f"degree {world_size}")
+
+
+def _check_batch_axis(batch: int, size: int, axis: str) -> None:
+    if batch % size != 0:
+        raise ValueError(
+            f"batch axis B={batch} must divide by mesh axis {axis!r} size "
+            f"{size}")
 
 
 def point_slice(num_point: int, rank: int, world_size: int) -> slice:
@@ -268,3 +286,84 @@ def sp_loss_fn(name: str, group) -> LossFn:
 
         return hierarchy_fn
     raise ValueError(f"no point-sharded loss for config {name!r}")
+
+
+# -- the train step, and DP x SP ----------------------------------------------
+
+
+@contextlib.contextmanager
+def cudnn_deterministic() -> Iterator[None]:
+    """cuDNN's deterministic algorithms within the block; the previous
+    setting is restored after it. The decoder runs on every rank of a
+    point group and must give each the same prediction: cuDNN's
+    transposed convolutions (the upconv decoders) otherwise may pick
+    algorithms that add in arrival order."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def point_batch_shard(batch: Tensor, mesh, axis: str = DATA_AXIS,
+                      batch_axis: Optional[str] = None) -> Tensor:
+    """This rank's part of a global (B, N, 3) batch on ``mesh`` (a
+    ``parallel.mesh.ProcessMesh``): its contiguous points along ``axis``
+    and, with ``batch_axis``, its contiguous rows along that axis (the JAX
+    package's ``point_batch_sharding``). Raises ValueError if the axis
+    sizes do not divide B and N."""
+    k = mesh.shape[axis]
+    out = batch[:, point_slice(batch.shape[1], mesh.index(axis), k)]
+    if batch_axis is not None:
+        d = mesh.shape[batch_axis]
+        _check_batch_axis(batch.shape[0], d, batch_axis)
+        per = batch.shape[0] // d
+        i = mesh.index(batch_axis)
+        out = out[i * per:(i + 1) * per]
+    return out.contiguous()
+
+
+def make_sp_step_fns(state, name: str, bn_schedule: Callable[[int], float],
+                     mesh, axis: str = DATA_AXIS,
+                     batch_axis: Optional[str] = None):
+    """(train_step, eval_step) of the point-sharded step of ``--model
+    name`` on ``mesh`` (a ``parallel.mesh.ProcessMesh``), the JAX
+    package's ``make_sp_step_fns``: each takes this rank's part of a
+    global batch (``point_batch_shard(batch, mesh, axis, batch_axis)``),
+    its own label, and returns the global batch's loss and metrics on
+    every rank. ``state`` is the ``train.state.TrainState`` the train step
+    advances; its model is given the groups here.
+
+    axis: the mesh axis whose ranks split the points.
+    batch_axis: a second mesh axis whose ranks split the batch (DP x SP);
+      None: every rank of ``axis`` holds the whole batch.
+    """
+    if batch_axis == axis:
+        raise ValueError(f"axis and batch_axis are both {axis!r}")
+    point = mesh.group(axis)
+    rows = None if batch_axis is None else mesh.group(batch_axis)
+    everyone = point if rows is None else mesh.world
+    divisor = 1 if rows is None else rows.world_size
+    state.model.set_point_group(point, data_group=rows,
+                                stats_group=everyone)
+    loss_fn = sp_loss_fn(name, point)
+    on_card = next(state.model.parameters()).is_cuda
+    context = cudnn_deterministic if on_card else contextlib.nullcontext
+
+    def combined(metrics):
+        keys = sorted(k for k, v in metrics.items() if torch.is_tensor(v))
+        values = everyone.sum_(torch.stack([metrics[k].float()
+                                            for k in keys])) / divisor
+        return dict(metrics, **dict(zip(keys, values.unbind())))
+
+    def train_step(batch_local: Tensor):
+        return combined(state.train_step(
+            batch_local, loss_fn, bn_schedule,
+            lambda params: everyone.reduce_gradients(params, divisor),
+            context))
+
+    def eval_step(batch_local: Tensor):
+        return combined(state.eval_step(batch_local, loss_fn, context))
+
+    return train_step, eval_step

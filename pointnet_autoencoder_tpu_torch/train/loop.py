@@ -49,12 +49,19 @@ one device or as one rank of a data-parallel group:
   each rank its share of the loss. The gradients and the logged metrics
   are then summed over the ranks instead of averaged. At k = 1 (or
   without a group) the plain step runs.
+- Tensor parallelism (``model_parallel`` m > 1): the k ranks form a
+  (k/m, m) grid (``parallel.mesh.ProcessMesh``); the m ranks of a model
+  group take the same rows and split the decoder's FC layers
+  (``parallel/tp.py``), each holding its slices and their optimizer
+  slots. BN and the gradient average run over the data group (the ranks
+  of one model index), the metrics are the data group's mean, and the
+  stop flag rides an all-reduce over every rank. Checkpoints hold the
+  gathered full tensors in the one-device format, so a TP checkpoint
+  serves on one card and resumes at any degree that divides its widths.
 - bf16 master weights and moments (``bf16_params``, ``bf16_moments``):
   the matmul parameters, or their optimizer moments, are stored in
   bfloat16 and the optimizer is ``train/master.MasterOptimizer`` (f32
   arithmetic, stochastic rounding into the bf16 leaves).
-
-Not ported yet (ROADMAP queue 1): model parallelism.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pointnet_autoencoder_tpu_torch.config import TrainConfig
 from pointnet_autoencoder_tpu_torch.data.device_pipeline import (
@@ -78,9 +86,10 @@ from pointnet_autoencoder_tpu_torch.data.pipeline import BatchPipeline
 from pointnet_autoencoder_tpu_torch.data.shapenet_part import PartDataset
 from pointnet_autoencoder_tpu_torch.device import resolve_device
 from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
-from pointnet_autoencoder_tpu_torch.parallel import sp
+from pointnet_autoencoder_tpu_torch.parallel import sp, tp
+from pointnet_autoencoder_tpu_torch.parallel.sp import cudnn_deterministic
 from pointnet_autoencoder_tpu_torch.parallel.mesh import (
-    DataGroup,
+    ProcessMesh,
     check_batch_divisible,
 )
 from pointnet_autoencoder_tpu_torch.train import (
@@ -96,18 +105,6 @@ from pointnet_autoencoder_tpu_torch.train.logging import (
 from pointnet_autoencoder_tpu_torch.train.state import TrainState, make_optimizer
 
 Metrics = Dict[str, object]  # scalar tensors on the device, or floats
-
-
-@contextlib.contextmanager
-def cudnn_deterministic() -> Iterator[None]:
-    """cuDNN's deterministic algorithms within the block; the previous
-    setting is restored after it."""
-    before = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = before
 
 
 def fetch_metric_windows(pending: List[Metrics], windows: List[Tuple[int, int]]
@@ -131,14 +128,15 @@ def fetch_metric_windows(pending: List[Metrics], windows: List[Tuple[int, int]]
 class Trainer:
     """End-to-end training on one device, or as this process's rank of a
     data-parallel group (the default process group, when one is
-    initialized), or of a point-parallel one (``config.point_parallel``).
-    Datasets may be injected (tests, custom data); otherwise they are
-    built from config.data_path.
+    initialized), of a point-parallel one (``config.point_parallel``), or
+    of a (data, model) grid (``config.model_parallel`` > 1). Datasets may
+    be injected (tests, custom data); otherwise they are built from
+    config.data_path.
 
     device: ``"cuda"`` (default; raises without a card) or ``"cpu"``,
     which runs the kernels' plain PyTorch versions. ``config.data_parallel``
-    k > 1 needs a process group of k ranks; None takes the group this
-    process is in, if any."""
+    k and ``config.model_parallel`` m need a process group of k*m ranks;
+    ``data_parallel`` None takes the group this process is in, if any."""
 
     def __init__(self, config: TrainConfig,
                  train_dataset: Optional[PartDataset] = None,
@@ -155,16 +153,31 @@ class Trainer:
             # off for matmuls and for cuDNN's convolutions (on by default).
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.group = DataGroup.current(self.device)
-        world = 1 if self.group is None else self.group.world_size
-        if config.data_parallel is not None and config.data_parallel != world:
+        grouped = dist.is_available() and dist.is_initialized()
+        world = dist.get_world_size() if grouped else 1
+        m = config.model_parallel
+        data = (config.data_parallel if config.data_parallel is not None
+                else max(world // m, 1))
+        if data * m != world:
+            grid = "" if m == 1 else f" x model_parallel={m}"
             raise ValueError(
-                f"data_parallel={config.data_parallel} needs a process group "
-                f"of {config.data_parallel} ranks with one Trainer in each "
-                f"(cli.train --data_parallel, parallel.mesh.launch or "
-                f"torchrun); this process is in "
-                f"{'none' if self.group is None else f'one of {world}'}")
-        self.rank = 0 if self.group is None else self.group.rank
+                f"data_parallel={data}{grid} needs a process group of "
+                f"{data * m} ranks with one Trainer in each (cli.train "
+                f"--data_parallel, parallel.mesh.launch or torchrun); this "
+                f"process is in {f'one of {world}' if grouped else 'none'}")
+        # The (data, model) grid: every rank, the data group (the ranks of
+        # this model index: BN and the gradient average; the whole world
+        # at m = 1, None when it is this rank alone under m > 1) and the
+        # model group (the ranks that split the decoder; None at m = 1).
+        self.mesh = ProcessMesh(self.device, m) if grouped else None
+        self.world = None if self.mesh is None else self.mesh.world
+        self.group = (None if self.mesh is None or (
+            m > 1 and data == 1) else self.mesh.data)
+        self.model_group = None if self.mesh is None else self.mesh.model
+        self.rank = 0 if self.mesh is None else self.world.rank
+        # This rank's place on the data axis: its rows of every batch.
+        data_rank = 0 if self.mesh is None else self.mesh.data_index
+        self._data_size = data
         # Whether the ranks split the points (the batch otherwise).
         self.sp_active = config.point_parallel and world > 1
         if self.sp_active:
@@ -173,10 +186,10 @@ class Trainer:
             self._points = sp.point_slice(config.num_point, self.rank, world)
             self.loss_fn = sp.sp_loss_fn(config.model, self.group)
         else:
-            check_batch_divisible(config.batch_size, world)
-            rows = config.batch_size // world
+            check_batch_divisible(config.batch_size, data)
+            rows = config.batch_size // data
             # This rank's rows of every global batch.
-            self._rows = slice(self.rank * rows, (self.rank + 1) * rows)
+            self._rows = slice(data_rank * rows, (data_rank + 1) * rows)
             self._points = slice(None)
             self.loss_fn = self.spec.loss_fn
         # The decoder runs on every point-parallel rank and must give each
@@ -218,7 +231,7 @@ class Trainer:
                 shuffle=False, seed=config.seed + 1, device=self.device)
         elif self.input_mode == "host":
             shard = dict(point_shard=(self.rank, world)) if self.sp_active \
-                else dict(shard=(self.rank, world))
+                else dict(shard=(data_rank, data))
             self.train_pipe = BatchPipeline(
                 self.train_dataset, config.batch_size,
                 rotate=not config.no_rotation, shuffle=True,
@@ -242,12 +255,23 @@ class Trainer:
             model.set_point_group(self.group)
         else:
             model.set_data_group(self.group)
+        if self.model_group is not None:
+            model.set_model_group(self.model_group)
+        self._param_names = [n for n, _ in model.named_parameters()]
         if config.bf16_params:
             master.cast_master_bf16(model)
         if config.bf16_params or config.bf16_moments:
+            # Under TP each split leaf draws its slice of the full leaf's
+            # noise: every rank of a model group rounds its replicated
+            # leaves with the same noise, and the ranks together round as
+            # one device does.
+            shards = {} if self.model_group is None else {
+                n: (tp.spec_for_name(n), self.model_group.rank, m)
+                for n in self._param_names
+                if tp.spec_for_name(n) is not None}
             optimizer = master.MasterOptimizer(
                 model.named_parameters(), config.optimizer, config.momentum,
-                bf16_moments=config.bf16_moments)
+                bf16_moments=config.bf16_moments, shards=shards)
         else:
             optimizer = make_optimizer(config.optimizer, model.parameters(),
                                        config.momentum)
@@ -277,10 +301,10 @@ class Trainer:
         # rank's flag, folded into the metrics' all-reduce).
         self._stop_agreed = False
         if config.resume:
-            if self.group is not None:
-                self.group.barrier()
+            if self.world is not None:
+                self.world.barrier()
             self._try_resume()
-        if self.group is not None:
+        if self.world is not None:
             self._check_replicas_agree()
 
     @property
@@ -291,78 +315,75 @@ class Trainer:
 
     def train_step(self, batch: torch.Tensor) -> Metrics:
         """One optimizer step on ``batch`` (B, N, 3), its own label."""
-        st = self.state
-        bn_momentum = self.bn_schedule(st.step)
-        lr = st.set_lr()
-        with self._replicated():
-            pred, end_points = st.model(batch, train=True,
-                                        bn_momentum=bn_momentum)
-            loss, metrics = self.loss_fn(pred, batch, end_points)
-            st.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
         if self.sp_active:
-            self.group.sum_gradients(st.model.parameters())
+            reduce = self.group.sum_gradients
         elif self.group is not None:
-            self.group.average_gradients(st.model.parameters())
-        st.optimizer.step()
-        st.step += 1
-        out: Metrics = {k: v.detach() for k, v in metrics.items()}
-        out["loss"] = loss.detach()
-        out["learning_rate"] = lr
-        out["bn_decay"] = bn_momentum
-        return out
+            reduce = self.group.average_gradients
+        else:
+            reduce = None
+        return self.state.train_step(batch, self.loss_fn, self.bn_schedule,
+                                     reduce, self._replicated)
 
-    @torch.no_grad()
     def eval_step(self, batch: torch.Tensor) -> Metrics:
-        with self._replicated():
-            pred, end_points = self.state.model(batch, train=False)
-            loss, metrics = self.loss_fn(pred, batch, end_points)
-        out: Metrics = dict(metrics)
-        out["loss"] = loss
-        return out
+        return self.state.eval_step(batch, self.loss_fn, self._replicated)
 
-    # -- data parallelism ---------------------------------------------------
+    # -- data and model parallelism -----------------------------------------
 
     def _check_replicas_agree(self) -> None:
-        """Raise on every rank unless all hold rank 0's parameters and BN
-        statistics bit for bit (seeded init, or one checkpoint): one
-        broadcast at start-up."""
-        mine = torch.cat([t.detach().float().reshape(-1)
-                          for t in self.model.state_dict().values()])
-        ranks0 = self.group.broadcast_(mine.clone())
-        if self.group.any(not torch.equal(mine, ranks0)):
+        """Raise on every rank unless all hold the same parameters and BN
+        statistics bit for bit (seeded init, or one checkpoint): the ranks
+        of each data group the same slices, those of each model group the
+        same replicated entries; one broadcast each at start-up."""
+        sd = self.model.state_dict()
+
+        def flat(names):
+            return torch.cat([sd[n].detach().float().reshape(-1)
+                              for n in names])
+
+        mine = flat(list(sd))
+        differs = (self.group is not None and not torch.equal(
+            mine, self.group.broadcast_(mine.clone())))
+        if self.model_group is not None:
+            rep = flat(tp.replicated_names(self.model))
+            differs |= not torch.equal(
+                rep, self.model_group.broadcast_(rep.clone()))
+        if self.world.any(differs):
             raise RuntimeError("the ranks' weights differ at start-up; every "
                                "rank must build the model from one seed or "
                                "resume from one checkpoint")
 
     def _should_stop(self) -> bool:
         """The step loops' test for a stop: this process's signal flag on
-        one device; under data parallelism what the ranks last agreed, so
-        that all stop at one step."""
-        return self._preempted if self.group is None else self._stop_agreed
+        one device; on ranks what the ranks last agreed, so that all stop
+        at one step."""
+        return self._preempted if self.world is None else self._stop_agreed
 
     def _fetch_windows(self, pending: List[Metrics],
                        windows: List[Tuple[int, int]]
                        ) -> List[Dict[str, float]]:
-        """``fetch_metric_windows`` of this rank's metrics. Under data
-        parallelism each step's tensor metrics are first averaged over the
-        ranks (equal shards: the global batch's means) in one all-reduce,
-        which also carries this rank's stop flag: if any rank was
-        signalled, all agree to stop. Under point parallelism they are
-        summed (each rank's are its shares)."""
-        if self.group is not None:
+        """``fetch_metric_windows`` of this rank's metrics. On ranks each
+        step's tensor metrics are first averaged over the data axis (equal
+        shards: the global batch's means) in one all-reduce over every
+        rank, which also carries this rank's stop flag: if any rank was
+        signalled, all agree to stop. Under tensor parallelism every rank
+        of a model group holds the same metrics, and model index 0's
+        count. Under point parallelism they are summed (each rank's are
+        its shares)."""
+        if self.world is not None:
             keys = sorted(k for k, v in pending[0].items()
                           if torch.is_tensor(v))
             rows = torch.stack([torch.stack([m[k].float() for k in keys])
                                 for m in pending])
+            if self.model_group is not None and self.model_group.rank:
+                rows = torch.zeros_like(rows)
             buf = torch.cat([rows.reshape(-1), torch.tensor(
                 [float(self._preempted)], device=rows.device)])
-            self.group.sum_(buf)
+            self.world.sum_(buf)
             if buf[-1].item() > 0:
                 self._stop_agreed = True
             rows = buf[:-1].view(rows.shape)
             if not self.sp_active:
-                rows = rows / self.group.world_size
+                rows = rows / self._data_size
             pending = [dict(m, **dict(zip(keys, row)))
                        for m, row in zip(pending, rows)]
         return fetch_metric_windows(pending, windows)
@@ -376,6 +397,10 @@ class Trainer:
                             "starting fresh")
             return
         tree = checkpoint.load(path, map_location=self.device)
+        if self.model_group is not None:
+            tree = tp.shard_state(tree, self._param_names,
+                                  self.model_group.rank,
+                                  self.model_group.world_size)
         self.state.load_state_dict(tree)
         self.start_epoch = int(tree["epoch"])
         self.best_loss = float(tree["best_loss"])
@@ -383,22 +408,34 @@ class Trainer:
             f"resumed from {path} at epoch {self.start_epoch} "
             f"(best eval loss {self.best_loss:.6f})")
 
+    def _full_state(self) -> Dict[str, Any]:
+        """The train state with full tensors: under tensor parallelism
+        gathered over the model group (every rank of it must call this),
+        else this rank's own."""
+        tree = self.state.state_dict()
+        if self.model_group is not None:
+            tree = tp.gather_state(tree, self._param_names,
+                                   self.model_group)
+        return tree
+
     def _save(self, kind: str, epoch: int) -> None:
+        full = self._full_state() if self.model_group is not None else None
         if self.rank != 0:
             return
+        if full is None:
+            full = self.state.state_dict()
         if self._saver is not None:
             step = self.state.step
             if self._snap_cache is None or self._snap_cache[0] != step:
-                self._snap_cache = (step, checkpoint.snapshot(
-                    self.state.state_dict()))
+                self._snap_cache = (step, checkpoint.snapshot(full))
             tree = dict(self._snap_cache[1], epoch=epoch + 1,
                         best_loss=self.best_loss)
             # The worker logs "Model saved in file:" once the file is
             # written.
             self._saver.submit(kind, epoch, tree, device=self.device)
             return
-        tree = dict(checkpoint.to_host(self.state.state_dict()),
-                    epoch=epoch + 1, best_loss=self.best_loss)
+        tree = dict(checkpoint.to_host(full), epoch=epoch + 1,
+                    best_loss=self.best_loss)
         if kind == "best":
             path = self.ckpt.save_best(epoch, tree)
         else:
@@ -414,14 +451,16 @@ class Trainer:
                        else "a signal on another rank")
         self.logger.log(f"received {signal_name}: stopping at a step "
                         f"boundary")
+        full = self._full_state() if self.model_group is not None else None
         if self.rank != 0:
             return
         if self._saver is not None:
             # Earlier saves land before this one moves LATEST; this one is
             # synchronous, durable before train() returns.
             self._saver.flush()
-        tree = dict(checkpoint.to_host(self.state.state_dict()),
-                    epoch=epoch, best_loss=self.best_loss)
+        tree = dict(checkpoint.to_host(
+            self.state.state_dict() if full is None else full),
+            epoch=epoch, best_loss=self.best_loss)
         path = self.ckpt.save_periodic(tree)
         self.logger.log(f"preemption checkpoint saved: {path} (--resume "
                         f"restarts epoch {epoch})")
@@ -577,7 +616,7 @@ class Trainer:
                     # One device stops mid-epoch and restarts it on resume.
                     # Ranks stop where they agreed: an epoch that ran to
                     # its end (device input agrees there) is done.
-                    done = (self.group is not None
+                    done = (self.world is not None
                             and steps == len(self.train_pipe))
                     self._save_preempt(epoch + 1 if done else epoch)
                     return self.best_loss

@@ -23,7 +23,11 @@ Counterpart of ``pointnet_autoencoder_tpu/train/master.py``:
   seeded with (a fixed base, s), the JAX package's ``fold_in(key, step)``:
   deterministic, the same across a resume and on every rank of a group,
   so data-parallel replicas stay bit-equal. Each stream draws once per
-  step, for its bf16 leaves concatenated in parameter order. ``--bf16_moments`` draws from its own stream (base ``0x5EED ^
+  step, for its bf16 leaves concatenated in parameter order, each at its
+  full size: under tensor parallelism (``shards``) a split leaf takes its
+  slice of its full noise, so every rank of a model group rounds the
+  replicated leaves with the same noise (they stay bit-equal) and the
+  ranks together draw what one device draws. ``--bf16_moments`` draws from its own stream (base ``0x5EED ^
   0x3A7``, as the JAX package's), counted by the same step: the JAX
   package's separate ``count`` starts at 0 and advances once per update,
   as the step does. CUDA generators (Philox) and CPU generators (mt19937)
@@ -36,6 +40,7 @@ carried over. On this card it saves state bytes, not time (PERF.md).
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -133,16 +138,40 @@ def _split(flat: Tensor, like: List[Tensor]) -> List[Tensor]:
             zip(flat.split([t.numel() for t in like]), like)]
 
 
-def _round_into(tensors: List[Tensor], flat: Optional[Tensor],
-                generator: torch.Generator) -> None:
+def _round_into(tensors: List[Tensor], names: List[str],
+                flat: Optional[Tensor], generator: torch.Generator,
+                shards: Dict[str, Tuple[int, int, int]]) -> None:
     """Round ``flat``, the f32 working copy that ``_as_f32(tensors)`` made
     of their bf16 members, stochastically back into those members, with
-    one noise draw from ``generator``."""
+    one noise draw from ``generator``. ``names`` names each tensor's
+    parameter; a member split over a model group (``shards``: name ->
+    (dim, rank, parts)) takes its slice of the noise of its full shape."""
     if flat is None:
         return
-    low = [t for t in tensors if t.dtype != torch.float32]
-    rounded = stochastic_round_bf16(flat, draw_noise(flat.shape, generator))
-    torch._foreach_copy_(low, _split(rounded, low))
+    low = [(t, n) for t, n in zip(tensors, names) if t.dtype != torch.float32]
+    if not shards:
+        noise = draw_noise(flat.shape, generator)
+    else:
+        full = []
+        for t, n in low:
+            shape = list(t.shape)
+            if n in shards:
+                dim, _, parts = shards[n]
+                shape[dim] *= parts
+            full.append(shape)
+        drawn = draw_noise((sum(math.prod(s) for s in full),), generator)
+        parts = []
+        for (t, n), shape, seg in zip(low, full, drawn.split(
+                [math.prod(s) for s in full])):
+            seg = seg.view(shape)
+            if n in shards:
+                dim, rank, _ = shards[n]
+                seg = seg.narrow(dim, rank * t.shape[dim], t.shape[dim])
+            parts.append(seg.reshape(-1))
+        noise = torch.cat(parts)
+    rounded = stochastic_round_bf16(flat, noise)
+    members = [t for t, _ in low]
+    torch._foreach_copy_(members, _split(rounded, members))
 
 
 class MasterOptimizer:
@@ -161,11 +190,16 @@ class MasterOptimizer:
       ``exp_avg`` and ``exp_avg_sq``, momentum's ``momentum_buffer``),
       rounded stochastically after each update; BN parameters' slots stay
       f32. The slots start at zero, which bf16 holds exactly.
+    shards: under tensor parallelism, each parameter that is this rank's
+      slice of a split leaf, name -> (dim, rank, parts) (the split
+      dimension, this rank's index and the model group's size): its noise
+      is its slice of the full leaf's.
     """
 
     def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]],
                  name: str = "adam", momentum: float = 0.9,
-                 bf16_moments: bool = False):
+                 bf16_moments: bool = False,
+                 shards: Optional[Dict[str, Tuple[int, int, int]]] = None):
         if name not in ("adam", "momentum"):
             raise ValueError(f"unknown optimizer {name!r} (use 'adam' or "
                              f"'momentum')")
@@ -175,6 +209,7 @@ class MasterOptimizer:
         self.name = name
         self.momentum = momentum
         self.bf16_moments = bf16_moments
+        self.shards = dict(shards or {})
         self.param_groups: List[Dict[str, Any]] = [
             {"params": self.params, "lr": 0.0}]
         # The optimizer steps taken: Adam's bias-correction count, and the
@@ -220,8 +255,8 @@ class MasterOptimizer:
         params = [p for _, p in live]
         grads, _ = _as_f32([p.grad for p in params])
         p32, p_flat = _as_f32(params)
-        stored = [self.slots[n][s] for s in self.slots[live[0][0]]
-                  for n, _ in live]
+        slot_kinds = list(self.slots[live[0][0]])
+        stored = [self.slots[n][s] for s in slot_kinds for n, _ in live]
         work, slot_flat = _as_f32(stored)
         if self.name == "adam":
             # torch.optim.Adam's arithmetic, its foreach form.
@@ -239,8 +274,10 @@ class MasterOptimizer:
             torch._foreach_mul_(work, self.momentum)
             torch._foreach_add_(work, grads)
             torch._foreach_add_(p32, work, alpha=-lr)
-        _round_into(stored, slot_flat, gm)
-        _round_into(params, p_flat, gp)
+        names = [n for n, _ in live]
+        _round_into(stored, names * len(slot_kinds), slot_flat, gm,
+                    self.shards)
+        _round_into(params, names, p_flat, gp, self.shards)
 
     def state_dict(self) -> Dict[str, Any]:
         """The step, the learning rate and every slot by parameter name

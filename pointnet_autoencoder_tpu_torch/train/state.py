@@ -6,8 +6,9 @@ checkpoint holds them all. The port's counterpart of
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Iterable
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
 from torch import nn
@@ -54,3 +55,45 @@ class TrainState:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
+
+    def train_step(self, batch: torch.Tensor, loss_fn: Callable,
+                   bn_schedule: Callable[[int], float],
+                   reduce_gradients: Optional[Callable] = None,
+                   context: Callable = contextlib.nullcontext
+                   ) -> Dict[str, Any]:
+        """One optimizer step on ``batch``, its own label: forward with
+        bn_momentum = bn_schedule(step) and the learning rate lr(step)
+        (both read before the step advances), ``loss_fn(pred, batch,
+        end_points)``, backward, ``reduce_gradients(parameters)`` (the
+        collectives of a parallel step), the optimizer. The forward,
+        loss and backward run inside ``context()``. Returns the loss, the
+        metrics (detached), the learning rate and the BN momentum."""
+        bn_momentum = bn_schedule(self.step)
+        lr = self.set_lr()
+        with context():
+            pred, end_points = self.model(batch, train=True,
+                                          bn_momentum=bn_momentum)
+            loss, metrics = loss_fn(pred, batch, end_points)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if reduce_gradients is not None:
+            reduce_gradients(self.model.parameters())
+        self.optimizer.step()
+        self.step += 1
+        out = {k: v.detach() for k, v in metrics.items()}
+        out["loss"] = loss.detach()
+        out["learning_rate"] = lr
+        out["bn_decay"] = bn_momentum
+        return out
+
+    @torch.no_grad()
+    def eval_step(self, batch: torch.Tensor, loss_fn: Callable,
+                  context: Callable = contextlib.nullcontext
+                  ) -> Dict[str, Any]:
+        """The loss and metrics of the eval forward on ``batch``."""
+        with context():
+            pred, end_points = self.model(batch, train=False)
+            loss, metrics = loss_fn(pred, batch, end_points)
+        out = dict(metrics)
+        out["loss"] = loss
+        return out

@@ -41,7 +41,8 @@ def test_every_module_is_listed():
                  "data.synthetic", "data.pipeline", "train.schedules",
                  "train.state", "train.checkpoint", "train.logging",
                  "train.loop", "train.master", "parallel", "parallel.mesh",
-                 "parallel.sp"):
+                 "parallel.sp", "parallel.tp", "parallel.pp",
+                 "data.fastio"):
         assert f"pointnet_autoencoder_tpu_torch.{name}" in mods
 
 

@@ -178,10 +178,11 @@ def test_parser_has_the_reference_flags_and_device():
     ("compilation_cache_dir", "/nonexistent/cache")])
 def test_config_refuses_what_is_not_ported(field, value, tmp_path,
                                            fixture_root):
-    if field in ("data_parallel", "point_parallel"):
+    if field in ("data_parallel", "point_parallel", "model_parallel"):
         # Ported: the config passes, and a Trainer outside a process
         # group of 2 ranks raises naming it.
-        cfg = TrainConfig(**dict({field: value}, data_parallel=2),
+        ranks = {} if field == "model_parallel" else dict(data_parallel=2)
+        cfg = TrainConfig(**dict({field: value}, **ranks),
                           log_dir=str(tmp_path / "log"),
                           data_path=str(tmp_path / "nowhere")).validate()
         with pytest.raises(ValueError, match="process group of 2 ranks"):

@@ -1,6 +1,6 @@
-"""Rank bodies of the port's data- and point-parallel tests
+"""Rank bodies of the port's data-, point- and tensor-parallel tests
 (tests/test_torch_dp_*.py, tests/test_torch_parallel.py,
-tests/test_torch_sp*.py).
+tests/test_torch_sp*.py, tests/test_torch_tp.py).
 
 Each function runs in a process that ``parallel.mesh.launch`` spawned, as
 ``fn(device, *args)`` inside a gloo group, so this module imports neither
@@ -86,7 +86,7 @@ def stats_rank(device, out_dir, bn_x, bn_w, head_x, head_w, head_b,
 
 
 @contextlib.contextmanager
-def shared_choices(store: dict, replay: bool, rows=slice(None)):
+def shared_choices(store: dict, replay: bool, rows=slice(None), cols=None):
     """Within the block, a train step's discrete choices (the Chamfer
     argmins, the head's argmax, every ReLU mask) and the EMD's outputs are
     recorded into ``store`` (``replay`` False, the one-device step on the
@@ -95,7 +95,9 @@ def shared_choices(store: dict, replay: bool, rows=slice(None)):
     ``store["made"]`` where the replaying run's own choices differed (a
     kind of choice absent from ``store`` stays the run's own). A
     near-tie falls either way under another summation order of the
-    statistics, and one changed choice moves a whole row of a gradient."""
+    statistics, and one changed choice moves a whole row of a gradient.
+    ``cols`` (index, parts): a tensor-parallel rank, whose masks of a
+    split layer are its index's slice of the last axis."""
     nn_fn, head_fn, emd_fn = (ch.nn_distance_plain, fh.head_max_plain,
                               em.emd_forward_plain)
     functional = layers.F
@@ -112,6 +114,9 @@ def shared_choices(store: dict, replay: bool, rows=slice(None)):
         if key not in store:  # a kind of choice not recorded: its own
             return own
         want = store[key][calls][rows]
+        if cols is not None and want.shape[-1] != own.shape[-1]:
+            width = own.shape[-1]
+            want = want[..., cols[0] * width:(cols[0] + 1) * width]
         store["differed"] += int((own != want).sum())
         store["made"] += own.numel()
         return want.to(own.dtype)
@@ -453,3 +458,172 @@ def save_state(out_dir, trainer):
         "step": trainer.state.step, "sp": trainer.sp_active,
         "state": {k: v.clone() for k, v in
                   trainer.model.state_dict().items()}})
+
+
+# -- tensor parallelism and DP x SP -------------------------------------------
+
+
+def _gathered(t, name, group):
+    from pointnet_autoencoder_tpu_torch.parallel import tp
+
+    dim = tp.spec_for_name(name)
+    return t.clone() if dim is None or group is None else \
+        tp.gather_tensor(t, dim, group)
+
+
+def tp_step_rank(device, cases_path, out_dir, model_parallel):
+    """One f32 train step's forward, loss, backward and gradient average of
+    every case in ``cases_path`` on a (k/m, m) grid: this rank's rows (its
+    data index's) with the decoder's FC layers split over its model group,
+    the one-device step's choices replayed. Saves the loss and metrics
+    (the data group's mean), the gradients and BN statistics gathered
+    over the model group, the shapes of this rank's leaves, and its
+    replicated leaves' gradients."""
+    from pointnet_autoencoder_tpu_torch.parallel import tp
+    from pointnet_autoencoder_tpu_torch.parallel.mesh import ProcessMesh
+
+    torch.set_num_threads(2)
+    grid = ProcessMesh(device, model_parallel)
+    data = grid.data if grid.data.world_size > 1 else None
+    d = grid.shape["data"]
+    cases = torch.load(cases_path, weights_only=False)
+    out = {}
+    for name, case in cases.items():
+        spec = get_model_spec(case["model"])
+        model = spec.make(case["num_point"])
+        model.load_state_dict(case["state"])
+        model.set_data_group(data)
+        model.set_model_group(grid.model)
+        rows = _rows(grid.data_index, d, case["batch"].shape[0])
+        x = torch.from_numpy(np.ascontiguousarray(case["batch"][rows]))
+        choices = dict(case["choices"], differed=0, made=0)
+        with shared_choices(choices, replay=True, rows=rows,
+                            cols=(grid.model_index, model_parallel)):
+            pred, end_points = model(x, train=True,
+                                     bn_momentum=case["momentum"])
+            loss, metrics = spec.loss_fn(pred, x, end_points)
+            loss.backward()
+        if data is not None:
+            data.average_gradients(model.parameters())
+        scalars = {"loss": loss.detach(), **{k: v.detach()
+                                              for k, v in metrics.items()}}
+        names = sorted(scalars)
+        values = torch.stack([scalars[k].float() for k in names])
+        if data is not None:
+            values = data.sum_(values) / d
+        params = dict(model.named_parameters())
+        out[name] = {
+            "scalars": dict(zip(names, values.tolist())),
+            "grads": {n: _gathered(p.grad, n, grid.model)
+                      for n, p in params.items()},
+            "buffers": {n: _gathered(b, n, grid.model)
+                        for n, b in model.named_buffers()},
+            "shapes": {n: tuple(p.shape) for n, p in params.items()},
+            "replicated": {n: params[n].grad.clone()
+                           for n in tp.replicated_names(model)
+                           if n in params},
+            "flips": (choices["differed"], choices["made"])}
+    _save(out_dir, grid.world.rank, out)
+
+
+def tp_trainer_rank(device, config_json, out_dir):
+    """A Trainer of ``config_json`` (model parallel) on this rank: the
+    dtype and shape of its fc1 weight and its optimizer slot, one
+    ``train()``, then its model state and best eval loss."""
+    torch.set_num_threads(2)
+    tr = Trainer(TrainConfig.from_json(config_json), device=device)
+    w = tr.model.decoder.fc1.dense.weight
+    opt = tr.state.optimizer.state_dict()
+    slot = (opt["slots"]["decoder.fc1.dense.weight"]["exp_avg"]
+            if opt.get("kind") == "master" else None)
+    before = {"fc1": (w.dtype, tuple(w.shape)),
+              "slot": None if slot is None else (slot.dtype,
+                                                 tuple(slot.shape))}
+    best = tr.train()
+    out = {"before": before, "best": best, "rank": tr.rank,
+           "model_index": tr.mesh.model_index,
+           "state": {k: v.clone() for k, v in
+                     tr.model.state_dict().items()}}
+    tr.close()
+    _save(out_dir, tr.rank, out)
+
+
+def dp_sp_rank(device, cases_path, out_dir):
+    """DP x SP on a (2 data, k/2 model) grid: the batch split over the
+    data axis and the points over the model axis. The point-sharded
+    Chamfer and EMD of ``case["losses"]`` (this rank's shares and their
+    gradients), then one f32 step of each model case through
+    ``sp.make_sp_step_fns(..., axis=MODEL_AXIS, batch_axis=DATA_AXIS)``:
+    its metrics, gradients and BN statistics, the one-device step's ReLU
+    masks and Chamfer argmins replayed at this rank's rows and points."""
+    from pointnet_autoencoder_tpu_torch.parallel import mesh as meshlib
+    from pointnet_autoencoder_tpu_torch.parallel import sp
+    from pointnet_autoencoder_tpu_torch.train import schedules
+    from pointnet_autoencoder_tpu_torch.train.state import (
+        TrainState,
+        make_optimizer,
+    )
+
+    torch.set_num_threads(2)
+    grid = meshlib.ProcessMesh(device, 2)
+    axes = (meshlib.MODEL_AXIS, meshlib.DATA_AXIS)
+    point = grid.model
+    cases = torch.load(cases_path, weights_only=False)
+    out = {}
+    x, y = (torch.from_numpy(a) for a in cases["losses"])
+    xl = sp.point_batch_shard(x, grid, *axes).requires_grad_(True)
+    per = y.shape[0] // grid.shape["data"]
+    yl = y[grid.data_index * per:(grid.data_index + 1) * per].clone()
+    yl.requires_grad_(True)
+    share = sp.chamfer_loss_point_sharded(xl, yl, point)
+    (share / grid.shape["data"]).backward()
+    cost = sp.emd_cost_point_sharded(xl.detach(), yl.detach(), point)
+    try:
+        sp.point_batch_shard(x[:3], grid, *axes)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    out["losses"] = dict(share=share.detach(), gx=xl.grad, gy=yl.grad,
+                         cost=cost, refused=refused)
+    for name, case in cases["steps"].items():
+        model = get_model_spec(case["model"]).make(case["num_point"])
+        model.load_state_dict(case["state"])
+        batch = case["batch"].shape[0]
+        state = TrainState(model, make_optimizer("adam", model.parameters()),
+                           schedules.learning_rate_schedule(
+                               0.001, 0.7, batch, 200000))
+        step, _ = sp.make_sp_step_fns(
+            state, case["model"], lambda _: case["momentum"], grid, *axes)
+        xb = sp.point_batch_shard(torch.from_numpy(case["batch"]), grid,
+                                  *axes)
+        per = batch // grid.shape["data"]
+        rows = slice(grid.data_index * per, (grid.data_index + 1) * per)
+        # The one-device step's choices at this rank's rows.
+        store = {k: [t[rows] for t in v] for k, v in case["choices"].items()
+                 if isinstance(v, list)}
+        points = sp.point_slice(case["batch"].shape[1], grid.model_index,
+                                grid.shape["model"])
+        with replayed_choices(store, case["batch"].shape[1], points,
+                              label_first=True):
+            metrics = step(xb)
+        out[name] = {
+            "scalars": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: p.grad.clone() for n, p in
+                      model.named_parameters()},
+            "buffers": {n: b.clone() for n, b in model.named_buffers()},
+            "shape": tuple(xb.shape)}
+    _save(out_dir, grid.world.rank, out)
+
+
+def tp_trainer_step_rank(device, config_json, batch, out_dir):
+    """A model-parallel Trainer of ``config_json`` on this rank takes one
+    step on its rows of ``batch``; saves the metrics as the Trainer logs
+    them (the data group's mean) and its full state (gathered over the
+    model group)."""
+    torch.set_num_threads(2)
+    tr = Trainer(TrainConfig.from_json(config_json), device=device)
+    metrics = tr.train_step(torch.from_numpy(batch[tr._rows]))
+    means, = tr._fetch_windows([metrics], [(0, 1)])
+    full = tr._full_state()
+    tr.close()
+    _save(out_dir, tr.rank, {"means": means, "model": full["model"]})
