@@ -217,6 +217,28 @@ line each; any failure exits non-zero before the final line:
             launches K3 = K4 = K1 = 1, K2 = 1 (``model_emd`` 0), K6 = 0;
             the combined Chamfer indices equal to K1's on the card alone.
             No time in phases 17-19 is a multi-card time.
+20. hwcheck: the port's ``ops/hwcheck.py`` in this process (``main`` with
+            --device cuda and a fuzz draw for every shape of its pool):
+            K1, K2, K3 (f32 and bf16), K5 (f32 and bf16, N = 64, 63, 65,
+            255, 257), K6, the point-sharded Chamfer in a one-rank gloo
+            group and the EMD's streaming form, each against the numpy
+            oracles of ``ops/oracles.py`` at the JAX package's tolerances
+            (bf16 at the derived ones). rc 0, no failure, and the launch
+            counters of K1, K2, K3, K5 and K6 risen inside the phase (no
+            contract differentiates through the head, so K4 is left to
+            the phases above); the largest error of each contract
+            against its tolerance, the checks' count and seconds.
+21. profile: ``cli.train --profile_dir`` as phase 6 runs it (bf16, 2
+            epochs, device input, background saves): launches exactly
+            the path's, one Chrome trace, of the first epoch only, whose
+            device events name K1 ``nn_distance_kernel``, K2
+            ``nn_distance_grad_kernel``, K3 ``head_fwd_mma_kernel``, K4
+            ``head_bwd_dx_kernel`` and ``head_bwd_dw_kernel`` and K5
+            ``encoder_mma_kernel`` as often as one epoch launches them,
+            and the log line; each epoch's wall clock, profiled and not,
+            and whether TensorBoard writers were made. Then ``StepTimer``
+            around 10 bf16 steps: its p50 within the spread of
+            ``step_timing``'s 10 host samples of its median.
 
 The last three lines are the kernels JSON line, the nvidia-smi line and
 the device JSON line.
@@ -3490,6 +3512,177 @@ def phase_dp_sp(torch, tmp):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phases hwcheck and profile: the tooling
+# ---------------------------------------------------------------------------
+
+# The kernels ops/hwcheck.py reaches on the card. No contract
+# differentiates through the conv5 head (as in the JAX package), so K4
+# (fused_head_bwd) is left to the phases above.
+HWCHECK_KERNELS = ("nn_distance", "nn_distance_grad", "fused_head_fwd",
+                   "fused_encoder_eval", "emd_forward")
+
+
+def phase_hwcheck(torch, counters):
+    """The port's ops/hwcheck.py on the card, in this process. See the
+    module docstring, phase 20."""
+    import re
+
+    from pointnet_autoencoder_tpu_torch.ops import hwcheck as hw
+
+    t_phase = time.perf_counter()
+    for fn in counters.values():
+        fn.launches = 0
+    first = len(hw._RESULTS)
+    # The whole pool: its first 8 shapes are the JAX package's, the CUDA
+    # tiles' own boundaries come after them.
+    draws = len(hw._FUZZ_POOL)
+    rc = hw.main(["--device", "cuda", "--fuzz", str(draws)])
+    seconds = time.perf_counter() - t_phase
+    results = hw._RESULTS[first:]
+    launches = {name: fn.launches for name, fn in counters.items()}
+    require(rc == 0 and not hw._FAILURES,
+            f"hwcheck returned {rc}; failures {hw._FAILURES}")
+    require(all(launches[name] > 0 for name in HWCHECK_KERNELS),
+            f"a kernel hwcheck reaches never launched: {launches}")
+    # The largest error of each contract (its shapes and draws merged)
+    # against its tolerance.
+    worst = {}
+    for name, err, tol in results:
+        key = re.sub(r" \(B=[^)]*\)| large(-prime)?-N", "", name)
+        if key not in worst or err > worst[key][0]:
+            worst[key] = (err, tol, name)
+    for key, (err, tol, name) in worst.items():
+        say("hwcheck", f"{key}: largest {err:.3e} against tol {tol:.0e} "
+            f"({name})")
+    say("hwcheck", f"{len(results)} checks of {len(worst)} contracts "
+        f"passed (the default sweep and {draws} fuzz draws) in "
+        f"{seconds:.1f} s; launches {launches} (K4, fused_head_bwd, "
+        f"left to the phases above) ok")
+
+
+def trace_kernel_counts(path: str) -> dict:
+    """Each device kernel's base name in a Chrome trace written by
+    ``utils/profiling.trace`` -> its number of events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            base = _short(e.get("name", "")).split("<")[0]
+            counts[base] = counts.get(base, 0) + 1
+    return counts
+
+
+# The path's __global__ kernels in a bf16 `model` epoch and the
+# path_launches key each one follows.
+PROFILE_KERNELS = {"nn_distance_kernel": "nn_distance",
+                   "nn_distance_grad_kernel": "nn_distance_grad",
+                   "head_fwd_mma_kernel": "fused_head_fwd",
+                   "head_bwd_dx_kernel": "fused_head_bwd",
+                   "head_bwd_dw_kernel": "fused_head_bwd",
+                   "encoder_mma_kernel": "fused_encoder_eval"}
+
+
+def phase_profile(torch, counters, data, tmp, rng):
+    """``cli.train --profile_dir`` on the card, and ``StepTimer``. See the
+    module docstring, phase 21."""
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.utils.profiling import StepTimer
+
+    t_phase = time.perf_counter()
+    prof_dir = os.path.join(tmp, "profile")
+    log_dir = os.path.join(tmp, "profile_log")
+    argv = train_argv("model", data, log_dir) + [
+        "--profile_dir", prof_dir, "--max_epoch", str(TRAIN_EPOCHS)]
+    for fn in counters.values():
+        fn.launches = 0
+    trainer, logger = cli_train.build_trainer(
+        cli_train.build_parser().parse_args(argv))
+    try:
+        # Each epoch's wall clock from its start to the next one's (its
+        # train steps, eval, trace and saves).
+        starts = []
+        real_epoch = trainer.train_one_epoch
+
+        def timed_epoch(epoch):
+            starts.append(time.perf_counter())
+            return real_epoch(epoch)
+
+        trainer.train_one_epoch = timed_epoch
+        trainer.train()
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        walls = [b - a for a, b in zip(starts, starts[1:])]
+        steps = len(trainer.train_pipe)
+        evals = len(trainer.eval_pipe)
+        got = {k: counters[k].launches for k in counters}
+        require(got == path_launches(TRAIN_EPOCHS * steps,
+                                     TRAIN_EPOCHS * evals),
+                f"launches {got} in {TRAIN_EPOCHS} epochs")
+        files = sorted(os.listdir(prof_dir))
+        require(len(files) == 1 and files[0].endswith(".json"),
+                f"profile dir holds {files}, not one trace")
+        path = os.path.join(prof_dir, files[0])
+        counts = trace_kernel_counts(path)
+        want = path_launches(steps, evals)
+        expected = {k: want[key] for k, key in PROFILE_KERNELS.items()}
+        seen = {k: counts.get(k, 0) for k in PROFILE_KERNELS}
+        require(seen == expected,
+                f"the first epoch's trace holds {seen} of the path's "
+                f"kernels, one epoch launches {expected}")
+        with open(os.path.join(log_dir, "log_train.txt")) as f:
+            text = f.read()
+        require(text.count(f"profiler trace written to {prof_dir}") == 1,
+                "the log does not say once where the trace went")
+        tensorboard = ("made" if getattr(logger, "_tb", None) else
+                       "not made (torch.utils.tensorboard does not import)")
+        say("profile", f"cli.train --profile_dir, {TRAIN_EPOCHS} bf16 "
+            f"epochs of {steps} steps and {evals} eval batches: one trace "
+            f"({os.path.getsize(path) / 1e6:.1f} MB, "
+            f"{sum(counts.values())} kernel events) of the first epoch, "
+            f"the path's kernels in it {seen} as one epoch launches; "
+            f"epoch wall clock profiled {walls[0]:.3f} s, unprofiled "
+            f"{walls[1]:.3f} s; TensorBoard writers {tensorboard}; the log "
+            f"line ok")
+
+        # The background saves of the run's last epoch end first, so both
+        # timings see the same host.
+        trainer.flush()
+        x = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to("cuda")
+        med, lo, hi, trace = step_timing(torch, trainer, x, "profile_step")
+        # StepTimer's steps in turns with steps on step_timing's clock (to
+        # the loss on the host), so that the host's drift between two
+        # windows of 10 steps does not read as a disagreement.
+        timer, host = StepTimer(), []
+        for i in range(20):
+            if i % 2 == (i // 2) % 2:
+                with timer.step() as box:
+                    box["result"] = trainer.train_step(x)
+            else:
+                t0 = time.perf_counter()
+                trainer.train_step(x)["loss"].item()
+                host.append(1e3 * (time.perf_counter() - t0))
+        s = timer.summary()
+        h_med = statistics.median(host)
+        spread = max(host) - min(host)
+        require(s["steps"] == 10 and abs(s["p50_ms"] - h_med) <= spread,
+                f"StepTimer p50 {s['p50_ms']:.3f} ms against the host "
+                f"clock's median {h_med:.3f} ms of the steps between "
+                f"(spread {min(host):.3f}-{max(host):.3f})")
+        say("profile", f"StepTimer over 10 bf16 steps: p50 "
+            f"{s['p50_ms']:.3f} ms, p90 {s['p90_ms']:.3f}, p99 "
+            f"{s['p99_ms']:.3f}, within the spread {spread:.3f} ms (min "
+            f"{min(host):.3f}, max {max(host):.3f}) of step_timing's clock's "
+            f"median {h_med:.3f} ms over 10 steps taken in turns with it; "
+            f"step_timing before them: median {med:.3f} ms (min {lo:.3f}, "
+            f"max {hi:.3f}), that step's trace: {trace} ok")
+    finally:
+        trainer.close()
+        logger.close()
+    say("profile", f"phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def state_mb(torch, tree) -> float:
     """MB of the tensors in a (nested) state dict."""
     if torch.is_tensor(tree):
@@ -4242,6 +4435,11 @@ def main() -> int:
                                     np.random.RandomState(SEED + 75))
             phase = "dp_sp"
             phase_dp_sp(torch, tmp)
+            phase = "hwcheck"
+            phase_hwcheck(torch, counters)
+            phase = "profile"
+            phase_profile(torch, counters, data, tmp,
+                          np.random.RandomState(SEED + 90))
         smi = nvidia_smi_line()
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAIL in phase {phase}: {type(e).__name__}: {e}",

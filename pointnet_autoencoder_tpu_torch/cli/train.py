@@ -24,9 +24,11 @@ instead of the batch (``parallel/sp.py``; num_point must divide by k).
 data shard (``parallel/tp.py``): ``--data_parallel k --model_parallel m``
 runs k*m ranks (``--model_parallel 2`` alone, 2). ``--bf16_params`` and
 ``--bf16_moments`` store the matmul parameters and their optimizer moments
-in bfloat16 (``train/master.py``). Flags whose feature the port does not
-run (``--profile_dir``, ``--compilation_cache_dir``) raise
-NotImplementedError naming their ROADMAP item. A ``--num_point`` that
+in bfloat16 (``train/master.py``). ``--profile_dir`` writes a
+``torch.profiler`` trace of the first epoch trained there, one file per
+rank (``utils/profiling.py``). ``--compilation_cache_dir`` (an XLA cache
+in the JAX package) has no counterpart and raises NotImplementedError. A
+``--num_point`` that
 the model's decoder cannot emit fails with ValueError before any data
 loads. SIGTERM or SIGINT saves a resumable checkpoint at the next step
 boundary and ends the run (under data parallelism where the ranks agree:
@@ -121,7 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Store Adam moment slots for matmul params in "
                         "bf16 (stochastically rounded f32 updates); "
                         "halves the optimizer state of that class")
-    p.add_argument("--profile_dir", default=None, help="Not ported yet")
+    p.add_argument("--profile_dir", default=None,
+                   help="Write a torch.profiler trace of the first epoch "
+                        "here")
     p.add_argument("--lr_floor", type=float, default=None,
                    help="Optional LR clamp (the reference intended 1e-5 but "
                         "the clip is dead code; default: no floor)")

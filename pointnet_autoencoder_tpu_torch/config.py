@@ -3,15 +3,16 @@
 with the same field names and defaults.
 
 ``TrainConfig.validate`` refuses every field this port does not run (the
-profiler, not yet; the XLA compilation cache, which has no counterpart),
-naming the ROADMAP item, instead of ignoring it. ``data_parallel`` k runs
-k ranks (``parallel/mesh.py``; the Trainer checks that it is in a group of
-k); with ``point_parallel`` the k ranks split every shape's points instead
-of the batch (``parallel/sp.py``); ``model_parallel`` m splits the
-decoder's FC layers over m ranks of each data shard (``parallel/tp.py``;
-k*m ranks in all). ``bf16_params`` and ``bf16_moments`` store the matmul
-parameters and their optimizer moments in bfloat16
-(``train/master.py``).
+XLA compilation cache, which has no counterpart), naming the ROADMAP
+item, instead of ignoring it. ``profile_dir`` writes a ``torch.profiler``
+trace of the first epoch trained (``utils/profiling.py``).
+``data_parallel`` k runs k ranks (``parallel/mesh.py``; the Trainer checks
+that it is in a group of k); with ``point_parallel`` the k ranks split
+every shape's points instead of the batch (``parallel/sp.py``);
+``model_parallel`` m splits the decoder's FC layers over m ranks of each
+data shard (``parallel/tp.py``; k*m ranks in all). ``bf16_params`` and
+``bf16_moments`` store the matmul parameters and their optimizer moments
+in bfloat16 (``train/master.py``).
 """
 
 from __future__ import annotations
@@ -23,8 +24,6 @@ from typing import Optional
 # Fields the port refuses away from their default: (field, test for
 # "set", the ROADMAP item that ports it).
 _NOT_PORTED = (
-    ("profile_dir", lambda v: v is not None,
-     "profile_dir (ROADMAP item 14b)"),
     ("compilation_cache_dir", lambda v: v is not None,
      "compilation_cache_dir (no counterpart: the port compiles no XLA "
      "programs; ROADMAP 'Out of scope')"),

@@ -7,7 +7,9 @@ Writes a small dataset in the exact layout ``PartDataset`` reads
 end-to-end training run without the real archive. Shapes are parametric
 surfaces (sphere, box shell, cylinder) with part labels by region, which
 gives the autoencoder something to learn. The same arguments write the
-same files as the reference's fixture.
+same files as the reference's fixture. ``write_real_scale_fixture``
+writes one at the real archive's scale (16 categories, 16,881 shapes,
+ragged point counts) for wall-clock and memory calibration.
 """
 
 from __future__ import annotations
@@ -29,6 +31,17 @@ _SYNSETS = {
     "Laptop": "03642806", "Motorbike": "03790512", "Mug": "03797390",
     "Pistol": "03948459", "Rocket": "04099429", "Skateboard": "04225987",
     "Table": "04379243",
+}
+
+# Published per-category shape totals of the ShapeNetPart segmentation
+# benchmark (16,881 shapes; the table from the PointNet/ShapeNetPart
+# literature). Approximate per-category ground truth for the v0 archive,
+# used only to size the calibration fixture.
+REAL_V0_COUNTS = {
+    "Airplane": 2690, "Bag": 76, "Cap": 55, "Car": 898, "Chair": 3758,
+    "Earphone": 69, "Guitar": 787, "Knife": 392, "Lamp": 1547,
+    "Laptop": 451, "Motorbike": 202, "Mug": 184, "Pistol": 283,
+    "Rocket": 66, "Skateboard": 152, "Table": 5271,
 }
 
 
@@ -59,16 +72,21 @@ def _make_shape(rng: np.random.Generator, kind: int, npts: int):
 def write_fixture(root: str, shapes_per_category: int = 12,
                   points_per_shape: int = 128, seed: int = 0,
                   categories: List[str] | None = None,
-                  variable_points: bool = False) -> str:
+                  variable_points: bool = False,
+                  category_counts: Dict[str, int] | None = None) -> str:
     """Creates the fixture under ``root`` and returns ``root``.
 
-    Each category (Chair, Table and Lamp unless ``categories`` names
-    others of the 16) gets ``shapes_per_category`` shapes, about 2/3 in the
-    train split, 1/6 in val and 1/6 in test. ``variable_points`` draws
-    each shape's point count uniformly from [points_per_shape/2,
-    points_per_shape], like the real archive's ragged shapes."""
+    Each category (Chair, Table and Lamp unless ``categories`` or
+    ``category_counts`` names others of the 16) gets
+    ``shapes_per_category`` shapes, or its count in ``category_counts``,
+    about 2/3 in the train split, 1/6 in val and 1/6 in test.
+    ``variable_points`` draws each shape's point count uniformly from
+    [points_per_shape/2, points_per_shape], like the real archive's ragged
+    shapes."""
     rng = np.random.default_rng(seed)
-    cats = list(categories if categories is not None else _DEFAULT_CATEGORIES)
+    cats = list(categories if categories is not None
+                else category_counts if category_counts is not None
+                else _DEFAULT_CATEGORIES)
     os.makedirs(root, exist_ok=True)
     with open(os.path.join(root, "synsetoffset2category.txt"), "w") as f:
         for c in cats:
@@ -81,7 +99,9 @@ def write_fixture(root: str, shapes_per_category: int = 12,
         seg_dir = os.path.join(root, synset, "points_label")
         os.makedirs(pts_dir, exist_ok=True)
         os.makedirs(seg_dir, exist_ok=True)
-        for i in range(shapes_per_category):
+        count = (category_counts[c] if category_counts is not None
+                 else shapes_per_category)
+        for i in range(count):
             token = f"{synset}_{i:04d}"
             npts = (int(rng.integers(points_per_shape // 2,
                                      points_per_shape + 1))
@@ -100,3 +120,20 @@ def write_fixture(root: str, shapes_per_category: int = 12,
                   "w") as f:
             json.dump(entries, f)
     return root
+
+
+def write_real_scale_fixture(root: str, points_per_shape: int = 3000,
+                             seed: int = 0) -> str:
+    """A fixture at the real archive's scale: all 16 categories with their
+    published shape totals (``REAL_V0_COUNTS``, 16,881 shapes) and ragged
+    point counts averaging about 2,250 (the real archive averages about
+    2,600). The split-bucket cycle gives the v0 archive's proportions,
+    about 5/6 trainval and 1/6 test.
+
+    For wall-clock and memory calibration of full-dataset runs while the
+    real archive is out of reach; the shapes are synthetic, so its losses
+    do not compare with real data."""
+    return write_fixture(
+        root, points_per_shape=points_per_shape, seed=seed,
+        variable_points=True, category_counts=REAL_V0_COUNTS,
+    )

@@ -27,6 +27,10 @@ one device or as one rank of a data-parallel group:
   share the clone.
 - Preemption: SIGTERM or SIGINT during ``train()`` stops at the next step
   boundary and writes a resumable checkpoint before ``train()`` returns.
+- Profiling (``profile_dir``): the first epoch that ``train()`` trains,
+  its eval included, runs inside a ``torch.profiler`` trace
+  (``utils/profiling.trace``), one file per rank, closed on every exit
+  from the epoch, a preemption included.
 - Data parallelism: when this process is in a ``torch.distributed``
   process group of k ranks (``parallel.mesh.launch``, ``cli/train.py
   --data_parallel k`` or ``torchrun``), each rank runs one Trainer on its
@@ -103,6 +107,7 @@ from pointnet_autoencoder_tpu_torch.train.logging import (
     snapshot_config,
 )
 from pointnet_autoencoder_tpu_torch.train.state import TrainState, make_optimizer
+from pointnet_autoencoder_tpu_torch.utils import profiling
 
 Metrics = Dict[str, object]  # scalar tensors on the device, or floats
 
@@ -611,8 +616,17 @@ class Trainer:
                 return loss
             for epoch in range(self.start_epoch, cfg.max_epoch):
                 self.logger.log(f"**** EPOCH {epoch:03d} ****")
-                steps = self.train_one_epoch(epoch)
-                if self._should_stop():
+                traced = bool(cfg.profile_dir) and epoch == self.start_epoch
+                with profiling.trace(cfg.profile_dir if traced else None,
+                                     self.device):
+                    steps = self.train_one_epoch(epoch)
+                    stopped = self._should_stop()
+                    if not stopped:
+                        epoch_loss = self.eval_one_epoch(epoch)
+                if traced:
+                    self.logger.log(
+                        f"profiler trace written to {cfg.profile_dir}")
+                if stopped:
                     # One device stops mid-epoch and restarts it on resume.
                     # Ranks stop where they agreed: an epoch that ran to
                     # its end (device input agrees there) is done.
@@ -620,7 +634,6 @@ class Trainer:
                             and steps == len(self.train_pipe))
                     self._save_preempt(epoch + 1 if done else epoch)
                     return self.best_loss
-                epoch_loss = self.eval_one_epoch(epoch)
                 if epoch_loss < self.best_loss:
                     self.best_loss = epoch_loss
                     self._save("best", epoch)
@@ -637,10 +650,12 @@ class Trainer:
             self.flush()
 
     def flush(self) -> None:
-        """Wait until every checkpoint submitted so far is on disk; the
-        Trainer stays usable."""
+        """Wait until every checkpoint submitted so far is on disk and
+        flush the logger's buffered TensorBoard writers; the Trainer stays
+        usable."""
         if self._saver is not None:
             self._saver.flush()
+        self.logger.flush()
 
     def close(self) -> None:
         """Finish the background saves, stop the saver and close the logger

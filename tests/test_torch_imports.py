@@ -42,7 +42,8 @@ def test_every_module_is_listed():
                  "train.state", "train.checkpoint", "train.logging",
                  "train.loop", "train.master", "parallel", "parallel.mesh",
                  "parallel.sp", "parallel.tp", "parallel.pp",
-                 "data.fastio"):
+                 "data.fastio", "ops", "ops.oracles", "ops.hwcheck",
+                 "utils", "utils.profiling"):
         assert f"pointnet_autoencoder_tpu_torch.{name}" in mods
 
 

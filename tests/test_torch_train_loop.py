@@ -187,6 +187,25 @@ def test_config_refuses_what_is_not_ported(field, value, tmp_path,
                           data_path=str(tmp_path / "nowhere")).validate()
         with pytest.raises(ValueError, match="process group of 2 ranks"):
             Trainer(cfg, device="cpu")
+    elif field == "profile_dir":
+        # Ported: the flag passes, and a 1-epoch Trainer writes one
+        # torch.profiler trace of its epoch there and logs where.
+        prof = tmp_path / "prof"
+        cfg = TrainConfig(profile_dir=str(prof), data_path=fixture_root,
+                          category="Chair", num_point=NUM_POINT,
+                          batch_size=BATCH, log_dir=str(tmp_path / "log"),
+                          max_epoch=1, bf16=False).validate()
+        trainer = Trainer(cfg, device="cpu")
+        try:
+            trainer.train()
+        finally:
+            trainer.close()
+        traces = os.listdir(prof)
+        assert len(traces) == 1 and traces[0].endswith(".json")
+        with open(prof / traces[0]) as f:
+            assert json.load(f)["traceEvents"]
+        with open(tmp_path / "log" / "log_train.txt") as f:
+            assert f"profiler trace written to {prof}" in f.read()
     elif field in ("bf16_params", "bf16_moments"):
         # Ported: the flag builds the port's optimizer on the CPU, with
         # the matmul parameters (or their moments) in bf16.
