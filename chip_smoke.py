@@ -239,6 +239,42 @@ line each; any failure exits non-zero before the final line:
             and whether TensorBoard writers were made. Then ``StepTimer``
             around 10 bf16 steps: its p50 within the spread of
             ``step_timing``'s 10 host samples of its median.
+22. compiled: the captured programs (``utils/graphs.py``; on a card the
+            default of ``Trainer`` and ``InferenceSession``, so phases 4-10
+            and 21 run them) against the eager reference
+            (``compiled=False``). Each of the six families in bf16, and
+            ``model`` in f32, with device input at log_every 3 (chunks of
+            3, 3, 3 and 1 steps: the first chunk is the warm-up, eager,
+            then a program of 3 steps replayed twice and one of 1), and
+            ``model`` bf16 with host input (the first step eager, then a
+            one-step program), ``model_cpu`` under torch's deterministic
+            algorithms (its dense Chamfer's index_add_ adds with atomics
+            in arrival order otherwise): one train epoch and two eval
+            epochs (the
+            second a replay of the whole eval epoch), weights, optimizer
+            slots and counts, BN statistics, the data generators' states,
+            every logged metric and the launches bit-equal to the eager
+            Trainer's from the same seed (the upconv families under
+            ``cudnn_deterministic()``). Then each Trainer's step on a batch
+            on the card: host median of 10, and a trace: device busy,
+            idle share, the operations the host issued (one graph launch
+            per replayed step), and a traced device-input epoch (one graph
+            launch per chunk); in each trace, graphed and eager, the port's
+            kernels as the launch counters count that call (a trace that
+            lost events is taken again), the same both ways. A checkpoint
+            in a CPU Trainer's form (Adam not capturable, a float learning
+            rate) and the same state as a card writes it, each resumed by
+            a captured card Trainer: 3 steps from each bit-equal. Serving at B=32 and B=1 in f32, and B=32
+            in bf16: reconstruct, embed, decode, chamfer and fscore
+            bit-equal to the eager session with equal launches; a
+            reconstruct's host median and trace both ways. Last
+            ``ops.benchmarks --quick`` through its ``main``: K1 and K2 21
+            launches, K6 6, nothing else, and each run's final loss equal
+            to the same loop's run eagerly on the card.
+
+The f32 step checks of phases 6, 7 and 9 take the first step of a fresh
+Trainer, which is its warm-up and runs eagerly, so the choices that
+``shared_choices`` records are the step's own.
 
 The last three lines are the kernels JSON line, the nvidia-smi line and
 the device JSON line.
@@ -3368,8 +3404,10 @@ def dp_sp_rank_steps(device, out_dir):
         state = TrainState(net, make_optimizer("adam", net.parameters()),
                            schedules.learning_rate_schedule(
                                0.001, 0.7, BATCH, 200000))
-        step, _ = sp.make_sp_step_fns(state, model, lambda _: case["momentum"],
-                                      grid, *axes)
+        # The BN momentum, constant: a staircase of rate 1.
+        step, _ = sp.make_sp_step_fns(
+            state, model, schedules.Staircase(case["momentum"], 1.0, 1, 1),
+            grid, *axes)
         x = case["x"].to(device)
         xl = sp.point_batch_shard(x, grid, *axes)
         per = BATCH // DPSP_DATA
@@ -3432,7 +3470,7 @@ def phase_dp_sp(torch, tmp):
                else contextlib.nullcontext())
         with emd:
             m = state.train_step(x.cuda(), get_model_spec(model).loss_fn,
-                                 lambda _: momentum)
+                                 schedules.Staircase(momentum, 1.0, 1, 1))
         torch.cuda.synchronize()
         single[model] = dict(
             scalars={k: float(m[k]) for k in ("loss", "pcloss")},
@@ -4314,6 +4352,495 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+# ---------------------------------------------------------------------------
+# Phase compiled: the captured steps and forwards against the eager ones
+# ---------------------------------------------------------------------------
+
+ALL_FAMILIES = ("model", "model_emd", "model_cpu", "model_hierachy",
+                "model_upconv", "model_fc_upconv")
+# cuDNN's transposed convolutions may add in arrival order: the
+# compared runs of these families take cuDNN's deterministic algorithms.
+UPCONV_FAMILIES = ("model_upconv", "model_fc_upconv")
+# model_cpu's dense Chamfer gradient scatters with index_add_, which adds
+# with atomics in arrival order on a card: its compared runs take torch's
+# deterministic algorithms (a sorted scatter).
+DENSE_FAMILIES = ("model_cpu",)
+COMPILED_LOG_EVERY = 3
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """torch's deterministic algorithms within the block (a warning where
+    an op has none), the previous setting restored after it."""
+    mode = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(mode, warn_only=warn)
+# Names of the CUDA runtime calls by which the host issues device work.
+HOST_OPS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch",
+            "cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
+
+
+def overhead_trace(torch, fn, label, reps=3, min_events=1,
+                   attempts=4, accept=None) -> dict:
+    """One torch.profiler trace of ``reps`` calls of ``fn()`` (each ending
+    with the device's work done), the last one read: its host span, the
+    union of device intervals inside it (busy), the idle share, the device
+    events and each of the port's kernels among them, and the device
+    operations the host issued (CUDA runtime launches, graph launches,
+    copies and memsets) by name. A trace may lose device events (a
+    replayed graph's too): one with fewer than ``min_events``, or that
+    ``accept(trace)`` refuses, is taken again, up to ``attempts`` times
+    in all, and the last one is returned."""
+    for _ in range(attempts):
+        out = _overhead_trace_once(torch, fn, label, reps)
+        if out["device_events"] >= min_events and (accept is None
+                                                   or accept(out)):
+            break
+    return out
+
+
+# For each launch counter, the kernels of which its wrapper launches
+# exactly one each time on every route (a trace's ``own`` names).
+COUNTER_KERNELS = {"fused_encoder_eval": ("reduce_tiles_kernel",),
+                   "nn_distance": ("nn_distance_kernel",),
+                   "fused_head_fwd": ("head_fwd_mma_kernel",
+                                      "head_fwd_tile_kernel"),
+                   "fused_head_bwd": ("head_bwd_dw_kernel",),
+                   "nn_distance_grad": ("nn_distance_grad_kernel",),
+                   "emd_forward": ("emd_cost_sum",)}
+
+
+def trace_launches(own: dict) -> dict:
+    """The launches of each counter's wrapper that a trace's ``own``
+    kernel counts show."""
+    return {k: sum(own.get(n, 0) for n in names)
+            for k, names in COUNTER_KERNELS.items()}
+
+
+def counted(counters, fn, box: dict):
+    """``fn`` wrapped so that each call leaves its launch counters'
+    increments in ``box``."""
+    def call():
+        before = {k: c.launches for k, c in counters.items()}
+        fn()
+        box.clear()
+        box.update({k: c.launches - before[k] for k, c in counters.items()})
+    return call
+
+
+def _overhead_trace_once(torch, fn, label, reps) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            with record_function(label):
+                fn()
+    events = prof.events()
+    spans = [e.time_range for e in events
+             if e.name == label and e.device_type == DeviceType.CPU]
+    require(len(spans) == reps, f"trace holds {len(spans)} calls")
+    t0, t1 = spans[-1].start, spans[-1].end
+    dev = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1),
+                  e.name) for e in events
+                 if e.device_type == DeviceType.CUDA and e.name != label
+                 and not getattr(e, "is_user_annotation", False)
+                 and e.time_range.end > t0 and e.time_range.start < t1)
+    host = {}
+    for e in events:
+        if (e.device_type == DeviceType.CPU and e.name.startswith(HOST_OPS)
+                and t0 <= e.time_range.start <= t1):
+            host[e.name] = host.get(e.name, 0) + 1
+    busy, end, own = 0.0, t0, {}
+    for a, b, name in dev:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        if any(k in name for k in OWN_KERNELS):
+            base = _short(name).split("<")[0]
+            own[base] = own.get(base, 0) + 1
+    return dict(span_ms=(t1 - t0) / 1e3, busy_ms=busy / 1e3,
+                idle=1.0 - busy / max(t1 - t0, 1e-9), device_events=len(dev),
+                host_ops=sum(host.values()), host=host,
+                graph_launches=sum(n for k, n in host.items()
+                                   if "GraphLaunch" in k), own=own)
+
+
+def _overhead_str(t: dict, per: int = 1) -> str:
+    device = (f"device busy {t['busy_ms']:.4f} ms, idle share "
+              f"{t['idle']:.4f}" if t["device_events"] else
+              "device busy and idle share not measured (no device events "
+              "in the trace)")
+    return (f"span {t['span_ms']:.4f} ms, {device}, {t['device_events']} "
+            f"device events, {t['host_ops']} host-issued operations"
+            + (f" ({t['host_ops'] / per:.1f} a step)" if per > 1 else "")
+            + f", {t['graph_launches']} graph launches")
+
+
+def _compiled_config(data, log_dir, name, bf16, input_mode):
+    from pointnet_autoencoder_tpu_torch.config import TrainConfig
+
+    return TrainConfig(model=name, data_path=data, category="Chair",
+                       num_point=NUM_POINT, batch_size=BATCH, bf16=bf16,
+                       log_dir=log_dir, log_every=COMPILED_LOG_EVERY
+                       if input_mode == "device" else 5,
+                       input_mode=input_mode, seed=SEED)
+
+
+def _host_state(torch, tr) -> dict:
+    """The Trainer's weights, BN statistics and optimizer state (slots,
+    step counts, groups) on the host."""
+    def host(v):
+        if torch.is_tensor(v):
+            return v.detach().cpu()
+        if isinstance(v, dict):
+            return {k: host(u) for k, u in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [host(u) for u in v]
+        return v
+
+    return host(tr.state.state_dict())
+
+
+def _compiled_run(torch, counters, tr):
+    """One train epoch and two eval epochs of ``tr`` from its start: the
+    launches, the state on the host, the generators' states, the logged
+    records and the eval losses."""
+    for fn in counters.values():
+        fn.launches = 0
+    tr.train_one_epoch(0)
+    evals = [tr.eval_one_epoch(0), tr.eval_one_epoch(0)]
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tr.flush()
+    with open(os.path.join(tr.config.log_dir, "scalars.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    gens = ([tr.train_pipe.generator.get_state(),
+             tr.eval_pipe.generator.get_state()]
+            if tr.input_mode == "device" else [])
+    return dict(launches=launches, state=_host_state(torch, tr), gens=gens,
+                recs=recs, evals=evals, step=tr.state.step,
+                step_tensor=int(tr.state.step_tensor))
+
+
+def compiled_training(torch, counters, data, tmp, name, bf16, input_mode,
+                      x):
+    """A captured Trainer (the default) beside an eager one
+    (``compiled=False``) from the same seed: one train epoch (device
+    input: log_every 3, so chunks of 3, 3, 3 and 1 steps; the first chunk
+    is the warm-up, eager, the other 7 steps are replays of a program of 3
+    steps and one of 1; host input: the first step eager, 9 replays) and
+    two eval epochs each (the second replayed); everything bit-equal.
+    Then each one's step on ``x`` timed and traced, and with device input
+    an epoch of each traced. Returns the report line."""
+    from pointnet_autoencoder_tpu_torch.parallel.sp import cudnn_deterministic
+    from pointnet_autoencoder_tpu_torch.train.loop import Trainer
+
+    tag = f"{name} {'bf16' if bf16 else 'f32'} {input_mode} input"
+    context = (cudnn_deterministic if name in UPCONV_FAMILIES else
+               (lambda: deterministic_algorithms(torch))
+               if name in DENSE_FAMILIES else contextlib.nullcontext)
+    runs, trainers = {}, {}
+    try:
+        for compiled in (True, False):
+            cfg = _compiled_config(
+                data, os.path.join(tmp, f"compiled_{name}_{bf16}_"
+                                        f"{input_mode}_{compiled}"),
+                name, bf16, input_mode)
+            tr = trainers[compiled] = Trainer(cfg, device="cuda",
+                                              compiled=compiled)
+            require((tr._programs is not None) == compiled,
+                    f"{tag}: compiled={compiled} but no programs")
+            with context():
+                runs[compiled] = _compiled_run(torch, counters, tr)
+        graphed, eager = runs[True], runs[False]
+        bad = tree_mismatch(torch, graphed["state"], eager["state"])
+        require(bad is None, f"{tag}: graphed and eager states differ at "
+                f"{bad}")
+        steps = len(trainers[True].train_pipe)
+        require(graphed["step"] == eager["step"] == graphed["step_tensor"]
+                == steps, f"{tag}: steps {graphed['step']}, "
+                f"{eager['step']}, device {graphed['step_tensor']}")
+        require(all(torch.equal(a, b) for a, b in
+                    zip(graphed["gens"], eager["gens"])),
+                f"{tag}: the generators' states differ after the epoch "
+                f"(the device-input batches were not the eager path's)")
+        strip = [[{k: v for k, v in r.items() if k not in ("time", "wall")}
+                  for r in run["recs"]] for run in (graphed, eager)]
+        require(strip[0] == strip[1] and graphed["evals"] == eager["evals"],
+                f"{tag}: logged metrics differ: {strip[0]} vs {strip[1]}, "
+                f"eval {graphed['evals']} vs {eager['evals']}")
+        require(graphed["launches"] == eager["launches"],
+                f"{tag}: launches {graphed['launches']} graphed vs "
+                f"{eager['launches']} eager")
+        # The step on a batch already on the card, and a device-input
+        # epoch, each traced.
+        # Eager first: its traces' device events are the least the
+        # graphed traces must hold.
+        timing, deltas = {}, {}
+        for compiled in (False, True):
+            tr = trainers[compiled]
+            box = deltas[compiled] = {"step": {}, "epoch": {}}
+
+            def step(tr=tr):
+                tr.train_step(x)["loss"].item()
+
+            def agrees(kind, box=box):
+                return lambda t: trace_launches(t["own"]) == box[kind]
+
+            least = ({} if not compiled else dict(
+                min_events=int(0.95 * timing[False][1]["device_events"])))
+            with context():
+                step()
+                step()
+                host = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    step()
+                    host.append(1e3 * (time.perf_counter() - t0))
+                one = overhead_trace(
+                    torch, counted(counters, step, box["step"]),
+                    f"compiled.{name}.step", accept=agrees("step"), **least)
+                if compiled and input_mode == "device":
+                    least = dict(min_events=int(
+                        0.95 * timing[False][2]["device_events"]))
+                epoch = (overhead_trace(
+                    torch, counted(counters,
+                                   lambda tr=tr: tr.train_one_epoch(1),
+                                   box["epoch"]),
+                    f"compiled.{name}.epoch", reps=2,
+                    accept=agrees("epoch"), **least)
+                    if input_mode == "device" else None)
+            timing[compiled] = (statistics.median(host), one, epoch)
+        # The port's kernels in each trace: as the counters count that
+        # call, graphed and eager alike.
+        for kind, i in (("step", 1), ("epoch", 2)):
+            if timing[True][i] is None:
+                continue
+            own = {c: timing[c][i]["own"] for c in (True, False)}
+            seen = {c: trace_launches(own[c]) for c in (True, False)}
+            require(own[True] == own[False]
+                    and seen[True] == deltas[True][kind]
+                    and seen[False] == deltas[False][kind],
+                    f"{tag}: the port's kernels in the traced {kind}: "
+                    f"graphed {own[True]}, eager {own[False]}; as launches "
+                    f"{seen}, the counters {deltas[True][kind]} graphed, "
+                    f"{deltas[False][kind]} eager")
+        chunks = -(-steps // COMPILED_LOG_EVERY)
+        g_step, e_step = timing[True][1], timing[False][1]
+        require(g_step["graph_launches"] == 1
+                and e_step["graph_launches"] == 0,
+                f"{tag}: host operations of one step {g_step['host']} "
+                f"graphed, {e_step['host']} eager")
+        line = (f"{tag}: a train epoch of {steps} steps and 2 eval epochs "
+                f"(the second replayed) bit-equal to eager: weights, "
+                f"optimizer slots and counts, BN statistics, the "
+                f"generators, every logged metric; launches "
+                f"{graphed['launches']} both ways. One step on a batch on "
+                f"the card (host median of 10, to the loss on the host): "
+                f"graphed {timing[True][0]:.3f} ms, "
+                f"{_overhead_str(g_step)}; eager {timing[False][0]:.3f} ms, "
+                f"{_overhead_str(e_step)}")
+        if input_mode == "device":
+            g_epoch, e_epoch = timing[True][2], timing[False][2]
+            require(g_epoch["graph_launches"] == chunks,
+                    f"{tag}: a device-input epoch of {steps} steps issued "
+                    f"{g_epoch['host']}, not {chunks} graph launches")
+            line += (f". A device-input epoch: graphed "
+                     f"{_overhead_str(g_epoch, steps)}; eager "
+                     f"{_overhead_str(e_epoch, steps)}; the port's kernels "
+                     f"in each epoch's trace {g_epoch['own']}, as the "
+                     f"counters count it")
+        return line, timing
+    finally:
+        for tr in trainers.values():
+            tr.close()
+
+
+def compiled_resume(torch, data, tmp, x):
+    """A card Trainer's state after 2 steps, saved as a card writes it and
+    in a CPU Trainer's form (Adam's groups not capturable, the learning
+    rate a float, as a checkpoint from before the learning rate was a
+    tensor holds it too), each resumed by a captured card Trainer through
+    ``resume``: Adam capturable again, and 3 steps on ``x`` from each (a
+    warm-up, then 2 replays) bit-equal. Returns the report line."""
+    import copy
+    import dataclasses
+
+    from pointnet_autoencoder_tpu_torch.train import checkpoint
+    from pointnet_autoencoder_tpu_torch.train.loop import Trainer
+
+    def config(form):
+        return _compiled_config(data, os.path.join(tmp, f"resume_{form}"),
+                                "model", True, "device")
+
+    src = Trainer(config("source"), device="cuda")
+    try:
+        for _ in range(2):
+            src.train_step(x)
+        card = dict(checkpoint.to_host(src.state.state_dict()), epoch=1,
+                    best_loss=1e9)
+    finally:
+        src.close()
+    cpu = copy.deepcopy(card)
+    for group in cpu["optimizer"]["param_groups"]:
+        group["capturable"] = False
+        group["lr"] = float(group["lr"])
+    states = {}
+    for form, tree in (("card", card), ("cpu", cpu)):
+        cfg = config(form)
+        checkpoint.CheckpointManager(cfg.log_dir).save_periodic(tree)
+        tr = Trainer(dataclasses.replace(cfg, resume=True), device="cuda")
+        try:
+            groups = tr.state.optimizer.param_groups
+            require(tr.state.step == 2 and all(
+                g["capturable"] and torch.is_tensor(g["lr"])
+                for g in groups),
+                f"resume of the {form} form: step {tr.state.step}, "
+                f"capturable {[g['capturable'] for g in groups]}")
+            for _ in range(3):
+                tr.train_step(x)
+            require(tr._programs is not None and len(tr._programs._programs)
+                    == 1, f"resume of the {form} form: no captured step")
+            states[form] = _host_state(torch, tr)
+        finally:
+            tr.close()
+    bad = tree_mismatch(torch, states["card"], states["cpu"])
+    require(bad is None, f"3 steps after resuming the two forms differ at "
+            f"{bad}")
+    return ("a checkpoint in a CPU Trainer's form (Adam not capturable, a "
+            "float learning rate) and as the card writes it, each resumed "
+            "by a captured card Trainer: Adam capturable again, 3 steps "
+            "from each (a warm-up, then 2 replays) bit-equal")
+
+
+def compiled_serving(torch, counters, weights, rng, batch, bf16):
+    """A captured session beside an eager one: reconstruct, embed,
+    decode, chamfer and fscore at ``batch``, each called twice on each (on
+    the captured one a warm-up, then a replay), all bit-equal, with the
+    same launches; a served reconstruct timed and traced both ways."""
+    from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+
+    tag = f"B={batch} {'bf16' if bf16 else 'f32'}"
+    x = clouds(rng, batch, NUM_POINT)
+    y = clouds(rng, batch, NUM_POINT)
+    sessions = {c: InferenceSession("model", weights, NUM_POINT,
+                                    batch_size=batch, bf16=bf16,
+                                    device="cuda", compiled=c)
+                for c in (True, False)}
+    try:
+        emb = sessions[False].embed(x)
+        ops = {"reconstruct": lambda s: s.reconstruct(x),
+               "embed": lambda s: s.embed(x),
+               "decode": lambda s: s.decode(emb),
+               "chamfer": lambda s: s.chamfer(x, y),
+               "fscore": lambda s: s.fscore(x, y, 0.5)}
+        for op, call in ops.items():
+            outs, launches = {}, {}
+            for c, s in sessions.items():
+                for fn in counters.values():
+                    fn.launches = 0
+                outs[c] = [call(s) for _ in range(2)]
+                launches[c] = {k: fn.launches for k, fn in counters.items()}
+            require(all(np.array_equal(o, outs[False][0])
+                        for o in outs[True] + outs[False]),
+                    f"serving {tag} {op}: graphed differs from eager")
+            require(launches[True] == launches[False],
+                    f"serving {tag} {op}: launches {launches}")
+        timing = {}
+        for c in (False, True):
+            s = sessions[c]
+            host = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                s.reconstruct(x)
+                host.append(1e3 * (time.perf_counter() - t0))
+            least = int(0.95 * timing[False][1]["device_events"]) if c else 1
+            timing[c] = (statistics.median(host), overhead_trace(
+                torch, lambda s=s: s.reconstruct(x),
+                f"compiled.serve.{batch}", min_events=least))
+        require(timing[True][1]["graph_launches"] == 1,
+                f"serving {tag}: host operations {timing[True][1]['host']}")
+        return (f"serving {tag}: reconstruct, embed, decode, chamfer and "
+                f"fscore graphed (a warm-up, then a replay) bit-equal to "
+                f"eager, the same launches; reconstruct, host median of 10:"
+                f" graphed {timing[True][0]:.3f} ms, "
+                f"{_overhead_str(timing[True][1])}; eager "
+                f"{timing[False][0]:.3f} ms, "
+                f"{_overhead_str(timing[False][1])}"), timing
+    finally:
+        for s in sessions.values():
+            s.close()
+
+
+def phase_compiled(torch, counters, data, weights, tmp, rng):
+    """The captured steps and forwards. See the module docstring, phase
+    22."""
+    import io
+
+    from pointnet_autoencoder_tpu_torch.ops import benchmarks
+
+    t_phase = time.perf_counter()
+    say("compiled", nvidia_smi_line())
+    x = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to("cuda")
+    cases = [(name, True, "device") for name in ALL_FAMILIES]
+    cases += [("model", False, "device"), ("model", True, "host")]
+    for name, bf16, mode in cases:
+        line, _ = compiled_training(torch, counters, data, tmp, name, bf16,
+                                    mode, x)
+        say("compiled", line + " ok")
+    say("compiled", compiled_resume(torch, data, tmp, x) + " ok")
+    for batch, bf16 in ((BATCH, False), (1, False), (BATCH, True)):
+        line, _ = compiled_serving(torch, counters, weights, rng, batch,
+                                   bf16)
+        say("compiled", line + " ok")
+    # The runs main makes, kept to run each again eagerly.
+    runs, real = [], {n: getattr(benchmarks, n)
+                      for n in ("bench_chamfer_gd", "bench_emd_gd")}
+
+    def kept(name):
+        def run(**kw):
+            out = real[name](**kw)
+            runs.append((name, kw, out))
+            return out
+        return run
+
+    for fn in counters.values():
+        fn.launches = 0
+    out = io.StringIO()
+    try:
+        for name in real:
+            setattr(benchmarks, name, kept(name))
+        with contextlib.redirect_stdout(out):
+            rc = benchmarks.main(["--quick"])
+    finally:
+        for name, fn in real.items():
+            setattr(benchmarks, name, fn)
+    got = {k: fn.launches for k, fn in counters.items()}
+    want = {"fused_encoder_eval": 0, "nn_distance": 21, "fused_head_fwd": 0,
+            "fused_head_bwd": 0, "nn_distance_grad": 21, "emd_forward": 6}
+    require(rc == 0 and got == want,
+            f"ops.benchmarks --quick: rc {rc}, launches {got}, want {want}")
+    finals = []
+    for name, kw, graphed in runs:
+        eager = real[name](**kw, compiled=False)
+        require(eager["final_loss"] == graphed["final_loss"],
+                f"ops.benchmarks --quick {graphed['config']}: final loss "
+                f"{graphed['final_loss']!r} graphed, {eager['final_loss']!r} "
+                f"eager")
+        finals.append(f"{graphed['config']} {graphed['final_loss']!r}")
+    require(len(runs) == 2, f"ops.benchmarks --quick made {len(runs)} runs")
+    say("compiled", "ops.benchmarks --quick (each GD step a replayed "
+        "program): " + " | ".join(out.getvalue().strip().splitlines())
+        + f"; launches {got}; final losses equal to the same loops run "
+        f"eagerly on the card: {'; '.join(finals)} ok")
+    say("compiled", f"phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -4440,6 +4967,9 @@ def main() -> int:
             phase = "profile"
             phase_profile(torch, counters, data, tmp,
                           np.random.RandomState(SEED + 90))
+            phase = "compiled"
+            phase_compiled(torch, counters, data, weights, tmp,
+                           np.random.RandomState(SEED + 100))
         smi = nvidia_smi_line()
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAIL in phase {phase}: {type(e).__name__}: {e}",

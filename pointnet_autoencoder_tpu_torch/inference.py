@@ -26,6 +26,12 @@ partial sums and slices are combined in this process on the replica's
 first device, where the encoder, the neck and the rest of the decoder
 run. It composes with ``data_parallel``.
 
+Compiled forwards: on cards (``compiled``, the default) every op's
+forward of a padded chunk replays a CUDA graph (``utils/graphs.py``),
+the JAX package's jitted forward: ``reconstruct``/``embed`` share one,
+``decode``, ``chamfer`` and ``fscore`` (its threshold a device scalar)
+have their own; the metrics run in padded chunks as the forwards do.
+
 Numerics: f32 mode is full f32. Matmuls and cuDNN's convolutions run
 with TF32 off, which the session sets
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -42,6 +48,7 @@ import contextlib
 import copy
 import json
 import os
+import threading
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,6 +65,7 @@ from pointnet_autoencoder_tpu_torch.parallel.mesh import (
     check_batch_divisible,
     make_mesh,
 )
+from pointnet_autoencoder_tpu_torch.utils.graphs import ProgramCache
 
 
 def _on(device: torch.device):
@@ -66,32 +74,36 @@ def _on(device: torch.device):
             else contextlib.nullcontext())
 
 
-def chunked_dispatch(run: Callable, arr: np.ndarray, chunk_size: int,
+def chunked_dispatch(run: Callable, arr, chunk_size: int,
                      devices: Sequence[torch.device]):
-    """Stream ``arr`` (leading axis) through ``run`` in chunks of
-    ``chunk_size`` rows, each chunk split into equal parts, one per entry
-    of ``devices``: the ragged tail is zero-padded, every part is launched
-    before any result is fetched, and each output comes to the host with
-    the padding sliced off, in order (one copy where one device holds
-    every part).
+    """Stream ``arr`` (leading axis; or a tuple of arrays of one leading
+    length, cut alike) through ``run`` in chunks of ``chunk_size`` rows,
+    each chunk split into equal parts, one per entry of ``devices``: the
+    ragged tail is zero-padded, every part is launched before any result
+    is fetched, and each output comes to the host with the padding sliced
+    off, in order (one copy where one device holds every part).
 
-    ``run(part, i)`` runs on ``devices[i]`` and returns one tensor or a
-    tuple of them (``None`` entries stay ``None``: the caller did not want
-    that output). Returns a numpy array, or a tuple of them when ``run``
-    returns a tuple."""
-    total = arr.shape[0]
+    ``run(part, i)`` (``run(*parts, i)`` for a tuple) runs on
+    ``devices[i]`` and returns one tensor or a tuple of them (``None``
+    entries stay ``None``: the caller did not want that output). Returns
+    a numpy array, or a tuple of them when ``run`` returns a tuple."""
+    arrs = arr if isinstance(arr, tuple) else (arr,)
+    total = arrs[0].shape[0]
     rows = chunk_size // len(devices)
     outs = []
     for s in range(0, total, chunk_size):
-        chunk = arr[s:s + chunk_size]
-        pad = chunk_size - chunk.shape[0]
-        if pad:
-            chunk = np.concatenate(
-                [chunk, np.zeros((pad,) + chunk.shape[1:], arr.dtype)])
+        chunks = []
+        for a in arrs:
+            chunk = a[s:s + chunk_size]
+            pad = chunk_size - chunk.shape[0]
+            if pad:
+                chunk = np.concatenate(
+                    [chunk, np.zeros((pad,) + chunk.shape[1:], a.dtype)])
+            chunks.append(chunk)
         for i, dev in enumerate(devices):
             with _on(dev):
-                res = run(torch.from_numpy(
-                    chunk[i * rows:(i + 1) * rows]).to(dev), i)
+                res = run(*(torch.from_numpy(c[i * rows:(i + 1) * rows])
+                            .to(dev) for c in chunks), i)
             outs.append(res if isinstance(res, tuple) else (res,))
     one_device = len(set(devices)) == 1
     cols = [None if outs[0][j] is None else
@@ -167,6 +179,12 @@ class InferenceSession:
       model_parallel: devices per replica over which its decoder's FC
         layers split (``parallel/tp.py``); 1: whole replicas. With no
         ``devices``, cards 0..k*m-1.
+      compiled: on cards, each op's forward runs as a captured program
+        (``utils/graphs.py``), one per (op, replica, shapes) at the padded
+        chunk size, the first call of each in each thread eager as its
+        warm-up; False runs eager, the reference. A TP-split session, and
+        the CPU, run eager. Callers in several threads take turns on each
+        replica's programs, which share their static inputs and outputs.
 
     ``devices`` is the list of the replicas' first devices; ``model``
     holds the whole weights (on the CPU under ``model_parallel``).
@@ -176,7 +194,7 @@ class InferenceSession:
                  batch_size: int = 32, bf16: bool = False,
                  device: str = "cuda", data_parallel: Optional[int] = None,
                  devices: Optional[Sequence] = None,
-                 model_parallel: int = 1):
+                 model_parallel: int = 1, compiled: bool = True):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if not os.path.exists(model_path):
@@ -230,6 +248,16 @@ class InferenceSession:
                                            grid[i * m:(i + 1) * m])
             with torch.inference_mode(), _on(dev):
                 self._folded.append(rep.encoder.fold())
+        # One cache of captured programs per replica.
+        self._programs = (
+            [ProgramCache(dev) for dev in self.devices]
+            if compiled and m == 1 and all(d.type == "cuda"
+                                           for d in self.devices)
+            else None)
+        # A program's static inputs and outputs are shared: one caller at
+        # a time on each replica, from the copy-in to the clone.
+        self._locks = [threading.Lock() for _ in self.devices]
+        self._warmed: set = set()
 
     @property
     def model(self):
@@ -272,34 +300,48 @@ class InferenceSession:
             raise ValueError("got 0 input shapes")
         return pts, single
 
+    def close(self) -> None:
+        """Release the captured programs (their memory on the cards); the
+        session stays usable and captures again on its next calls."""
+        for programs in self._programs or ():
+            programs.close()
+        self._warmed.clear()
+
+    def _call(self, i: int, op: str, fn: Callable, *inputs: torch.Tensor):
+        """``fn(*inputs)`` on replica ``i``: eager, or (``compiled``) the
+        replay of its program of ``op`` at these input shapes, captured
+        after a first eager call; the outputs are the caller's own."""
+        if self._programs is None:
+            return fn(*inputs)
+        programs = self._programs[i]
+        key = (op, i) + tuple((tuple(t.shape), t.dtype) for t in inputs)
+        # The warm-up is per thread too: a thread's first cuBLAS or cuDNN
+        # call makes its handle, which cannot happen under capture (a
+        # server's batching thread is not the thread that warmed it up).
+        warm = (threading.get_ident(),) + key
+        with self._locks[i]:
+            if warm not in self._warmed:
+                out = programs.warm_up(lambda: fn(*inputs))
+                self._warmed.add(warm)
+                return out
+            outputs = programs.program(key, fn, inputs).replay(*inputs)
+            return (tuple(o.clone() for o in outputs)
+                    if isinstance(outputs, tuple) else outputs.clone())
+
     @torch.inference_mode()
     def _run(self, pts: np.ndarray, fetch_pred: bool = True,
              fetch_emb: bool = True):
         def run(part, i):
-            pred, end_points = self._replicas[i](part,
-                                                 folded=self._folded[i])
+            def forward(x):
+                pred, end_points = self._replicas[i](x,
+                                                     folded=self._folded[i])
+                return pred, end_points["embedding"]
+
+            pred, emb = self._call(i, "forward", forward, part)
             return (pred if fetch_pred else None,
-                    end_points["embedding"] if fetch_emb else None)
+                    emb if fetch_emb else None)
 
         return chunked_dispatch(run, pts, self.batch_size, self.devices)
-
-    def _pairs(self, pred, target):
-        """(pred, target) as f32 tensors in parts, one per replica's
-        device when the batch divides among them, else whole on the first
-        device (the JAX package's sharded or replicated metric)."""
-        pred = np.asarray(pred, np.float32)
-        target = np.asarray(target, np.float32)
-        k = len(self.devices)
-        if pred.shape[0] % k:
-            k = 1
-        rows = pred.shape[0] // k
-        return [(dev, torch.from_numpy(pred[i * rows:(i + 1) * rows]).to(dev),
-                 torch.from_numpy(target[i * rows:(i + 1) * rows]).to(dev))
-                for i, dev in enumerate(self.devices[:k])]
-
-    @staticmethod
-    def _gather(parts) -> np.ndarray:
-        return np.concatenate([p.cpu().numpy() for p in parts])
 
     # -- public API -----------------------------------------------------------
 
@@ -331,31 +373,43 @@ class InferenceSession:
         if emb.shape[0] == 0:
             raise ValueError("got 0 embeddings")
         pred = chunked_dispatch(
-            lambda part, i: self._replicas[i].decoder(part)[0],
+            lambda part, i: self._call(
+                i, "decode", lambda x: self._replicas[i].decoder(x)[0], part),
             emb, self.batch_size, self.devices)
         return pred[0] if single else pred
+
+    def _pairs(self, op: str, fn: Callable, pred, target,
+               *scalars: float) -> np.ndarray:
+        """``fn(pred, target, *scalars)`` per shape of two (B, N, 3)
+        clouds, in padded chunks of ``batch_size`` split among the
+        replicas (each shape's value depends on its own row only); each
+        scalar a 0-dim f32 input on the device."""
+        def run(p, t, i):
+            dev = self.devices[i]
+            extra = tuple(torch.full((), v, dtype=torch.float32, device=dev)
+                          for v in scalars)
+            return self._call(i, op, fn, p, t, *extra)
+
+        return chunked_dispatch(
+            run, (np.asarray(pred, np.float32),
+                  np.asarray(target, np.float32)),
+            self.batch_size, self.devices)
 
     @torch.inference_mode()
     def chamfer(self, pred, target) -> np.ndarray:
         """Per-shape raw Chamfer (the reference's pcloss),
-        mean(d1) + mean(d2), between two (B, N, 3) clouds; split among the
-        replicas' devices when B divides among them."""
-        parts = []
-        for dev, p, t in self._pairs(pred, target):
-            with _on(dev):
-                d1, _, d2, _ = nn_distance(p, t)
-                parts.append(d1.mean(dim=1) + d2.mean(dim=1))
-        return self._gather(parts)
+        mean(d1) + mean(d2), between two (B, N, 3) clouds."""
+        def chamfer(p, t):
+            d1, _, d2, _ = nn_distance(p, t)
+            return d1.mean(dim=1) + d2.mean(dim=1)
+
+        return self._pairs("chamfer", chamfer, pred, target)
 
     @torch.inference_mode()
     def fscore(self, pred, target, threshold: float = 0.01) -> np.ndarray:
-        """Per-shape F-score@threshold between (B, N, 3) clouds; split as
-        ``chamfer``."""
-        parts = []
-        for dev, p, t in self._pairs(pred, target):
-            with _on(dev):
-                parts.append(_fscore_op(p, t, threshold))
-        return self._gather(parts)
+        """Per-shape F-score@threshold between (B, N, 3) clouds; the
+        threshold a device scalar of the program."""
+        return self._pairs("fscore", _fscore_op, pred, target, threshold)
 
     def evaluate(self, dataset, num_shapes: Optional[int] = None,
                  seed: int = 0):

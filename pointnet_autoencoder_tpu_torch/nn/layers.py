@@ -17,7 +17,7 @@ variance with the unbiased variance and takes momentum as 1 - m.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -78,7 +78,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features, device=device))
 
     def forward(self, x: Tensor, train: bool = False,
-                momentum: float = 0.9) -> Tensor:
+                momentum: Union[float, Tensor] = 0.9) -> Tensor:
         if train:
             axes = tuple(range(x.dim() - 1))
             xf = x.float()
@@ -96,10 +96,17 @@ class BatchNorm(nn.Module):
         return x * inv.to(x.dtype) + shift.to(x.dtype)
 
     @torch.no_grad()
-    def update(self, mean: Tensor, var: Tensor, momentum: float) -> None:
-        """moving = m * moving + (1 - m) * batch, in place."""
-        self.mean.mul_(momentum).add_((1.0 - momentum) * mean.float())
-        self.var.mul_(momentum).add_((1.0 - momentum) * var.float())
+    def update(self, mean: Tensor, var: Tensor,
+               momentum: Union[float, Tensor]) -> None:
+        """moving = m * moving + (1 - m) * batch, in place, with m and
+        1 - m in f32 (the JAX package's f32 momentum): m is a 0-dim f32
+        tensor on the statistics' device (the train step's, computed on
+        the device from its step counter), or a float made into one."""
+        m = (momentum.float() if torch.is_tensor(momentum) else
+             torch.full((), momentum, dtype=torch.float32,
+                        device=self.mean.device))
+        self.mean.mul_(m).add_((1.0 - m) * mean.float())
+        self.var.mul_(m).add_((1.0 - m) * var.float())
 
 
 class PointMLP(nn.Module):

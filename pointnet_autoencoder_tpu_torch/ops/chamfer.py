@@ -26,7 +26,7 @@ as the reference op's registered gradient.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -258,13 +258,17 @@ def chamfer_loss_dense(pred: Tensor, label: Tensor) -> Tensor:
     return _chamfer_mean(d1, d2)
 
 
-def fscore(pred: Tensor, target: Tensor, threshold: float = 0.01) -> Tensor:
+def fscore(pred: Tensor, target: Tensor,
+           threshold: Union[float, Tensor] = 0.01) -> Tensor:
     """Per-shape F-score at a distance threshold: the harmonic mean of
     precision (pred points within ``threshold`` of the target) and recall
     (target points within ``threshold`` of the pred). Squared distances
-    compare against ``threshold**2``. Returns (B,) f32 in [0, 1]."""
+    compare against ``threshold**2``, in f32; ``threshold`` may be a 0-dim
+    f32 tensor on the clouds' device (a captured program's input).
+    Returns (B,) f32 in [0, 1]."""
     d1, _, d2, _ = nn_distance(pred, target)
-    t2 = torch.tensor(threshold, dtype=torch.float32, device=d1.device) ** 2
+    t2 = torch.as_tensor(threshold, dtype=torch.float32,
+                         device=d1.device) ** 2
     precision = (d1 < t2).float().mean(dim=1)
     recall = (d2 < t2).float().mean(dim=1)
     return 2.0 * precision * recall / torch.clamp_min(precision + recall,

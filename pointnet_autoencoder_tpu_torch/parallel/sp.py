@@ -72,6 +72,8 @@ from pointnet_autoencoder_tpu_torch.ops import chamfer
 from pointnet_autoencoder_tpu_torch.ops import emd as emdlib
 from pointnet_autoencoder_tpu_torch.ops import fused_encoder, fused_head
 from pointnet_autoencoder_tpu_torch.parallel.mesh import DATA_AXIS
+from pointnet_autoencoder_tpu_torch.train.schedules import Staircase
+from pointnet_autoencoder_tpu_torch.train.state import SCHEDULE_KEYS
 
 Tensor = torch.Tensor
 LossFn = Callable[[Tensor, Tensor, Dict[str, Tensor]],
@@ -324,8 +326,8 @@ def point_batch_shard(batch: Tensor, mesh, axis: str = DATA_AXIS,
     return out.contiguous()
 
 
-def make_sp_step_fns(state, name: str, bn_schedule: Callable[[int], float],
-                     mesh, axis: str = DATA_AXIS,
+def make_sp_step_fns(state, name: str, bn_schedule: Staircase, mesh,
+                     axis: str = DATA_AXIS,
                      batch_axis: Optional[str] = None):
     """(train_step, eval_step) of the point-sharded step of ``--model
     name`` on ``mesh`` (a ``parallel.mesh.ProcessMesh``), the JAX
@@ -352,7 +354,9 @@ def make_sp_step_fns(state, name: str, bn_schedule: Callable[[int], float],
     context = cudnn_deterministic if on_card else contextlib.nullcontext
 
     def combined(metrics):
-        keys = sorted(k for k, v in metrics.items() if torch.is_tensor(v))
+        # The schedules' values are every rank's own.
+        keys = sorted(k for k, v in metrics.items()
+                      if torch.is_tensor(v) and k not in SCHEDULE_KEYS)
         values = everyone.sum_(torch.stack([metrics[k].float()
                                             for k in keys])) / divisor
         return dict(metrics, **dict(zip(keys, values.unbind())))

@@ -11,12 +11,23 @@ one device or as one rank of a data-parallel group:
 - Input (``input_mode``): ``"device"`` (the default) keeps the dataset
   on the device and builds each batch there (``data/device_pipeline.py``);
   ``"host"`` assembles batches on a host thread (``data/pipeline.py``).
+- Compiled steps: on one card (no process group, no bf16 masters) the
+  steps are captured programs (``utils/graphs.py``, CUDA graphs), the
+  JAX package's jitted, donated steps: with device input one program of
+  ``log_every`` steps (batch assembly included) per replay and one of
+  the whole eval epoch, with host input one step per replay fed by a
+  copy into its static input. The first call of each kind runs eagerly
+  as the warm-up (it creates the optimizer's slots); a
+  ``TrainState.load_state_dict`` releases the programs. ``compiled=False``
+  runs the eager step, the reference.
 - Metrics per step: ``loss``, ``pcloss`` (and ``pc1loss`` for
-  ``model_hierachy``), ``learning_rate``, ``bn_decay``. Running means of
-  every ``log_every`` batches are logged, then the epoch's throughput.
-  With host input each log line fetches its window in one copy; with
-  device input every fetch waits for the epoch's end (one copy), so no
-  step waits for the device.
+  ``model_hierachy``), ``learning_rate``, ``bn_decay`` (the values the
+  step applied, computed on the device), each step's in its row of an
+  epoch buffer on the device (``EpochMetrics``). Running means of every
+  ``log_every`` batches are logged, then the epoch's throughput. With
+  host input each log line fetches its window in one copy; with device
+  input every fetch waits for the epoch's end (one copy), so no step
+  waits for the device.
 - The eval epoch runs the model with ``train=False``: the fused encoder
   kernel and the Chamfer forward kernel on the card.
 - Checkpoints as the reference: the best eval loss and every 10 epochs;
@@ -26,7 +37,9 @@ one device or as one rank of a data-parallel group:
   (``checkpoint.AsyncSaver``); a best and a periodic save of one step
   share the clone.
 - Preemption: SIGTERM or SIGINT during ``train()`` stops at the next step
-  boundary and writes a resumable checkpoint before ``train()`` returns.
+  boundary (with device input on a card, the next dispatch boundary:
+  ``log_every`` steps) and writes a resumable checkpoint before
+  ``train()`` returns.
 - Profiling (``profile_dir``): the first epoch that ``train()`` trains,
   its eval included, runs inside a ``torch.profiler`` trace
   (``utils/profiling.trace``), one file per rank, closed on every exit
@@ -73,8 +86,9 @@ from __future__ import annotations
 import contextlib
 import os
 import signal
+import threading
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,27 +120,57 @@ from pointnet_autoencoder_tpu_torch.train.logging import (
     NullLogger,
     snapshot_config,
 )
-from pointnet_autoencoder_tpu_torch.train.state import TrainState, make_optimizer
+from pointnet_autoencoder_tpu_torch.train.state import (
+    SCHEDULE_KEYS,
+    TrainState,
+    make_optimizer,
+)
 from pointnet_autoencoder_tpu_torch.utils import profiling
+from pointnet_autoencoder_tpu_torch.utils.graphs import ProgramCache
 
-Metrics = Dict[str, object]  # scalar tensors on the device, or floats
+Metrics = Dict[str, torch.Tensor]  # 0-dim tensors on the device
 
 
-def fetch_metric_windows(pending: List[Metrics], windows: List[Tuple[int, int]]
-                         ) -> List[Dict[str, float]]:
-    """The f32 mean of each metric over each ``(start, stop)`` window of a
-    list of per-step metric dicts (scalar tensors on the device, or
-    floats); the tensors come to the host in one stacked copy."""
-    keys = sorted(pending[0])
-    tensor_keys = [k for k in keys if torch.is_tensor(pending[0][k])]
-    host = np.array([[float(m[k]) for k in keys if k not in tensor_keys]
-                     for m in pending], np.float32).reshape(len(pending), -1)
-    if tensor_keys:
-        dev = torch.stack([torch.stack([m[k].float() for k in tensor_keys])
-                           for m in pending]).cpu().numpy()
-        host = np.concatenate([host, dev], axis=1)
-    names = [k for k in keys if k not in tensor_keys] + tensor_keys
-    return [dict(zip(names, map(float, host[a:b].mean(axis=0))))
+class EpochMetrics:
+    """An epoch's per-step metrics on the device: one row per step of a
+    (steps, keys) f32 buffer, the keys sorted, written as the steps are
+    taken. A captured chunk's rows arrive in one copy from its program's
+    outputs, which the next replay overwrites, so no step's metrics stay
+    an alias of a program's output. ``count`` rows are written."""
+
+    def __init__(self, steps: int, device: torch.device | str):
+        self.steps = steps
+        self.device = torch.device(device)
+        self.keys: Optional[List[str]] = None
+        self.rows: Optional[torch.Tensor] = None
+        self.count = 0
+
+    @staticmethod
+    def row(metrics: Metrics) -> Tuple[List[str], torch.Tensor]:
+        """(sorted keys, the f32 values in that order) of one step."""
+        keys = sorted(metrics)
+        return keys, torch.stack([metrics[k].float() for k in keys])
+
+    def put(self, metrics: Metrics) -> None:
+        """The next step's metrics."""
+        keys, row = self.row(metrics)
+        self.put_rows(keys, row[None])
+
+    def put_rows(self, keys: List[str], rows: torch.Tensor) -> None:
+        """The next ``len(rows)`` steps' metrics, (k, len(keys)) f32."""
+        if self.rows is None:
+            self.keys = list(keys)
+            self.rows = torch.empty((self.steps, len(keys)),
+                                    dtype=torch.float32, device=self.device)
+        self.rows[self.count:self.count + rows.shape[0]].copy_(rows)
+        self.count += rows.shape[0]
+
+
+def window_means(rows: np.ndarray, keys: List[str],
+                 windows: List[Tuple[int, int]]) -> List[Dict[str, float]]:
+    """The f32 mean of each column of ``rows`` (steps, keys) over each
+    ``(start, stop)`` window, by key."""
+    return [dict(zip(keys, map(float, rows[a:b].mean(axis=0))))
             for a, b in windows]
 
 
@@ -141,13 +185,19 @@ class Trainer:
     device: ``"cuda"`` (default; raises without a card) or ``"cpu"``,
     which runs the kernels' plain PyTorch versions. ``config.data_parallel``
     k and ``config.model_parallel`` m need a process group of k*m ranks;
-    ``data_parallel`` None takes the group this process is in, if any."""
+    ``data_parallel`` None takes the group this process is in, if any.
+
+    compiled: on a card, run the steps as captured programs
+    (``utils/graphs.py``), the default; False runs the eager step, the
+    reference they are held to. The CPU, the ranks of a group and
+    ``MasterOptimizer`` run eager whatever it says (the first log line
+    says which path runs, and why)."""
 
     def __init__(self, config: TrainConfig,
                  train_dataset: Optional[PartDataset] = None,
                  test_dataset: Optional[PartDataset] = None,
                  logger: Optional[Logger] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", compiled: bool = True):
         self.config = config.validate()
         self.spec = get_model_spec(config.model)
         # A decoder that cannot emit num_point fails before any data loads.
@@ -287,6 +337,29 @@ class Trainer:
             schedules.learning_rate_schedule(
                 config.learning_rate, config.decay_rate, config.batch_size,
                 config.decay_step, floor=config.lr_floor))
+        # Captured programs on one card; the reason, where the steps run
+        # eager.
+        eager = ("the CPU runs eager" if self.device.type != "cuda" else
+                 "compiled=False: the eager reference" if not compiled else
+                 "a rank of a torch.distributed group: its collectives run "
+                 "on the host and cannot be captured"
+                 if self.world is not None else
+                 "bf16 masters: MasterOptimizer seeds its noise generators "
+                 "from the host at every step"
+                 if config.bf16_params or config.bf16_moments else None)
+        self._programs = (ProgramCache(self.device) if eager is None
+                          else None)
+        # The program kinds warmed up (run once eagerly) in the state's
+        # generation ``_warm_generation``, and each step's metric names.
+        self._warmed: set = set()
+        self._warm_generation = self.state.generation
+        self._keys: Dict[str, List[str]] = {}
+        self.logger.log(
+            "step path: eager (" + eager + ")" if eager else
+            f"step path: captured CUDA graphs on {self.device} (a program "
+            f"of log_every={config.log_every} train steps per replay with "
+            f"device input, the eval epoch in one; one step per replay "
+            f"with host input)")
 
         self.ckpt = checkpoint.CheckpointManager(config.log_dir)
         self._saver = (checkpoint.AsyncSaver(self.ckpt, log=self.logger.log)
@@ -318,19 +391,141 @@ class Trainer:
 
     # -- steps --------------------------------------------------------------
 
-    def train_step(self, batch: torch.Tensor) -> Metrics:
-        """One optimizer step on ``batch`` (B, N, 3), its own label."""
+    def _eager_train_step(self, batch: torch.Tensor) -> Metrics:
         if self.sp_active:
             reduce = self.group.sum_gradients
         elif self.group is not None:
             reduce = self.group.average_gradients
         else:
             reduce = None
-        return self.state.train_step(batch, self.loss_fn, self.bn_schedule,
-                                     reduce, self._replicated)
+        metrics = self.state.train_step(batch, self.loss_fn,
+                                        self.bn_schedule, reduce,
+                                        self._replicated)
+        self._keys["train"] = sorted(metrics)
+        return metrics
+
+    def _eager_eval_step(self, batch: torch.Tensor) -> Metrics:
+        metrics = self.state.eval_step(batch, self.loss_fn, self._replicated)
+        self._keys["eval"] = sorted(metrics)
+        return metrics
+
+    def _warm(self, kind: str) -> bool:
+        """Whether ``kind`` ("train" or "eval") has run once eagerly in the
+        state's generation, in this thread (a thread's first cuBLAS or
+        cuDNN call makes its handle, which cannot happen under capture).
+        A new generation (``TrainState.load_state_dict`` replaced the
+        optimizer's slots) releases every program and needs a warm-up
+        again."""
+        if self._warm_generation != self.state.generation:
+            self._programs.clear()
+            self._warmed.clear()
+            self._warm_generation = self.state.generation
+        return (threading.get_ident(), kind) in self._warmed
+
+    def _warmed_up(self, kind: str) -> None:
+        self._warmed.add((threading.get_ident(), kind))
+
+    def _run_program(self, key: Tuple, step_rows: Callable,
+                     inputs: Tuple[torch.Tensor, ...], steps: int = 0,
+                     generators: Tuple[torch.Generator, ...] = ()
+                     ) -> torch.Tensor:
+        """Replay the program of ``key`` on ``inputs`` (capturing
+        ``step_rows(*inputs)`` first, which returns the (k, keys) f32 rows
+        of its steps' metrics); returns the rows, which the next replay
+        overwrites. ``steps``: train steps in one replay, which the
+        capture counted on the host and each replay counts."""
+
+        def record(*static):
+            rows = step_rows(*static)
+            self.state.count_steps(-steps)
+            return rows
+
+        rows = self._programs.program(key, record, inputs,
+                                      generators).replay(*inputs)
+        self.state.count_steps(steps)
+        return rows
+
+    def train_step(self, batch: torch.Tensor) -> Metrics:
+        """One optimizer step on ``batch`` (B, N, 3), its own label; on a
+        card (``compiled``) the replay of a captured step, the first one
+        after a warm-up eager. Returns the step's metrics, 0-dim tensors
+        of the caller's own."""
+        if self._programs is None:
+            return self._eager_train_step(batch)
+        if not self._warm("train"):
+            out = self._programs.warm_up(lambda: self._eager_train_step(batch))
+            self._warmed_up("train")
+            return out
+
+        rows = self._run_program(
+            ("step", tuple(batch.shape), batch.dtype),
+            lambda x: EpochMetrics.row(self._eager_train_step(x))[1][None],
+            (batch,), steps=1)
+        return dict(zip(self._keys["train"], rows[0].clone().unbind()))
 
     def eval_step(self, batch: torch.Tensor) -> Metrics:
-        return self.state.eval_step(batch, self.loss_fn, self._replicated)
+        """The eval loss and metrics on ``batch``; captured as
+        ``train_step``."""
+        if self._programs is None:
+            return self._eager_eval_step(batch)
+        if not self._warm("eval"):
+            out = self._programs.warm_up(lambda: self._eager_eval_step(batch))
+            self._warmed_up("eval")
+            return out
+
+        rows = self._run_program(
+            ("eval_step", tuple(batch.shape), batch.dtype),
+            lambda x: EpochMetrics.row(self._eager_eval_step(x))[1][None],
+            (batch,))
+        return dict(zip(self._keys["eval"], rows[0].clone().unbind()))
+
+    def _chunk(self, kind: str, idxs: torch.Tensor,
+               metrics: EpochMetrics) -> None:
+        """The ``kind`` ("train" or "eval") steps of the (K, B) shape
+        indices ``idxs``, each batch built on the device, their metrics
+        into ``metrics``: on a card (``compiled``) one replay of the
+        program of K steps (the first chunk of a kind eager, as its
+        warm-up), else K eager steps, stopping at a step boundary on a
+        signal."""
+        train = kind == "train"
+        pipe, data = ((self.train_pipe, self.train_device) if train
+                      else (self.eval_pipe, self.eval_device))
+        rotate = train and not self.config.no_rotation
+        step = self.train_step if train else self.eval_step
+        eager_step = self._eager_train_step if train else \
+            self._eager_eval_step
+
+        def rows(ix, one_step):
+            out = [EpochMetrics.row(one_step(self._assemble(
+                pipe, data, ix[j], rotate)))[1] for j in range(len(ix))]
+            return torch.stack(out)
+
+        k = idxs.shape[0]
+        if self._programs is None:
+            # Eager, a stop at the next step boundary.
+            for j in range(k):
+                if train and self._should_stop():
+                    return
+                metrics.put(step(self._assemble(pipe, data, idxs[j],
+                                                rotate)))
+            return
+        if not self._warm(kind):
+            out = self._programs.warm_up(lambda: rows(idxs, eager_step))
+            self._warmed_up(kind)
+        else:
+            out = self._run_program((kind, k),
+                                    lambda ix: rows(ix, eager_step), (idxs,),
+                                    steps=k if train else 0,
+                                    generators=(pipe.generator,))
+        metrics.put_rows(self._keys[kind], out)
+
+    def _assemble(self, pipe: DeviceBatchIterator, data: DeviceDataset,
+                  idxs: torch.Tensor, rotate: bool) -> torch.Tensor:
+        """This rank's part of the batch of shapes ``idxs``, built on the
+        device from ``pipe``'s generator."""
+        return assemble_batch(data.data, data.lengths, idxs, pipe.generator,
+                              self.config.num_point, rotate, rows=self._rows,
+                              points=self._points)
 
     # -- data and model parallelism -----------------------------------------
 
@@ -363,22 +558,24 @@ class Trainer:
         at one step."""
         return self._preempted if self.world is None else self._stop_agreed
 
-    def _fetch_windows(self, pending: List[Metrics],
-                       windows: List[Tuple[int, int]]
+    def _fetch_windows(self, metrics: EpochMetrics,
+                       windows: List[Tuple[int, int]], start: int = 0
                        ) -> List[Dict[str, float]]:
-        """``fetch_metric_windows`` of this rank's metrics. On ranks each
-        step's tensor metrics are first averaged over the data axis (equal
-        shards: the global batch's means) in one all-reduce over every
-        rank, which also carries this rank's stop flag: if any rank was
-        signalled, all agree to stop. Under tensor parallelism every rank
-        of a model group holds the same metrics, and model index 0's
+        """``window_means`` of this rank's metrics rows from ``start`` on,
+        in one copy to the host (windows counted from ``start``). On
+        ranks each step's metrics are first averaged over the data axis
+        (equal shards: the global batch's means) in one all-reduce over
+        every rank, which also carries this rank's stop flag: if any rank
+        was signalled, all agree to stop. Under tensor parallelism every
+        rank of a model group holds the same metrics, and model index 0's
         count. Under point parallelism they are summed (each rank's are
-        its shares)."""
+        its shares). The learning rate and BN momentum are every rank's
+        own and are not reduced."""
+        rows = metrics.rows[start:metrics.count]
         if self.world is not None:
-            keys = sorted(k for k, v in pending[0].items()
-                          if torch.is_tensor(v))
-            rows = torch.stack([torch.stack([m[k].float() for k in keys])
-                                for m in pending])
+            own = [i for i, k in enumerate(metrics.keys)
+                   if k in SCHEDULE_KEYS]
+            shared = rows[:, own].clone()
             if self.model_group is not None and self.model_group.rank:
                 rows = torch.zeros_like(rows)
             buf = torch.cat([rows.reshape(-1), torch.tensor(
@@ -389,9 +586,8 @@ class Trainer:
             rows = buf[:-1].view(rows.shape)
             if not self.sp_active:
                 rows = rows / self._data_size
-            pending = [dict(m, **dict(zip(keys, row)))
-                       for m, row in zip(pending, rows)]
-        return fetch_metric_windows(pending, windows)
+            rows[:, own] = shared
+        return window_means(rows.cpu().numpy(), metrics.keys, windows)
 
     # -- checkpoints --------------------------------------------------------
 
@@ -536,68 +732,67 @@ class Trainer:
         log.log(f"mean pc loss: {means['pcloss']:.6f}")
         log.scalars("train", step, means)
 
-    def _device_batches(self, pipe: DeviceBatchIterator, data: DeviceDataset,
-                        rotate: bool) -> Iterator[torch.Tensor]:
-        """An epoch of batches built on the device from ``data``."""
-        for idxs in pipe.epoch():
-            yield assemble_batch(data.data, data.lengths, idxs,
-                                 pipe.generator, self.config.num_point,
-                                 rotate, rows=self._rows,
-                                 points=self._points)
-
     def _train_epoch_device(self, start_step: int, num_batches: int) -> int:
-        """Device-input epoch: each batch is built on the device, and the
-        metrics of the whole epoch come to the host in one copy at its
-        end (which also waits for the device), so the log lines print
-        then, with the host path's content."""
+        """Device-input epoch: ``log_every`` steps per dispatch (a replayed
+        program on a card, which stops at a dispatch boundary), and the
+        metrics of the whole epoch to the host in one copy at its end
+        (which also waits for the device), so the log lines print then,
+        with the host path's content."""
         cfg = self.config
-        pending: List[Metrics] = []
-        for batch in self._device_batches(self.train_pipe, self.train_device,
-                                          rotate=not cfg.no_rotation):
+        metrics = EpochMetrics(num_batches, self.device)
+        for idxs in self.train_pipe.epoch_chunks(cfg.log_every):
             if self._should_stop():
                 break
-            pending.append(self.train_step(batch))
+            self._chunk("train", idxs, metrics)
         # The reference logs at full log_every marks only.
-        full = len(pending) // cfg.log_every * cfg.log_every
+        full = metrics.count // cfg.log_every * cfg.log_every
         windows = [(a, a + cfg.log_every)
                    for a in range(0, full, cfg.log_every)]
-        if pending:
-            means = self._fetch_windows(pending, windows)
+        if metrics.count:
+            means = self._fetch_windows(metrics, windows)
             for (_, stop), m in zip(windows, means):
                 self._log_window(start_step + stop, stop, num_batches, m)
-        return len(pending)
+        return metrics.count
 
     def _train_epoch_host(self, start_step: int, num_batches: int) -> int:
-        """Host-input epoch: a metric fetch at every log mark, one stacked
-        copy each."""
+        """Host-input epoch: a metric fetch at every log mark, one copy
+        each."""
         cfg = self.config
-        pending, last, steps_done = [], None, 0
+        metrics = EpochMetrics(num_batches, self.device)
+        logged = 0
         for batch_idx, batch in enumerate(self.train_pipe.epoch()):
             if self._should_stop():
                 break
-            last = self.train_step(batch)
-            steps_done += 1
-            pending.append(last)
+            metrics.put(self.train_step(batch))
             if (batch_idx + 1) % cfg.log_every == 0:
-                means, = self._fetch_windows(pending, [(0, len(pending))])
-                pending = []
+                means, = self._fetch_windows(
+                    metrics, [(0, metrics.count - logged)], start=logged)
+                logged = metrics.count
                 self._log_window(start_step + batch_idx + 1, batch_idx + 1,
                                  num_batches, means)
-        if last is not None:
-            last["loss"].item()  # the epoch time includes the device's work
-        return steps_done
+        if metrics.count:
+            # The epoch time includes the device's work.
+            metrics.rows[metrics.count - 1, 0].item()
+        return metrics.count
 
     def eval_one_epoch(self, epoch: int) -> float:
+        """The eval epoch: with device input one dispatch (a replayed
+        program of every batch on a card), with host input one step per
+        batch; the means in one copy."""
         log = self.logger
         log.log(f"---- EPOCH {epoch:03d} EVALUATION ----")
-        batches = (self._device_batches(self.eval_pipe, self.eval_device,
-                                        rotate=False)
-                   if self.input_mode == "device" else self.eval_pipe.epoch())
-        pending = [self.eval_step(batch) for batch in batches]
-        if not pending:
+        n = len(self.eval_pipe)
+        metrics = EpochMetrics(n, self.device)
+        if n and self.input_mode == "device":
+            for idxs in self.eval_pipe.epoch_chunks(n):
+                self._chunk("eval", idxs, metrics)
+        else:
+            for batch in self.eval_pipe.epoch():
+                metrics.put(self.eval_step(batch))
+        if not metrics.count:
             log.log("eval skipped: test split smaller than one batch")
             return float("inf")
-        means, = self._fetch_windows(pending, [(0, len(pending))])
+        means, = self._fetch_windows(metrics, [(0, metrics.count)])
         log.log(f"eval mean loss: {means['loss']:.6f}")
         log.log(f"eval mean pc loss: {means['pcloss']:.6f}")
         log.scalars("test", self.state.step, means)
@@ -664,6 +859,8 @@ class Trainer:
         if self._closed:
             return
         self._closed = True
+        if self._programs is not None:
+            self._programs.close()
         if self._saver is not None:
             self._saver.close()
             self._saver = None

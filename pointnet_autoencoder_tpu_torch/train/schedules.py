@@ -1,43 +1,95 @@
 """LR and BN-momentum staircase schedules, the port's copy of
-``pointnet_autoencoder_tpu/train/schedules.py``, as plain functions of the
-integer step:
+``pointnet_autoencoder_tpu/train/schedules.py``:
 
 - learning rate: base * decay_rate ** floor(step * batch_size /
   decay_step). The reference's 1e-5 floor is dead code in the published
   training script, so there is no floor unless ``floor`` is given.
 - bn_decay (the BatchNorm momentum): min(0.99, 1 - 0.5 * 0.5 **
   floor(step * batch_size / decay_step)), ramping 0.5 -> 0.99.
+
+Each schedule has two forms, which compute as the JAX package does in
+f32 and give the same values:
+
+- ``schedule.tensor(step)``, a 0-dim f32 tensor of a device step counter
+  (an integer tensor), computed on that device with no host sync, so a
+  captured train step reads it at every replay, as the JAX package
+  computes its schedules inside the jit;
+- ``schedule.f32(step)``, the same value computed on the host as a float
+  (what an eager optimizer that takes a number applies; tests).
+
+Both take the exponent ``floor(f32(step) * batch_size / decay_step)``,
+then ``f32(base) * rate ** exponent``. The power is taken in float64 and
+rounded to f32, which gives XLA's f32 power on the CPU bit for bit over
+the exponents a run reaches (torch's and CUDA's f32 ``pow`` are each off
+by an ulp at some of them).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import Tensor
 
 BN_INIT_DECAY = 0.5
 BN_DECAY_RATE = 0.5
 BN_DECAY_CLIP = 0.99
 
 
-def staircase(base: float, rate: float, batch_size: int,
-              decay_step: int) -> Callable[[int], float]:
-    def fn(step: int) -> float:
-        return base * rate ** ((int(step) * batch_size) // decay_step)
+class Staircase:
+    """``base * rate ** floor(step * batch_size / decay_step)``, then
+    ``1 - value`` if ``complement``, then at least ``floor`` and at most
+    ``clip``, in f32 (see the module docstring)."""
 
-    return fn
+    def __init__(self, base: float, rate: float, batch_size: int,
+                 decay_step: int, floor: Optional[float] = None,
+                 complement: bool = False, clip: Optional[float] = None):
+        self.base = np.float32(base)
+        self.rate = float(np.float32(rate))
+        self.batch_size = batch_size
+        self.decay_step = decay_step
+        self.floor = floor
+        self.complement = complement
+        self.clip = clip
+
+    def f32(self, step: int) -> float:
+        exponent = np.floor(np.float32(step) * np.float32(self.batch_size)
+                            / np.float32(self.decay_step))
+        value = self.base * np.float32(np.power(self.rate,
+                                                np.float64(exponent)))
+        if self.complement:
+            value = np.float32(1.0) - value
+        if self.floor is not None:
+            value = max(value, np.float32(self.floor))
+        if self.clip is not None:
+            value = min(value, np.float32(self.clip))
+        return float(value)
+
+    def tensor(self, step: Tensor) -> Tensor:
+        exponent = torch.floor(step.float() * self.batch_size
+                               / self.decay_step)
+        power = torch.pow(torch.full((), self.rate, dtype=torch.float64,
+                                     device=step.device),
+                          exponent.double()).float()
+        value = power * float(self.base)
+        if self.complement:
+            value = 1.0 - value
+        if self.floor is not None:
+            value = torch.clamp_min(value, self.floor)
+        if self.clip is not None:
+            value = torch.clamp_max(value, self.clip)
+        return value
 
 
 def learning_rate_schedule(base_lr: float, decay_rate: float,
                            batch_size: int, decay_step: int,
-                           floor: Optional[float] = None
-                           ) -> Callable[[int], float]:
-    stair = staircase(base_lr, decay_rate, batch_size, decay_step)
-    if floor is None:
-        return stair
-    return lambda step: max(stair(step), floor)
+                           floor: Optional[float] = None) -> Staircase:
+    return Staircase(base_lr, decay_rate, batch_size, decay_step,
+                     floor=floor)
 
 
-def bn_momentum_schedule(batch_size: int,
-                         decay_step: int) -> Callable[[int], float]:
+def bn_momentum_schedule(batch_size: int, decay_step: int) -> Staircase:
     """bn_decay(step): the moving-average momentum fed to BatchNorm."""
-    stair = staircase(BN_INIT_DECAY, BN_DECAY_RATE, batch_size, decay_step)
-    return lambda step: min(BN_DECAY_CLIP, 1.0 - stair(step))
+    return Staircase(BN_INIT_DECAY, BN_DECAY_RATE, batch_size, decay_step,
+                     complement=True, clip=BN_DECAY_CLIP)

@@ -2,48 +2,137 @@
 optimizer and its slots, and the global step, kept together so that one
 checkpoint holds them all. The port's counterpart of
 ``pointnet_autoencoder_tpu/train/state.py``.
+
+The step reads the learning rate and the BN momentum from 0-dim f32
+tensors on the model's device, computed there from a device step
+counter (``train/schedules.py``), and the optimizers of
+``make_optimizer`` take the learning rate as that tensor: a step makes
+no host sync, so it can be captured as a CUDA graph
+(``utils/graphs.py``) and replayed with the values of each later step.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
-from torch import nn
+from torch import Tensor, nn
+
+from pointnet_autoencoder_tpu_torch.train.schedules import Staircase
+
+
+# The metrics a train step reports of its schedules: the values it
+# applied, the same on every rank of a parallel step.
+SCHEDULE_KEYS = ("learning_rate", "bn_decay")
+
+
+class TraceSGD(torch.optim.Optimizer):
+    """Momentum SGD in optax.sgd's trace form (no Nesterov, no dampening):
+    ``buf = g + momentum * buf`` from a zero slot, then ``p += -lr * buf``,
+    as a few ``torch._foreach_*`` ops. ``lr`` may be a 0-dim tensor on the
+    parameters' device, read when the update runs (``torch.optim.SGD``
+    turns a tensor learning rate into a host number, which a captured step
+    cannot do). The slot is ``momentum_buffer``, as ``torch.optim.SGD``
+    names it."""
+
+    def __init__(self, params: Iterable[nn.Parameter], lr: Any = 0.0,
+                 momentum: float = 0.9):
+        super().__init__(params, dict(lr=lr, momentum=momentum))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("TraceSGD takes no closure")
+        for group in self.param_groups:
+            live = [p for p in group["params"] if p.grad is not None]
+            if not live:
+                continue
+            bufs = []
+            for p in live:
+                state = self.state[p]
+                if "momentum_buffer" not in state:
+                    state["momentum_buffer"] = torch.zeros_like(p)
+                bufs.append(state["momentum_buffer"])
+            torch._foreach_mul_(bufs, group["momentum"])
+            torch._foreach_add_(bufs, [p.grad for p in live])
+            lr = group["lr"]
+            torch._foreach_add_(live, torch._foreach_mul(bufs, -lr))
 
 
 def make_optimizer(name: str, params: Iterable[nn.Parameter],
                    momentum: float = 0.9) -> torch.optim.Optimizer:
-    """'adam' or 'momentum', the reference's two choices. TF's Adam
+    """'adam' or 'momentum', the reference's two choices: TF's Adam
     defaults (b1 0.9, b2 0.999, eps 1e-8, the same update as optax.adam)
-    and plain momentum SGD (no Nesterov, no dampening: optax.sgd's trace
-    form). The learning rate is written into the param groups before each
-    step (``TrainState.set_lr``); 0.0 until then."""
+    and ``TraceSGD``. The learning rate is a 0-dim f32 tensor on the
+    parameters' device that ``TrainState.set_lr`` writes before each
+    step; 0.0 until then. On a card Adam is ``capturable``: its step count
+    lives on the card and its update makes no host sync, in the eager
+    step and in a captured one alike."""
+    params = list(params)
+    device = params[0].device if params else torch.device("cpu")
+    lr = torch.zeros((), dtype=torch.float32, device=device)
     if name == "adam":
-        return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                capturable=device.type == "cuda")
     if name == "momentum":
-        return torch.optim.SGD(params, lr=0.0, momentum=momentum,
-                               nesterov=False)
+        return TraceSGD(params, lr=lr, momentum=momentum)
     raise ValueError(f"unknown optimizer {name!r} (use 'adam' or 'momentum')")
 
 
-@dataclasses.dataclass
 class TrainState:
-    """step: the global step (the reference's ``batch`` variable), the
-    number of optimizer steps taken; the schedules read it before the
-    step, as optax reads its schedule at the pre-increment count."""
+    """model, optimizer, the learning-rate schedule and the global step
+    (the reference's ``batch`` variable): the number of optimizer steps
+    taken. The schedules read the step before it advances, as optax reads
+    its schedule at the pre-increment count.
 
-    model: nn.Module
-    optimizer: torch.optim.Optimizer
-    lr_schedule: Callable[[int], float]
-    step: int = 0
+    ``step`` is the host's count; ``step_tensor`` the same count on the
+    model's device, which the step advances itself (so a replayed step
+    advances it too). Setting ``step`` sets both; ``count_steps`` moves
+    the host's count alone, after replays that advanced the device's.
 
-    def set_lr(self) -> float:
-        lr = self.lr_schedule(self.step)
+    The schedules are ``train.schedules.Staircase``s: the step reads their
+    ``tensor`` form of ``step_tensor``, so a replayed step reads each
+    later step's values."""
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                 lr_schedule: Staircase, step: int = 0):
+        self.model = model
+        self.optimizer = optimizer
+        self.lr_schedule = lr_schedule
+        self._device = next(model.parameters()).device
+        self.step_tensor = torch.zeros((), dtype=torch.int64,
+                                       device=self._device)
+        self._step = 0
+        self.step = step
+        # Bumped by load_state_dict, which replaces the optimizer's slot
+        # tensors: a captured step of an older generation is stale.
+        self.generation = 0
+
+    @property
+    def step(self) -> int:
+        return self._step
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self._step = int(value)
+        self.step_tensor.fill_(self._step)
+
+    def count_steps(self, k: int) -> None:
+        """Advance the host's count by ``k`` steps that the device took."""
+        self._step += k
+
+    def set_lr(self) -> Tensor:
+        """Write lr(step) into the optimizer's groups and return it: into
+        a group's tensor learning rate in place, or as a host float where
+        the group holds a float (``MasterOptimizer``, whose eager update
+        takes a number; the same f32 value)."""
+        lr = self.lr_schedule.tensor(self.step_tensor)
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            if torch.is_tensor(group["lr"]):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"] = self.lr_schedule.f32(self._step)
         return lr
 
     def state_dict(self) -> Dict[str, Any]:
@@ -52,23 +141,46 @@ class TrainState:
                 "step": self.step}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Load a checkpoint of any device, written with the learning rate
+        as a tensor or a float. The optimizer's groups keep their own
+        learning-rate tensors and ``capturable`` flags, which
+        ``torch.optim.Optimizer.load_state_dict`` takes from the saved
+        groups, and Adam's step counts move to where ``capturable`` wants
+        them (the parameter's device, or the host)."""
+        kept = [(g["lr"], g.get("capturable"))
+                for g in self.optimizer.param_groups]
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
+        for group, (lr, capturable) in zip(self.optimizer.param_groups,
+                                           kept):
+            if torch.is_tensor(lr):
+                lr.fill_(float(group["lr"]))
+                group["lr"] = lr
+            if capturable is None:
+                continue
+            group["capturable"] = capturable
+            for p in group["params"]:
+                slots = self.optimizer.state.get(p, {})
+                if torch.is_tensor(slots.get("step")):
+                    slots["step"] = slots["step"].to(
+                        p.device if capturable else "cpu", torch.float32)
         self.step = int(state["step"])
+        self.generation += 1
 
-    def train_step(self, batch: torch.Tensor, loss_fn: Callable,
-                   bn_schedule: Callable[[int], float],
+    def train_step(self, batch: Tensor, loss_fn: Callable,
+                   bn_schedule: Staircase,
                    reduce_gradients: Optional[Callable] = None,
                    context: Callable = contextlib.nullcontext
-                   ) -> Dict[str, Any]:
+                   ) -> Dict[str, Tensor]:
         """One optimizer step on ``batch``, its own label: forward with
         bn_momentum = bn_schedule(step) and the learning rate lr(step)
         (both read before the step advances), ``loss_fn(pred, batch,
         end_points)``, backward, ``reduce_gradients(parameters)`` (the
         collectives of a parallel step), the optimizer. The forward,
         loss and backward run inside ``context()``. Returns the loss, the
-        metrics (detached), the learning rate and the BN momentum."""
-        bn_momentum = bn_schedule(self.step)
+        metrics (detached), and the learning rate and BN momentum the step
+        applied, all 0-dim tensors on the device."""
+        bn_momentum = bn_schedule.tensor(self.step_tensor)
         lr = self.set_lr()
         with context():
             pred, end_points = self.model(batch, train=True,
@@ -79,7 +191,8 @@ class TrainState:
         if reduce_gradients is not None:
             reduce_gradients(self.model.parameters())
         self.optimizer.step()
-        self.step += 1
+        self._step += 1
+        self.step_tensor.add_(1)
         out = {k: v.detach() for k, v in metrics.items()}
         out["loss"] = loss.detach()
         out["learning_rate"] = lr
@@ -87,7 +200,7 @@ class TrainState:
         return out
 
     @torch.no_grad()
-    def eval_step(self, batch: torch.Tensor, loss_fn: Callable,
+    def eval_step(self, batch: Tensor, loss_fn: Callable,
                   context: Callable = contextlib.nullcontext
                   ) -> Dict[str, Any]:
         """The loss and metrics of the eval forward on ``batch``."""

@@ -1,0 +1,195 @@
+"""Captured programs: CUDA graphs of the Trainer's steps, the serving
+forwards and the op benchmarks. The port's counterpart of the JAX
+package's jitted, donated programs (``train/loop.py``,
+``inference.py``), with no JAX module of its own.
+
+A program is one call of a function captured once with
+``torch.cuda.CUDAGraph`` and replayed with one launch from the host:
+
+- Its inputs and outputs are static tensors: the inputs are copies of
+  the first call's, made before capture; each replay copies its call's
+  inputs into them, and the caller reads (or copies out) the outputs
+  before the next replay of any program of the same ``ProgramCache``,
+  whose programs share one memory pool.
+- Capture follows a warm-up: the first call of each kind of work runs
+  eagerly on the cache's side stream (``ProgramCache.warm_up``), which
+  creates what the work keeps (optimizer slots, library handles, the
+  kernels' libraries, built at first use), so that capture records the
+  work and nothing else. The warm-up's result is a real result: the
+  Trainer takes its first step, a session answers its first call.
+- Random numbers drawn from a ``torch.Generator`` inside the program come
+  from the generator's stream: the generator is registered with the
+  graph, and each replay advances it as the eager calls would.
+- Launch counts stay honest. A kernel wrapper adds one to its
+  ``.launches`` when its Python code runs, which happens at capture, not
+  at replay. Capture restores every counter to its value before capture
+  and keeps the difference; each replay adds it. A run's counts are then
+  the counts of the eager run that does the same work.
+- A capture or a replay that fails raises; nothing runs the eager
+  function in its place.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Dict, Hashable, Iterable, Tuple
+
+import torch
+
+from pointnet_autoencoder_tpu_torch.ops import chamfer, emd, fused_encoder
+from pointnet_autoencoder_tpu_torch.ops import fused_head
+
+# Every kernel wrapper that counts its launches.
+COUNTED = (chamfer.nn_distance_cuda, chamfer.nn_distance_grad_cuda,
+           emd.emd_forward_cuda, fused_encoder.encoder_extrema_cuda,
+           fused_head.head_max_cuda, fused_head.head_bwd_cuda)
+
+
+def launch_counts() -> Tuple[int, ...]:
+    """Each counted wrapper's ``.launches``, in ``COUNTED`` order."""
+    return tuple(fn.launches for fn in COUNTED)
+
+
+class CudaGraph:
+    """A ``torch.cuda.CUDAGraph`` captured on ``stream`` into the memory
+    ``pool``, with ``generators`` registered: the three calls
+    ``CapturedProgram`` makes of a graph. Capture is thread-local, so
+    another thread's copies (a background checkpoint save) do not break
+    it. It calls ``capture_begin`` and ``capture_end`` itself: the
+    ``torch.cuda.graph`` context also empties the allocator's caches at
+    every capture, after which the next clones of the state (a
+    checkpoint snapshot) wait on fresh device allocations. As there, the
+    card is synchronized first: ``capture_begin`` resets each registered
+    generator's offset tensor on the capture stream, which an earlier
+    replay still running on another stream reads."""
+
+    def __init__(self, stream: torch.cuda.Stream, pool,
+                 generators: Iterable[torch.Generator] = ()):
+        self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            self.graph.register_generator_state(gen)
+        self.stream = stream
+        self.pool = pool
+
+    @contextlib.contextmanager
+    def capture(self):
+        torch.cuda.synchronize(self.stream.device)
+        with torch.cuda.stream(self.stream):
+            self.graph.capture_begin(self.pool,
+                                     capture_error_mode="thread_local")
+            try:
+                yield
+            except BaseException:
+                try:
+                    self.graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture's own failure is the one raised
+                raise
+            self.graph.capture_end()
+        # Replays run on the caller's stream, after what capture_begin
+        # queued on the capture stream.
+        torch.cuda.current_stream(self.stream.device).wait_stream(self.stream)
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+    def reset(self) -> None:
+        self.graph.reset()
+
+
+class CapturedProgram:
+    """``fn(*inputs)`` captured into ``graph`` (a ``CudaGraph``, or any
+    object with ``capture()``, ``replay()`` and ``reset()``). ``inputs``
+    are the static input tensors, ``outputs`` what ``fn`` returned at
+    capture: the static tensors every replay overwrites. ``launches``
+    holds each counted wrapper's launches in one replay."""
+
+    def __init__(self, fn: Callable, graph,
+                 inputs: Tuple[torch.Tensor, ...] = ()):
+        self.inputs = inputs
+        before = launch_counts()
+        try:
+            with graph.capture():
+                self.outputs = fn(*inputs)
+        finally:
+            after = launch_counts()
+            for counted, n in zip(COUNTED, before):
+                counted.launches = n
+        self.launches = tuple(a - b for a, b in zip(after, before))
+        self.graph = graph
+
+    def replay(self, *inputs: torch.Tensor):
+        """Copy ``inputs`` into the static inputs and run the captured work
+        once; returns ``outputs``."""
+        if self.graph is None:
+            raise RuntimeError("replay of a released program")
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        self.graph.replay()
+        for counted, n in zip(COUNTED, self.launches):
+            counted.launches += n
+        return self.outputs
+
+    def close(self) -> None:
+        """Release the graph; its inputs and outputs go with it."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+        self.inputs = self.outputs = None
+
+
+class ProgramCache:
+    """The captured programs of one owner on one card (a Trainer, or a
+    session's replica): a side stream for warm-up and capture, one memory
+    pool that its programs share (they are never replayed at once, and
+    each program's outputs are consumed before the next replay), and the
+    programs by key. ``close`` releases them all."""
+
+    def __init__(self, device: torch.device):
+        if device.type != "cuda":
+            raise ValueError(f"captured programs run on a card, not on "
+                             f"{device}")
+        self.device = device
+        with torch.cuda.device(device):
+            self.stream = torch.cuda.Stream(device)
+            self.pool = torch.cuda.graph_pool_handle()
+        self._programs: Dict[Hashable, CapturedProgram] = {}
+
+    def warm_up(self, fn: Callable):
+        """``fn()`` run eagerly on the side stream, ordered after the work
+        queued before it and before the work queued after it; returns its
+        result. The card is synchronized after it, so that what it
+        allocated on the side stream is safe to reuse."""
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        current.wait_stream(self.stream)
+        torch.cuda.synchronize(self.device)
+        return out
+
+    def program(self, key: Hashable, fn: Callable,
+                inputs: Tuple[torch.Tensor, ...] = (),
+                generators: Iterable[torch.Generator] = ()
+                ) -> CapturedProgram:
+        """The program of ``key``; if there is none, ``fn`` captured on
+        static copies of ``inputs`` (made before capture, outside the
+        graph's pool)."""
+        prog = self._programs.get(key)
+        if prog is None:
+            static = tuple(t.clone() for t in inputs)
+            with torch.cuda.device(self.device):
+                prog = CapturedProgram(fn, CudaGraph(self.stream, self.pool,
+                                                     generators), static)
+            self._programs[key] = prog
+        return prog
+
+    def clear(self) -> None:
+        """Release every program (before the state they captured is
+        replaced)."""
+        for prog in self._programs.values():
+            prog.close()
+        self._programs.clear()
+
+    close = clear
+

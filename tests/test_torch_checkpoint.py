@@ -20,7 +20,7 @@ import torch
 
 from pointnet_autoencoder_tpu_torch.config import TrainConfig
 from pointnet_autoencoder_tpu_torch.data import synthetic
-from pointnet_autoencoder_tpu_torch.train import checkpoint
+from pointnet_autoencoder_tpu_torch.train import checkpoint, schedules
 from pointnet_autoencoder_tpu_torch.train.loop import Trainer
 from pointnet_autoencoder_tpu_torch.train.state import (TrainState,
                                                         make_optimizer)
@@ -64,7 +64,7 @@ def _state(seed=0):
     model = torch.nn.Sequential(torch.nn.Linear(5, 4), torch.nn.ReLU(),
                                 torch.nn.Linear(4, 3))
     st = TrainState(model, make_optimizer("adam", model.parameters()),
-                    lambda step: 1e-2)
+                    schedules.learning_rate_schedule(1e-2, 1.0, 1, 1))
     return st
 
 

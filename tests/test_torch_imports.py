@@ -43,7 +43,8 @@ def test_every_module_is_listed():
                  "train.loop", "train.master", "parallel", "parallel.mesh",
                  "parallel.sp", "parallel.tp", "parallel.pp",
                  "data.fastio", "ops", "ops.oracles", "ops.hwcheck",
-                 "utils", "utils.profiling"):
+                 "utils", "utils.profiling", "utils.graphs",
+                 "ops.benchmarks"):
         assert f"pointnet_autoencoder_tpu_torch.{name}" in mods
 
 

@@ -260,9 +260,9 @@ def test_schedules_match_jax(floor):
     bn = schedules.bn_momentum_schedule(8, 20)
     jbn = jschedules.bn_momentum_schedule(8, 20)
     for s in steps:
-        np.testing.assert_allclose(lr(s), float(jlr(s)), rtol=1e-6)
-        assert np.float32(bn(s)) == np.float32(jbn(s)), s
-    assert bn(50) == 0.99 and lr(0) == 0.001
+        np.testing.assert_allclose(lr.f32(s), float(jlr(s)), rtol=1e-6)
+        assert np.float32(bn.f32(s)) == np.float32(jbn(s)), s
+    assert bn.f32(50) == np.float32(0.99) and lr.f32(0) == np.float32(0.001)
 
 
 @pytest.mark.parametrize("name", ["adam", "momentum"])
@@ -274,7 +274,7 @@ def test_optimizer_matches_optax_across_a_staircase(name):
     grads = [rng.randn(5, 7).astype(np.float32) for _ in range(3)]
     lr = schedules.learning_rate_schedule(0.01, 0.5, 8, 16)
     jlr = jschedules.learning_rate_schedule(0.01, 0.5, 8, 16)
-    assert lr(1) != lr(2)
+    assert lr.f32(1) != lr.f32(2)
 
     tx = jopt(name, jlr, 0.9)
     jp = jnp.asarray(p0)
@@ -285,7 +285,7 @@ def test_optimizer_matches_optax_across_a_staircase(name):
         updates, opt_state = tx.update(jnp.asarray(g), opt_state, jp)
         jp = optax.apply_updates(jp, updates)
         for group in opt.param_groups:
-            group["lr"] = lr(step)
+            group["lr"] = lr.f32(step)
         param.grad = torch.from_numpy(g.copy())
         opt.step()
         np.testing.assert_allclose(param.detach().numpy(), np.asarray(jp),

@@ -29,7 +29,7 @@ from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
 from pointnet_autoencoder_tpu_torch.ops import emd as em
 from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
 from pointnet_autoencoder_tpu_torch.parallel.mesh import DataGroup
-from pointnet_autoencoder_tpu_torch.train.loop import Trainer
+from pointnet_autoencoder_tpu_torch.train.loop import EpochMetrics, Trainer
 
 
 def _setup(device):
@@ -441,8 +441,9 @@ def bf16_ranks_rank(device, config_jsons, out_dir, steps):
     out = []
     for text in config_jsons:
         tr = Trainer(TrainConfig.from_json(text), device=device)
-        batches = tr._device_batches(tr.train_pipe, tr.train_device,
-                                     rotate=True)
+        batches = (tr._assemble(tr.train_pipe, tr.train_device, idxs,
+                                rotate=True)
+                   for idxs in tr.train_pipe.epoch())
         for _ in range(steps):
             tr.train_step(next(batches))
         out.append({"sp": tr.sp_active, "state": tr.state.state_dict(),
@@ -592,8 +593,10 @@ def dp_sp_rank(device, cases_path, out_dir):
         state = TrainState(model, make_optimizer("adam", model.parameters()),
                            schedules.learning_rate_schedule(
                                0.001, 0.7, batch, 200000))
+        # The BN momentum, constant: a staircase of rate 1.
         step, _ = sp.make_sp_step_fns(
-            state, case["model"], lambda _: case["momentum"], grid, *axes)
+            state, case["model"],
+            schedules.Staircase(case["momentum"], 1.0, 1, 1), grid, *axes)
         xb = sp.point_batch_shard(torch.from_numpy(case["batch"]), grid,
                                   *axes)
         per = batch // grid.shape["data"]
@@ -622,8 +625,9 @@ def tp_trainer_step_rank(device, config_json, batch, out_dir):
     model group)."""
     torch.set_num_threads(2)
     tr = Trainer(TrainConfig.from_json(config_json), device=device)
-    metrics = tr.train_step(torch.from_numpy(batch[tr._rows]))
-    means, = tr._fetch_windows([metrics], [(0, 1)])
+    metrics = EpochMetrics(1, tr.device)
+    metrics.put(tr.train_step(torch.from_numpy(batch[tr._rows])))
+    means, = tr._fetch_windows(metrics, [(0, 1)])
     full = tr._full_state()
     tr.close()
     _save(out_dir, tr.rank, {"means": means, "model": full["model"]})
