@@ -136,9 +136,10 @@ line each; any failure exits non-zero before the final line:
             20, K1 24, K5 4), matmul weights and their Adam slots bf16, BN
             parameters, slots and statistics f32, eval pcloss falling and
             under 2x the default run's, the train state's MB beside the
-            default's; each step's host median and trace. 10 steps, a
-            checkpoint, ``--resume`` and 10 more equal 20 uninterrupted
-            steps bit for bit. One ``model_emd --bf16_params`` step runs
+            default's; each step's host median and trace (both runs
+            captured, the default on a card). 10 steps, a checkpoint,
+            ``--resume`` and 10 more equal 20 uninterrupted steps bit for
+            bit. One ``model_emd --bf16_params`` step runs
             K6. 2 ranks over gloo, 2 epochs: the ranks' states bit-equal.
             An f32 session on the bf16 checkpoint equals one on its
             explicit f32 upcast bit for bit.
@@ -197,7 +198,8 @@ line each; any failure exits non-zero before the final line:
             the model group, eval pcloss falling; each rank's step host
             median, trace and peak memory. The run's best checkpoint (the
             one-card format) in a one-card session against
-            ``InferenceSession(model_parallel=2)`` on cuda:0 twice, within
+            ``InferenceSession(model_parallel=2)`` on cuda:0 twice
+            (captured: its two devices are one card), within
             rtol and atol 1e-5.
 18. pipeline_parallel: ``PipelinedSession`` on ["cuda:0", "cuda:0"]
             (a stream per stage), B=32 in 4 microbatches, f32 and bf16:
@@ -205,7 +207,8 @@ line each; any failure exits non-zero before the final line:
             at rtol 1e-5, atol 1e-6 (JAX's
             test_pipelined_session_matches_unpipelined); K5 4 launches per
             batch; one batch's host time pipelined and unpipelined, and a
-            trace of the pipelined one (device busy, idle share).
+            trace of the pipelined one (device busy, idle share); both
+            stages captured (the default on a card).
 19. dp_sp:  4 ranks sharing the card over gloo, 2 data x 2 point
             (``parallel/sp.py``'s ``make_sp_step_fns(..., batch_axis=
             DATA_AXIS)``): each rank holds 16 rows and 1024 points of every
@@ -261,13 +264,34 @@ line each; any failure exits non-zero before the final line:
             per replayed step), and a traced device-input epoch (one graph
             launch per chunk); in each trace, graphed and eager, the port's
             kernels as the launch counters count that call (a trace that
-            lost events is taken again), the same both ways. A checkpoint
+            lost events, or a graphed one whose kernels, memsets
+            included, are not the eager one's, is taken again), the same
+            both ways. A checkpoint
             in a CPU Trainer's form (Adam not capturable, a float learning
             rate) and the same state as a card writes it, each resumed by
-            a captured card Trainer: 3 steps from each bit-equal. Serving at B=32 and B=1 in f32, and B=32
-            in bf16: reconstruct, embed, decode, chamfer and fscore
-            bit-equal to the eager session with equal launches; a
-            reconstruct's host median and trace both ways. Last
+            a captured card Trainer: 3 steps from each bit-equal.
+            ``model`` with ``--bf16_params --bf16_moments``, and with
+            ``--bf16_params`` alone, 2 epochs at log_every 3 beside eager
+            as above, the noise generator's offset equal too (K1-K5
+            launched as the default path), the graphed Trainer holding
+            its train programs of 3 steps and of 1, the device-input
+            epoch traced for the first of the two, and the
+            graphed step's host median against its device busy time plus
+            0.5 ms, its host operations against 6 and its busy time
+            against eager's within 5%, each reported held or missed; 5
+            captured steps, a checkpoint, ``resume`` and 5 more bit-equal
+            to 10 steps alone. Serving at B=32 and B=1 in f32, B=32 in bf16, and a
+            TP-split session (``model_parallel=2`` on cuda:0 twice,
+            captured whole) at B=32 and B=1 in f32: reconstruct, embed,
+            decode, chamfer and fscore bit-equal to the eager session
+            with equal launches (K5 once per forward call, K1 once per
+            metric call); a reconstruct's host median and trace both
+            ways. ``PipelinedSession`` on ["cuda:0", "cuda:0"], B=32
+            f32 in 4 microbatches: reconstruct, embed and decode graphed
+            bit-equal to the eager pipeline with equal launches (K5 4 a
+            batch), and so is reconstruct after an embed as a session's
+            first call, within rtol 1e-5, atol 1e-6 of the session, 8 graph
+            launches a batch; host median and trace both ways. Last
             ``ops.benchmarks --quick`` through its ``main``: K1 and K2 21
             launches, K6 6, nothing else, and each run's final loss equal
             to the same loop's run eagerly on the card.
@@ -4481,14 +4505,33 @@ def _overhead_str(t: dict, per: int = 1) -> str:
             + f", {t['graph_launches']} graph launches")
 
 
-def _compiled_config(data, log_dir, name, bf16, input_mode):
+# The bf16-master cases of phase compiled: TrainConfig flags by tag.
+COMPILED_MASTERS = {"--bf16_params --bf16_moments":
+                    dict(bf16_params=True, bf16_moments=True),
+                    "--bf16_params": dict(bf16_params=True)}
+# The graphed step's host median may exceed its device busy time by this
+# much (ms), and its busy time the eager step's by this share; the host
+# operations it may issue: what PERF.md compares the captured master step
+# with (reported, not required: host clocks vary between calls).
+MASTER_HOST_OVER_BUSY_MS = 0.5
+MASTER_BUSY_SHARE = 0.05
+MASTER_HOST_OPS = 6
+# The master case whose device-input epoch is traced, as the default
+# step's are (the other one holds only its programs' keys).
+MASTER_EPOCH_TRACED = "--bf16_params --bf16_moments"
+# Times phase compiled takes an eager and a graphed trace of one call
+# again, both, where their kernels differ.
+TRACE_PAIRS = 3
+
+
+def _compiled_config(data, log_dir, name, bf16, input_mode, **flags):
     from pointnet_autoencoder_tpu_torch.config import TrainConfig
 
     return TrainConfig(model=name, data_path=data, category="Chair",
                        num_point=NUM_POINT, batch_size=BATCH, bf16=bf16,
                        log_dir=log_dir, log_every=COMPILED_LOG_EVERY
                        if input_mode == "device" else 5,
-                       input_mode=input_mode, seed=SEED)
+                       input_mode=input_mode, seed=SEED, **flags)
 
 
 def _host_state(torch, tr) -> dict:
@@ -4506,13 +4549,22 @@ def _host_state(torch, tr) -> dict:
     return host(tr.state.state_dict())
 
 
-def _compiled_run(torch, counters, tr):
-    """One train epoch and two eval epochs of ``tr`` from its start: the
-    launches, the state on the host, the generators' states, the logged
-    records and the eval losses."""
+def _noise_offsets(tr) -> list:
+    """The offset of the master optimizer's noise generator (none for
+    another optimizer, or on the CPU)."""
+    return [g.get_offset()
+            for g in getattr(tr.state.optimizer, "generators", ())]
+
+
+def _compiled_run(torch, counters, tr, epochs=1):
+    """``epochs`` train epochs and two eval epochs of ``tr`` from its
+    start: the launches, the state on the host, the generators' states
+    (and the noise generator's offset), the logged records and the eval
+    losses."""
     for fn in counters.values():
         fn.launches = 0
-    tr.train_one_epoch(0)
+    for epoch in range(epochs):
+        tr.train_one_epoch(epoch)
     evals = [tr.eval_one_epoch(0), tr.eval_one_epoch(0)]
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -4523,24 +4575,33 @@ def _compiled_run(torch, counters, tr):
              tr.eval_pipe.generator.get_state()]
             if tr.input_mode == "device" else [])
     return dict(launches=launches, state=_host_state(torch, tr), gens=gens,
-                recs=recs, evals=evals, step=tr.state.step,
-                step_tensor=int(tr.state.step_tensor))
+                noise=_noise_offsets(tr), recs=recs, evals=evals,
+                step=tr.state.step, step_tensor=int(tr.state.step_tensor))
 
 
 def compiled_training(torch, counters, data, tmp, name, bf16, input_mode,
-                      x):
+                      x, master=None):
     """A captured Trainer (the default) beside an eager one
     (``compiled=False``) from the same seed: one train epoch (device
     input: log_every 3, so chunks of 3, 3, 3 and 1 steps; the first chunk
     is the warm-up, eager, the other 7 steps are replays of a program of 3
     steps and one of 1; host input: the first step eager, 9 replays) and
     two eval epochs each (the second replayed); everything bit-equal.
-    Then each one's step on ``x`` timed and traced, and with device input
-    an epoch of each traced. Returns the report line."""
+    ``master``: a key of ``COMPILED_MASTERS``, bf16 master weights (and
+    moments), trained 2 epochs, the noise generator's offset equal too,
+    and the graphed Trainer holding its train programs of 3 steps and of
+    1. Then each one's step on ``x`` timed and traced, and with device
+    input (one master case: ``MASTER_EPOCH_TRACED``) an epoch of each
+    traced, the graphed one in one graph launch a chunk. Returns the
+    report line and the timings."""
     from pointnet_autoencoder_tpu_torch.parallel.sp import cudnn_deterministic
+    from pointnet_autoencoder_tpu_torch.train import master as master_mod
     from pointnet_autoencoder_tpu_torch.train.loop import Trainer
 
-    tag = f"{name} {'bf16' if bf16 else 'f32'} {input_mode} input"
+    tag = (f"{name} {'bf16' if bf16 else 'f32'} {input_mode} input"
+           + (f" {master}" if master else ""))
+    flags = COMPILED_MASTERS[master] if master else {}
+    epochs = TRAIN_EPOCHS if master else 1
     context = (cudnn_deterministic if name in UPCONV_FAMILIES else
                (lambda: deterministic_algorithms(torch))
                if name in DENSE_FAMILIES else contextlib.nullcontext)
@@ -4549,22 +4610,30 @@ def compiled_training(torch, counters, data, tmp, name, bf16, input_mode,
         for compiled in (True, False):
             cfg = _compiled_config(
                 data, os.path.join(tmp, f"compiled_{name}_{bf16}_"
-                                        f"{input_mode}_{compiled}"),
-                name, bf16, input_mode)
+                                        f"{input_mode}_{master}_{compiled}"),
+                name, bf16, input_mode, **flags)
             tr = trainers[compiled] = Trainer(cfg, device="cuda",
                                               compiled=compiled)
             require((tr._programs is not None) == compiled,
                     f"{tag}: compiled={compiled} but no programs")
+            require(isinstance(tr.state.optimizer,
+                               master_mod.MasterOptimizer) == bool(master),
+                    f"{tag}: optimizer {type(tr.state.optimizer).__name__}")
             with context():
-                runs[compiled] = _compiled_run(torch, counters, tr)
+                runs[compiled] = _compiled_run(torch, counters, tr, epochs)
         graphed, eager = runs[True], runs[False]
         bad = tree_mismatch(torch, graphed["state"], eager["state"])
         require(bad is None, f"{tag}: graphed and eager states differ at "
                 f"{bad}")
         steps = len(trainers[True].train_pipe)
+        chunks = -(-steps // COMPILED_LOG_EVERY)
         require(graphed["step"] == eager["step"] == graphed["step_tensor"]
-                == steps, f"{tag}: steps {graphed['step']}, "
+                == epochs * steps, f"{tag}: steps {graphed['step']}, "
                 f"{eager['step']}, device {graphed['step_tensor']}")
+        require(graphed["noise"] == eager["noise"]
+                and len(graphed["noise"]) == (1 if master else 0),
+                f"{tag}: the noise generator's offset {graphed['noise']} "
+                f"graphed, {eager['noise']} eager")
         require(all(torch.equal(a, b) for a, b in
                     zip(graphed["gens"], eager["gens"])),
                 f"{tag}: the generators' states differ after the epoch "
@@ -4577,11 +4646,26 @@ def compiled_training(torch, counters, data, tmp, name, bf16, input_mode,
         require(graphed["launches"] == eager["launches"],
                 f"{tag}: launches {graphed['launches']} graphed vs "
                 f"{eager['launches']} eager")
+        if master and input_mode == "device":
+            # The chunks of log_every steps and the last, shorter one ran
+            # as captured programs (the first chunk is the warm-up).
+            held = sorted(k for k in trainers[True]._programs._programs
+                          if k[0] == "train")
+            want = sorted({("train", COMPILED_LOG_EVERY),
+                           ("train", steps - (chunks - 1)
+                            * COMPILED_LOG_EVERY)})
+            require(held == want, f"{tag}: the graphed Trainer's train "
+                    f"programs {held}, not {want}")
+        trace_epoch = input_mode == "device" and master in (
+            None, MASTER_EPOCH_TRACED)
         # The step on a batch already on the card, and a device-input
-        # epoch, each traced.
-        # Eager first: its traces' device events are the least the
-        # graphed traces must hold.
-        timing, deltas = {}, {}
+        # epoch, each traced, eager first: its traces' device events are
+        # the least the graphed traces must hold. A trace may lose events:
+        # one whose kernels the counters do not count, or (graphed) whose
+        # kernels, memsets included, are not the eager trace's, is taken
+        # again; and a pair that still differs is taken again whole (the
+        # eager trace may be the one that lost them).
+        host, calls, deltas = {}, {}, {}
         for compiled in (False, True):
             tr = trainers[compiled]
             box = deltas[compiled] = {"step": {}, "epoch": {}}
@@ -4589,33 +4673,42 @@ def compiled_training(torch, counters, data, tmp, name, bf16, input_mode,
             def step(tr=tr):
                 tr.train_step(x)["loss"].item()
 
-            def agrees(kind, box=box):
-                return lambda t: trace_launches(t["own"]) == box[kind]
-
-            least = ({} if not compiled else dict(
-                min_events=int(0.95 * timing[False][1]["device_events"])))
+            calls[compiled] = {
+                "step": (counted(counters, step, box["step"]), 3),
+                "epoch": (counted(counters,
+                                  lambda tr=tr: tr.train_one_epoch(1),
+                                  box["epoch"]), 2)}
             with context():
                 step()
                 step()
-                host = []
+                times = []
                 for _ in range(10):
                     t0 = time.perf_counter()
                     step()
-                    host.append(1e3 * (time.perf_counter() - t0))
-                one = overhead_trace(
-                    torch, counted(counters, step, box["step"]),
-                    f"compiled.{name}.step", accept=agrees("step"), **least)
-                if compiled and input_mode == "device":
-                    least = dict(min_events=int(
-                        0.95 * timing[False][2]["device_events"]))
-                epoch = (overhead_trace(
-                    torch, counted(counters,
-                                   lambda tr=tr: tr.train_one_epoch(1),
-                                   box["epoch"]),
-                    f"compiled.{name}.epoch", reps=2,
-                    accept=agrees("epoch"), **least)
-                    if input_mode == "device" else None)
-            timing[compiled] = (statistics.median(host), one, epoch)
+                    times.append(1e3 * (time.perf_counter() - t0))
+            host[compiled] = statistics.median(times)
+        traces = {False: {}, True: {}}
+        for kind in ("step", "epoch") if trace_epoch else ("step",):
+            for _ in range(TRACE_PAIRS):
+                for compiled in (False, True):
+                    fn, reps = calls[compiled][kind]
+                    eager_trace = traces[False].get(kind)
+                    least = ({} if not compiled else dict(min_events=int(
+                        0.95 * eager_trace["device_events"])))
+
+                    def agrees(t, box=deltas[compiled][kind],
+                               compiled=compiled, eager_trace=eager_trace):
+                        return trace_launches(t["own"]) == box and (
+                            not compiled or t["own"] == eager_trace["own"])
+
+                    with context():
+                        traces[compiled][kind] = overhead_trace(
+                            torch, fn, f"compiled.{name}.{kind}", reps=reps,
+                            accept=agrees, **least)
+                if traces[True][kind]["own"] == traces[False][kind]["own"]:
+                    break
+        timing = {c: (host[c], traces[c]["step"], traces[c].get("epoch"))
+                  for c in (False, True)}
         # The port's kernels in each trace: as the counters count that
         # call, graphed and eager alike.
         for kind, i in (("step", 1), ("epoch", 2)):
@@ -4630,22 +4723,35 @@ def compiled_training(torch, counters, data, tmp, name, bf16, input_mode,
                     f"graphed {own[True]}, eager {own[False]}; as launches "
                     f"{seen}, the counters {deltas[True][kind]} graphed, "
                     f"{deltas[False][kind]} eager")
-        chunks = -(-steps // COMPILED_LOG_EVERY)
         g_step, e_step = timing[True][1], timing[False][1]
         require(g_step["graph_launches"] == 1
                 and e_step["graph_launches"] == 0,
                 f"{tag}: host operations of one step {g_step['host']} "
                 f"graphed, {e_step['host']} eager")
-        line = (f"{tag}: a train epoch of {steps} steps and 2 eval epochs "
-                f"(the second replayed) bit-equal to eager: weights, "
-                f"optimizer slots and counts, BN statistics, the "
-                f"generators, every logged metric; launches "
+        line = (f"{tag}: {epochs} train epoch(s) of {steps} steps and 2 "
+                f"eval epochs (the second replayed) bit-equal to eager: "
+                f"weights, optimizer slots and counts, BN statistics, the "
+                f"generators"
+                + (f" and the noise generator's offset {graphed['noise']}"
+                   if master else "")
+                + f", every logged metric; launches "
                 f"{graphed['launches']} both ways. One step on a batch on "
                 f"the card (host median of 10, to the loss on the host): "
                 f"graphed {timing[True][0]:.3f} ms, "
                 f"{_overhead_str(g_step)}; eager {timing[False][0]:.3f} ms, "
                 f"{_overhead_str(e_step)}")
-        if input_mode == "device":
+        if master:
+            held = {
+                "host within busy + 0.5 ms": timing[True][0]
+                <= g_step["busy_ms"] + MASTER_HOST_OVER_BUSY_MS,
+                f"at most {MASTER_HOST_OPS} host operations":
+                g_step["host_ops"] <= MASTER_HOST_OPS,
+                "busy within 5% of eager": abs(
+                    g_step["busy_ms"] - e_step["busy_ms"])
+                <= MASTER_BUSY_SHARE * e_step["busy_ms"]}
+            line += ". The graphed master step: " + ", ".join(
+                f"{k} {'held' if v else 'MISSED'}" for k, v in held.items())
+        if timing[True][2] is not None:
             g_epoch, e_epoch = timing[True][2], timing[False][2]
             require(g_epoch["graph_launches"] == chunks,
                     f"{tag}: a device-input epoch of {steps} steps issued "
@@ -4718,27 +4824,45 @@ def compiled_resume(torch, data, tmp, x):
             "from each (a warm-up, then 2 replays) bit-equal")
 
 
-def compiled_serving(torch, counters, weights, rng, batch, bf16):
+# The kernel each served op launches once per call at one padded chunk.
+SERVING_OP_KERNELS = {"reconstruct": "fused_encoder_eval",
+                      "embed": "fused_encoder_eval",
+                      "chamfer": "nn_distance", "fscore": "nn_distance"}
+
+
+def compiled_serving(torch, counters, weights, rng, batch, bf16,
+                     model_parallel=1):
     """A captured session beside an eager one: reconstruct, embed,
     decode, chamfer and fscore at ``batch``, each called twice on each (on
     the captured one a warm-up, then a replay), all bit-equal, with the
-    same launches; a served reconstruct timed and traced both ways."""
+    same launches; a served reconstruct timed and traced both ways.
+    ``model_parallel`` 2: a TP-split session whose two devices are
+    cuda:0, captured whole."""
     from pointnet_autoencoder_tpu_torch.inference import InferenceSession
 
-    tag = f"B={batch} {'bf16' if bf16 else 'f32'}"
+    m = model_parallel
+    tag = (f"B={batch} {'bf16' if bf16 else 'f32'}"
+           + (f" TP-split (model_parallel={m} on cuda:0)" if m > 1 else ""))
     x = clouds(rng, batch, NUM_POINT)
     y = clouds(rng, batch, NUM_POINT)
+    where = (dict(device="cuda") if m == 1 else
+             dict(devices=["cuda:0"] * m, model_parallel=m))
     sessions = {c: InferenceSession("model", weights, NUM_POINT,
                                     batch_size=batch, bf16=bf16,
-                                    device="cuda", compiled=c)
+                                    compiled=c, **where)
                 for c in (True, False)}
     try:
+        paths = {c: s.forward_paths for c, s in sessions.items()}
+        require(paths[True] == ["captured CUDA graphs on cuda:0"]
+                and paths[False][0].startswith("eager ("),
+                f"serving {tag}: forward paths {paths}")
         emb = sessions[False].embed(x)
         ops = {"reconstruct": lambda s: s.reconstruct(x),
                "embed": lambda s: s.embed(x),
                "decode": lambda s: s.decode(emb),
                "chamfer": lambda s: s.chamfer(x, y),
                "fscore": lambda s: s.fscore(x, y, 0.5)}
+        seen = {}
         for op, call in ops.items():
             outs, launches = {}, {}
             for c, s in sessions.items():
@@ -4749,8 +4873,12 @@ def compiled_serving(torch, counters, weights, rng, batch, bf16):
             require(all(np.array_equal(o, outs[False][0])
                         for o in outs[True] + outs[False]),
                     f"serving {tag} {op}: graphed differs from eager")
-            require(launches[True] == launches[False],
+            # Two calls: K5 once per forward, K1 once per metric call.
+            kernel = SERVING_OP_KERNELS.get(op)
+            require(launches[True] == launches[False] and (
+                kernel is None or launches[True][kernel] == 2),
                     f"serving {tag} {op}: launches {launches}")
+            seen[op] = {k: n for k, n in launches[True].items() if n}
         timing = {}
         for c in (False, True):
             s = sessions[c]
@@ -4767,7 +4895,8 @@ def compiled_serving(torch, counters, weights, rng, batch, bf16):
                 f"serving {tag}: host operations {timing[True][1]['host']}")
         return (f"serving {tag}: reconstruct, embed, decode, chamfer and "
                 f"fscore graphed (a warm-up, then a replay) bit-equal to "
-                f"eager, the same launches; reconstruct, host median of 10:"
+                f"eager, the same launches (two calls each: {seen}); "
+                f"reconstruct, host median of 10:"
                 f" graphed {timing[True][0]:.3f} ms, "
                 f"{_overhead_str(timing[True][1])}; eager "
                 f"{timing[False][0]:.3f} ms, "
@@ -4775,6 +4904,156 @@ def compiled_serving(torch, counters, weights, rng, batch, bf16):
     finally:
         for s in sessions.values():
             s.close()
+
+
+def compiled_master_resume(torch, data, tmp, master):
+    """bf16 masters (``COMPILED_MASTERS[master]``), captured: 5 steps on
+    fixed batches on the card, a checkpoint and ``resume``, then 5 more,
+    against 10 steps alone: the train state and the noise generator's
+    offset bit-equal. Each Trainer's first step is its eager warm-up, the
+    others replays of its one-step program (the resumed Trainer's from
+    step 6 on). Returns the report line."""
+    import dataclasses
+
+    from pointnet_autoencoder_tpu_torch.train.loop import Trainer
+
+    flags = COMPILED_MASTERS[master]
+    batches = [torch.from_numpy(clouds(np.random.RandomState(SEED + 110 + i),
+                                       BATCH, NUM_POINT)).to("cuda")
+               for i in range(10)]
+    results = {}
+    for form in ("straight", "resumed"):
+        cfg = dataclasses.replace(_compiled_config(
+            data, os.path.join(tmp, f"master_resume_{len(flags)}_{form}"),
+            "model", True, "device", **flags), async_checkpoints=False)
+        tr = Trainer(cfg, device="cuda")
+        try:
+            for xi in batches[:10 if form == "straight" else 5]:
+                tr.train_step(xi)
+            if form == "resumed":
+                tr._save("periodic", 0)
+                tr.close()
+                tr = Trainer(dataclasses.replace(cfg, resume=True),
+                             device="cuda")
+                require(tr.state.step == tr.state.optimizer.steps == 5,
+                        f"{master}: resumed at step {tr.state.step}")
+                for xi in batches[5:]:
+                    tr.train_step(xi)
+            require(tr._programs is not None
+                    and len(tr._programs._programs) == 1,
+                    f"{master} resume: no captured step")
+            torch.cuda.synchronize()
+            results[form] = (_host_state(torch, tr), _noise_offsets(tr))
+        finally:
+            tr.close()
+    bad = tree_mismatch(torch, results["straight"][0], results["resumed"][0])
+    require(bad is None and results["straight"][1] == results["resumed"][1],
+            f"{master}: 5 steps, a resume and 5 more differ from 10 steps "
+            f"at {bad}; noise offsets {results['straight'][1]} vs "
+            f"{results['resumed'][1]}")
+    return (f"model {master}, captured: 5 steps, a checkpoint, resume and "
+            f"5 more bit-equal to 10 steps alone (weights, slots, step "
+            f"counts, BN statistics; the noise generator's offset "
+            f"{results['resumed'][1]})")
+
+
+def compiled_pipeline(torch, counters, weights, rng):
+    """``PipelinedSession`` on ["cuda:0", "cuda:0"], B=32 in
+    ``PP_MICROBATCHES`` microbatches, f32, captured beside eager
+    (``compiled=False``): reconstruct, embed and decode called twice on
+    each (on the captured one a warm-up of each stage, then replays), all
+    bit-equal, with the same launches (K5 once per microbatch), and within
+    rtol 1e-5, atol 1e-6 of the unpipelined session; on a third, captured
+    session an embed, then two reconstructs (stage 0 replaying while stage
+    1 warms up), bit-equal to eager's; a reconstruct's host
+    median and trace both ways (a graph launch per stage and
+    microbatch). Returns the report line."""
+    from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+    from pointnet_autoencoder_tpu_torch.parallel.pp import PipelinedSession
+
+    x = clouds(rng, BATCH, NUM_POINT)
+    ref = InferenceSession("model", weights, NUM_POINT, batch_size=BATCH,
+                           device="cuda")
+    pps = {c: PipelinedSession(ref, devices=["cuda:0", "cuda:0"],
+                               num_microbatches=PP_MICROBATCHES, compiled=c)
+           for c in (True, False)}
+    try:
+        paths = {c: s.forward_path for c, s in pps.items()}
+        require(paths[True].startswith("captured")
+                and paths[False].startswith("eager ("),
+                f"pipelined forward paths {paths}")
+        emb = ref.embed(x)
+        ops = {"reconstruct": (lambda s: s.reconstruct(x),
+                               ref.reconstruct(x)),
+               "embed": (lambda s: s.embed(x), emb),
+               "decode": (lambda s: s.decode(emb), ref.decode(emb))}
+        gaps, eager = {}, {}
+        for op, (call, want) in ops.items():
+            outs, launches = {}, {}
+            for c, s in pps.items():
+                for fn in counters.values():
+                    fn.launches = 0
+                outs[c] = [call(s) for _ in range(2)]
+                launches[c] = {k: fn.launches for k, fn in counters.items()}
+            require(all(np.array_equal(o, outs[False][0])
+                        for o in outs[True] + outs[False]),
+                    f"pipelined {op}: graphed differs from eager")
+            k5 = 0 if op == "decode" else 2 * PP_MICROBATCHES
+            require(launches[True] == launches[False]
+                    and launches[True]["fused_encoder_eval"] == k5,
+                    f"pipelined {op}: launches {launches}")
+            got = outs[True][0]
+            past = int((np.abs(got - want) > 1e-6 + 1e-5 * np.abs(want))
+                       .sum())
+            gaps[op] = max_err(got, want)
+            require(past == 0, f"pipelined {op}: {past} entries past rtol "
+                    f"1e-5, atol 1e-6 of the unpipelined session")
+            eager[op] = outs[False][0]
+        # A first request that is an embed: the next reconstruct replays
+        # stage 0 while stage 1 warms up, on stage 0's static output.
+        first = pps["embed first"] = PipelinedSession(
+            ref, devices=["cuda:0", "cuda:0"],
+            num_microbatches=PP_MICROBATCHES)
+        require(np.array_equal(first.embed(x), eager["embed"])
+                and all(np.array_equal(first.reconstruct(x),
+                                       eager["reconstruct"])
+                        for _ in range(2)),
+                "pipelined reconstruct after an embed first: graphed "
+                "differs from eager")
+        timing = {}
+        for c in (False, True):
+            host, host_one = [], []
+            for _ in range(10):
+                for s, into in ((pps[c], host), (ref, host_one)):
+                    t0 = time.perf_counter()
+                    s.reconstruct(x)
+                    into.append(1e3 * (time.perf_counter() - t0))
+            least = int(0.95 * timing[False][1]["device_events"]) if c else 1
+            timing[c] = (statistics.median(host), overhead_trace(
+                torch, lambda s=pps[c]: s.reconstruct(x),
+                "compiled.pipeline", min_events=least),
+                statistics.median(host_one))
+        require(timing[True][1]["graph_launches"] == 2 * PP_MICROBATCHES,
+                f"pipelined reconstruct graphed: host operations "
+                f"{timing[True][1]['host']}")
+        return (f"pipelined serving, B={BATCH} f32 in {PP_MICROBATCHES} "
+                f"microbatches, both stages on cuda:0: reconstruct, embed "
+                f"and decode graphed (a warm-up, then replays), and "
+                f"reconstruct after an embed first, bit-equal to "
+                f"the eager pipeline, the same launches (K5 "
+                f"{PP_MICROBATCHES} a batch), against the unpipelined "
+                f"session max abs gap "
+                + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+                + f" (rtol 1e-5, atol 1e-6); reconstruct, host median of "
+                f"10: graphed {timing[True][0]:.3f} ms, "
+                f"{_overhead_str(timing[True][1])}; eager "
+                f"{timing[False][0]:.3f} ms, {_overhead_str(timing[False][1])}"
+                f"; the unpipelined session in the same loops "
+                f"{timing[False][2]:.3f} / {timing[True][2]:.3f} ms")
+    finally:
+        for s in pps.values():
+            s.close()
+        ref.close()
 
 
 def phase_compiled(torch, counters, data, weights, tmp, rng):
@@ -4786,18 +5065,33 @@ def phase_compiled(torch, counters, data, weights, tmp, rng):
 
     t_phase = time.perf_counter()
     say("compiled", nvidia_smi_line())
+
+    def case(line, t0):
+        say("compiled", f"{line} ok ({time.perf_counter() - t0:.1f} s)")
+
     x = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to("cuda")
     cases = [(name, True, "device") for name in ALL_FAMILIES]
     cases += [("model", False, "device"), ("model", True, "host")]
     for name, bf16, mode in cases:
-        line, _ = compiled_training(torch, counters, data, tmp, name, bf16,
-                                    mode, x)
-        say("compiled", line + " ok")
-    say("compiled", compiled_resume(torch, data, tmp, x) + " ok")
-    for batch, bf16 in ((BATCH, False), (1, False), (BATCH, True)):
-        line, _ = compiled_serving(torch, counters, weights, rng, batch,
-                                   bf16)
-        say("compiled", line + " ok")
+        t0 = time.perf_counter()
+        case(compiled_training(torch, counters, data, tmp, name, bf16, mode,
+                               x)[0], t0)
+    t0 = time.perf_counter()
+    case(compiled_resume(torch, data, tmp, x), t0)
+    for tag in COMPILED_MASTERS:
+        t0 = time.perf_counter()
+        case(compiled_training(torch, counters, data, tmp, "model", True,
+                               "device", x, master=tag)[0], t0)
+        t0 = time.perf_counter()
+        case(compiled_master_resume(torch, data, tmp, tag), t0)
+    for batch, bf16, m in ((BATCH, False, 1), (1, False, 1),
+                           (BATCH, True, 1), (BATCH, False, 2),
+                           (1, False, 2)):
+        t0 = time.perf_counter()
+        case(compiled_serving(torch, counters, weights, rng, batch, bf16,
+                              model_parallel=m)[0], t0)
+    t0 = time.perf_counter()
+    case(compiled_pipeline(torch, counters, weights, rng), t0)
     # The runs main makes, kept to run each again eagerly.
     runs, real = [], {n: getattr(benchmarks, n)
                       for n in ("bench_chamfer_gd", "bench_emd_gd")}

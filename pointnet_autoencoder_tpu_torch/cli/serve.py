@@ -16,7 +16,8 @@ the weights load. ``--data_parallel N`` serves from N replicas, on cards
 rows of every batch. ``--pipeline_parallel`` serves through a 2-stage
 pipeline (``parallel/pp.py``): the encoder on card 0 and the decoder on
 card 1 (both on the CPU with ``--device cpu``), each batch in
-``--num_microbatches`` microbatches; it is exclusive with
+``--num_microbatches`` microbatches, each stage a captured program on
+cards; it is exclusive with
 ``--data_parallel``. ``--compilation_cache_dir`` (an XLA cache in the JAX
 package) has no counterpart and is refused. SIGTERM drains cleanly:
 queued requests get 'server shutting down' errors instead of dead sockets.

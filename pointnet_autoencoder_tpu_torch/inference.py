@@ -30,7 +30,9 @@ Compiled forwards: on cards (``compiled``, the default) every op's
 forward of a padded chunk replays a CUDA graph (``utils/graphs.py``),
 the JAX package's jitted forward: ``reconstruct``/``embed`` share one,
 ``decode``, ``chamfer`` and ``fscore`` (its threshold a device scalar)
-have their own; the metrics run in padded chunks as the forwards do.
+have their own; the metrics run in padded chunks as the forwards do. A
+TP-split replica whose m devices are one card is captured whole; one
+that spans cards runs eager (``plan_programs``).
 
 Numerics: f32 mode is full f32. Matmuls and cuDNN's convolutions run
 with TF32 off, which the session sets
@@ -49,7 +51,7 @@ import copy
 import json
 import os
 import threading
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -153,6 +155,30 @@ def load_state_dict(model_path: str):
                      f"{model_path!r}")
 
 
+def plan_programs(grid: Sequence[torch.device], m: int, compiled: bool,
+                  cache: Callable = ProgramCache) -> List[Tuple[Any, str]]:
+    """For each replica of ``grid`` (its m devices in turn): a program
+    cache, ``cache(device)``, where its forwards are captured, else None,
+    and its forward path (``captured ...`` or ``eager (reason)``). A
+    replica is captured when ``compiled`` and its devices are one card."""
+    plans = []
+    for i in range(0, len(grid), m):
+        devs = list(grid[i:i + m])
+        if devs[0].type != "cuda":
+            reason = "the CPU runs eager"
+        elif not compiled:
+            reason = "compiled=False: the eager reference"
+        elif len(set(devs)) > 1:
+            reason = (f"a replica over {', '.join(map(str, devs))}: one "
+                      f"card cannot check a capture across cards")
+        else:
+            plans.append((cache(devs[0]), f"captured CUDA graphs on "
+                                          f"{devs[0]}"))
+            continue
+        plans.append((None, f"eager ({reason})"))
+    return plans
+
+
 class InferenceSession:
     """A model with its weights, served on one device or on a replica per
     device.
@@ -182,12 +208,17 @@ class InferenceSession:
       compiled: on cards, each op's forward runs as a captured program
         (``utils/graphs.py``), one per (op, replica, shapes) at the padded
         chunk size, the first call of each in each thread eager as its
-        warm-up; False runs eager, the reference. A TP-split session, and
-        the CPU, run eager. Callers in several threads take turns on each
-        replica's programs, which share their static inputs and outputs.
+        warm-up; False runs eager, the reference. A TP-split replica is
+        captured when its m devices are one card (every hop between its
+        shards is then a no-op); one that spans cards runs eager, since
+        one card cannot check a capture across cards. The CPU runs eager.
+        Callers in several threads take turns on each replica's programs,
+        which share their static inputs and outputs.
 
     ``devices`` is the list of the replicas' first devices; ``model``
-    holds the whole weights (on the CPU under ``model_parallel``).
+    holds the whole weights (on the CPU under ``model_parallel``);
+    ``forward_paths`` says, per replica, whether its forwards replay
+    captured programs or run eager, and why.
     """
 
     def __init__(self, model: str, model_path: str, num_point: int,
@@ -248,12 +279,10 @@ class InferenceSession:
                                            grid[i * m:(i + 1) * m])
             with torch.inference_mode(), _on(dev):
                 self._folded.append(rep.encoder.fold())
-        # One cache of captured programs per replica.
-        self._programs = (
-            [ProgramCache(dev) for dev in self.devices]
-            if compiled and m == 1 and all(d.type == "cuda"
-                                           for d in self.devices)
-            else None)
+        # A cache of captured programs per replica, None where it runs
+        # eager.
+        self._programs, self.forward_paths = map(list, zip(
+            *plan_programs(grid, m, compiled)))
         # A program's static inputs and outputs are shared: one caller at
         # a time on each replica, from the copy-in to the clone.
         self._locks = [threading.Lock() for _ in self.devices]
@@ -303,17 +332,18 @@ class InferenceSession:
     def close(self) -> None:
         """Release the captured programs (their memory on the cards); the
         session stays usable and captures again on its next calls."""
-        for programs in self._programs or ():
-            programs.close()
+        for programs in self._programs:
+            if programs is not None:
+                programs.close()
         self._warmed.clear()
 
     def _call(self, i: int, op: str, fn: Callable, *inputs: torch.Tensor):
         """``fn(*inputs)`` on replica ``i``: eager, or (``compiled``) the
         replay of its program of ``op`` at these input shapes, captured
         after a first eager call; the outputs are the caller's own."""
-        if self._programs is None:
-            return fn(*inputs)
         programs = self._programs[i]
+        if programs is None:
+            return fn(*inputs)
         key = (op, i) + tuple((tuple(t.shape), t.dtype) for t in inputs)
         # The warm-up is per thread too: a thread's first cuBLAS or cuDNN
         # call makes its handle, which cannot happen under capture (a

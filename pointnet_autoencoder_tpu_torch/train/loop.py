@@ -11,7 +11,7 @@ one device or as one rank of a data-parallel group:
 - Input (``input_mode``): ``"device"`` (the default) keeps the dataset
   on the device and builds each batch there (``data/device_pipeline.py``);
   ``"host"`` assembles batches on a host thread (``data/pipeline.py``).
-- Compiled steps: on one card (no process group, no bf16 masters) the
+- Compiled steps: on one card (no process group) the
   steps are captured programs (``utils/graphs.py``, CUDA graphs), the
   JAX package's jitted, donated steps: with device input one program of
   ``log_every`` steps (batch assembly included) per replay and one of
@@ -19,7 +19,10 @@ one device or as one rank of a data-parallel group:
   copy into its static input. The first call of each kind runs eagerly
   as the warm-up (it creates the optimizer's slots); a
   ``TrainState.load_state_dict`` releases the programs. ``compiled=False``
-  runs the eager step, the reference.
+  runs the eager step, the reference. A train program registers the
+  generators it draws from: the device pipeline's, and
+  ``MasterOptimizer``'s noise generator, whose offset is set to the first
+  step's draw before each replay.
 - Metrics per step: ``loss``, ``pcloss`` (and ``pc1loss`` for
   ``model_hierachy``), ``learning_rate``, ``bn_decay`` (the values the
   step applied, computed on the device), each step's in its row of an
@@ -78,7 +81,8 @@ one device or as one rank of a data-parallel group:
 - bf16 master weights and moments (``bf16_params``, ``bf16_moments``):
   the matmul parameters, or their optimizer moments, are stored in
   bfloat16 and the optimizer is ``train/master.MasterOptimizer`` (f32
-  arithmetic, stochastic rounding into the bf16 leaves).
+  arithmetic, stochastic rounding into the bf16 leaves), captured on one
+  card as the default optimizer is.
 """
 
 from __future__ import annotations
@@ -189,9 +193,9 @@ class Trainer:
 
     compiled: on a card, run the steps as captured programs
     (``utils/graphs.py``), the default; False runs the eager step, the
-    reference they are held to. The CPU, the ranks of a group and
-    ``MasterOptimizer`` run eager whatever it says (the first log line
-    says which path runs, and why)."""
+    reference they are held to. The CPU and the ranks of a group run
+    eager whatever it says (the first log line says which path runs, and
+    why)."""
 
     def __init__(self, config: TrainConfig,
                  train_dataset: Optional[PartDataset] = None,
@@ -327,7 +331,11 @@ class Trainer:
             optimizer = master.MasterOptimizer(
                 model.named_parameters(), config.optimizer, config.momentum,
                 bf16_moments=config.bf16_moments, shards=shards)
+            # Its noise generator: registered with every train program, set
+            # to the first step's draw before each replay.
+            self._master: Optional[master.MasterOptimizer] = optimizer
         else:
+            self._master = None
             optimizer = make_optimizer(config.optimizer, model.parameters(),
                                        config.momentum)
         self.bn_schedule = schedules.bn_momentum_schedule(
@@ -343,10 +351,7 @@ class Trainer:
                  "compiled=False: the eager reference" if not compiled else
                  "a rank of a torch.distributed group: its collectives run "
                  "on the host and cannot be captured"
-                 if self.world is not None else
-                 "bf16 masters: MasterOptimizer seeds its noise generators "
-                 "from the host at every step"
-                 if config.bf16_params or config.bf16_moments else None)
+                 if self.world is not None else None)
         self._programs = (ProgramCache(self.device) if eager is None
                           else None)
         # The program kinds warmed up (run once eagerly) in the state's
@@ -359,7 +364,11 @@ class Trainer:
             f"step path: captured CUDA graphs on {self.device} (a program "
             f"of log_every={config.log_every} train steps per replay with "
             f"device input, the eval epoch in one; one step per replay "
-            f"with host input)")
+            f"with host input" + ("; MasterOptimizer's update inside each "
+                                  "train program, its noise generator "
+                                  "registered with it"
+                                  if self._master is not None else "")
+            + ")")
 
         self.ckpt = checkpoint.CheckpointManager(config.log_dir)
         self._saver = (checkpoint.AsyncSaver(self.ckpt, log=self.logger.log)
@@ -425,6 +434,13 @@ class Trainer:
     def _warmed_up(self, kind: str) -> None:
         self._warmed.add((threading.get_ident(), kind))
 
+    def _count_steps(self, k: int) -> None:
+        """Advance the host's step counts (the state's, and the master
+        optimizer's) by ``k``."""
+        self.state.count_steps(k)
+        if self._master is not None:
+            self._master.count_steps(k)
+
     def _run_program(self, key: Tuple, step_rows: Callable,
                      inputs: Tuple[torch.Tensor, ...], steps: int = 0,
                      generators: Tuple[torch.Generator, ...] = ()
@@ -433,16 +449,22 @@ class Trainer:
         ``step_rows(*inputs)`` first, which returns the (k, keys) f32 rows
         of its steps' metrics); returns the rows, which the next replay
         overwrites. ``steps``: train steps in one replay, which the
-        capture counted on the host and each replay counts."""
+        capture counted on the host and each replay counts; a train
+        program also registers the master optimizer's noise generator,
+        set to its first step's draw before each replay."""
 
         def record(*static):
             rows = step_rows(*static)
-            self.state.count_steps(-steps)
+            self._count_steps(-steps)
             return rows
 
-        rows = self._programs.program(key, record, inputs,
-                                      generators).replay(*inputs)
-        self.state.count_steps(steps)
+        if steps and self._master is not None:
+            generators += self._master.generators
+        prog = self._programs.program(key, record, inputs, generators)
+        if steps and self._master is not None:
+            self._master.seek(self.state.step)
+        rows = prog.replay(*inputs)
+        self._count_steps(steps)
         return rows
 
     def train_step(self, batch: torch.Tensor) -> Metrics:

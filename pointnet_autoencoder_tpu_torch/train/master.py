@@ -19,20 +19,38 @@ Counterpart of ``pointnet_autoencoder_tpu/train/master.py``:
   bits and clearing the low half rounds up with probability equal to the
   dropped fraction. On int32 the addition wraps as the uint32 one does
   mod 2^32, so no unsigned type is needed.
-- The noise of step s comes from a generator on the parameters' device
-  seeded with (a fixed base, s), the JAX package's ``fold_in(key, step)``:
-  deterministic, the same across a resume and on every rank of a group,
-  so data-parallel replicas stay bit-equal. Each stream draws once per
-  step, for its bf16 leaves concatenated in parameter order, each at its
-  full size: under tensor parallelism (``shards``) a split leaf takes its
-  slice of its full noise, so every rank of a model group rounds the
-  replicated leaves with the same noise (they stay bit-equal) and the
-  ranks together draw what one device draws. ``--bf16_moments`` draws from its own stream (base ``0x5EED ^
-  0x3A7``, as the JAX package's), counted by the same step: the JAX
-  package's separate ``count`` starts at 0 and advances once per update,
-  as the step does. CUDA generators (Philox) and CPU generators (mt19937)
-  draw different bits from one seed, so a card's run is bit-equal to
-  itself, not to the CPU's.
+- The noise of step s is a deterministic function of s, the JAX
+  package's ``fold_in(key, step)``: the same across a resume and on every
+  rank of a group, so data-parallel replicas stay bit-equal. It has two
+  streams, the weights' and (``--bf16_moments``) the moments', each for
+  its bf16 leaves concatenated in parameter order, each at its full size:
+  under tensor parallelism (``shards``) a split leaf takes its slice of
+  its full noise, so every rank of a model group rounds the replicated
+  leaves with the same noise (they stay bit-equal) and the ranks together
+  draw what one device draws. The JAX package's moments ``count`` starts
+  at 0 and advances once per update, as the step does.
+- On a card both streams come from one Philox generator, seeded once with
+  ``SR_BASE_KEY``: step s draws them in one draw (the weights' values,
+  then the moments') at the offset s * inc, where inc is what one draw of
+  that size advances the offset (fixed for a size and a card; read once
+  from the generator). The eager step sets the offset before its draw; a
+  captured step registers the generator with its graph, and the caller
+  sets its offset to the first step's before each replay (``seek``),
+  after which the replayed draws run on from there as the eager ones
+  would. One generator, not one per stream: every replay refills the
+  seed and offset of each generator its graph registers, two host
+  operations each. The CPU's generator (mt19937) has no offsets: the CPU
+  runs eager and seeds a generator per stream with (key, s) at every
+  step, ``SR_BASE_KEY`` for the weights and ``MOMENTS_KEY`` for the
+  moments. Philox and mt19937 draw different bits, so a card's run is
+  bit-equal to itself, not to the CPU's.
+- On a card the step makes no host sync (``capturable``): the learning
+  rate is a 0-dim f32 tensor that ``TrainState.set_lr`` writes, and the
+  step count a device tensor from which Adam's bias corrections are
+  computed in f32 on the device, as capturable ``torch.optim.Adam`` does
+  (and as optax does from its count). So a Trainer captures the step as
+  a CUDA graph (``utils/graphs.py``). The CPU computes the corrections
+  on the host, ``torch.optim.Adam``'s default form.
 
 The reference trains pure f32; this is the JAX package's opt-in bf16 mode
 carried over. On this card it saves state bytes, not time (PERF.md).
@@ -54,6 +72,9 @@ MATMUL_MODULES = frozenset({"dense", "convt", "conv"})
 
 SR_BASE_KEY = 0x5EED
 MOMENTS_KEY = SR_BASE_KEY ^ 0x3A7
+# The noise streams' seeds on the CPU, in the step's order: the weights'
+# and the moments'.
+STREAM_KEYS = (SR_BASE_KEY, MOMENTS_KEY)
 
 # TF's Adam defaults, as train/state.make_optimizer's.
 ADAM_BETAS = (0.9, 0.999)
@@ -118,6 +139,12 @@ def _seed(base: int, step: int) -> int:
     return (base << 32) | (step & 0xFFFFFFFF)
 
 
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 def _as_f32(tensors: List[Tensor]
             ) -> Tuple[List[Tensor], Optional[Tensor]]:
     """f32 versions of ``tensors``, in order: the f32 ones themselves, the
@@ -138,28 +165,36 @@ def _split(flat: Tensor, like: List[Tensor]) -> List[Tensor]:
             zip(flat.split([t.numel() for t in like]), like)]
 
 
+def _full_shapes(tensors: List[Tensor], names: List[str],
+                 shards: Dict[str, Tuple[int, int, int]]) -> List[List[int]]:
+    """The shape of each bf16 member of ``tensors`` (named by ``names``)
+    at its whole leaf's size: a member split over a model group
+    (``shards``: name -> (dim, rank, parts)) at its full shape."""
+    full = []
+    for t, n in zip(tensors, names):
+        if t.dtype == torch.float32:
+            continue
+        shape = list(t.shape)
+        if n in shards:
+            dim, _, parts = shards[n]
+            shape[dim] *= parts
+        full.append(shape)
+    return full
+
+
 def _round_into(tensors: List[Tensor], names: List[str],
-                flat: Optional[Tensor], generator: torch.Generator,
+                flat: Optional[Tensor], drawn: Optional[Tensor],
                 shards: Dict[str, Tuple[int, int, int]]) -> None:
     """Round ``flat``, the f32 working copy that ``_as_f32(tensors)`` made
     of their bf16 members, stochastically back into those members, with
-    one noise draw from ``generator``. ``names`` names each tensor's
-    parameter; a member split over a model group (``shards``: name ->
-    (dim, rank, parts)) takes its slice of the noise of its full shape."""
+    ``drawn``, the noise of their ``_full_shapes`` concatenated: a member
+    split over a model group takes its slice of its full shape's."""
     if flat is None:
         return
     low = [(t, n) for t, n in zip(tensors, names) if t.dtype != torch.float32]
-    if not shards:
-        noise = draw_noise(flat.shape, generator)
-    else:
-        full = []
-        for t, n in low:
-            shape = list(t.shape)
-            if n in shards:
-                dim, _, parts = shards[n]
-                shape[dim] *= parts
-            full.append(shape)
-        drawn = draw_noise((sum(math.prod(s) for s in full),), generator)
+    noise = drawn
+    if shards:
+        full = _full_shapes(tensors, names, shards)
         parts = []
         for (t, n), shape, seg in zip(low, full, drawn.split(
                 [math.prod(s) for s in full])):
@@ -178,9 +213,11 @@ class MasterOptimizer:
     """Adam or momentum SGD with f32 arithmetic over parameters of mixed
     storage: bf16 leaves take the update through stochastic rounding, f32
     leaves exactly. The interface the Trainer uses of a
-    ``torch.optim.Optimizer``: ``param_groups`` (one group; the Trainer
-    writes ``lr`` before each step), ``zero_grad``, ``step``,
-    ``state_dict`` and ``load_state_dict``.
+    ``torch.optim.Optimizer``: ``param_groups`` (one group; its ``lr`` a
+    0-dim f32 tensor on the parameters' device that the Trainer writes
+    before each step), ``zero_grad``, ``step``,
+    ``state_dict`` and ``load_state_dict``; and for captured steps
+    ``generators`` (to register), ``seek`` and ``count_steps``.
 
     named_params: ``model.named_parameters()``; the names pick the matmul
       class (``is_matmul_param``).
@@ -194,6 +231,9 @@ class MasterOptimizer:
       slice of a split leaf, name -> (dim, rank, parts) (the split
       dimension, this rank's index and the model group's size): its noise
       is its slice of the full leaf's.
+
+    ``capturable`` (on a card) computes the step's scalars from the device
+    tensors on the device, with no host sync.
     """
 
     def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]],
@@ -210,17 +250,33 @@ class MasterOptimizer:
         self.momentum = momentum
         self.bf16_moments = bf16_moments
         self.shards = dict(shards or {})
+        device = self.params[0].device if self.params else torch.device("cpu")
+        self.capturable = device.type == "cuda"
         self.param_groups: List[Dict[str, Any]] = [
-            {"params": self.params, "lr": 0.0}]
-        # The optimizer steps taken: Adam's bias-correction count, and the
-        # step of both noise streams.
-        self.steps = 0
+            {"params": self.params,
+             "lr": torch.zeros((), dtype=torch.float32, device=device)}]
+        # The optimizer steps taken (Adam's bias-correction count, and the
+        # step of both noise streams): on the device, advanced by the step
+        # itself (so a replayed step advances it too), and on the host.
+        self._count = torch.zeros((), dtype=torch.int64, device=device)
+        self._host_steps = 0
+        # On a card, the one Philox generator of both noise streams; step
+        # s draws at s * inc, ``_inc`` = (draw size, inc) once read.
+        self.generators: Tuple[torch.Generator, ...] = (
+            (torch.Generator(device=device).manual_seed(SR_BASE_KEY),)
+            if device.type == "cuda" else ())
+        self._inc: Optional[Tuple[int, int]] = None
         slot_names = (("exp_avg", "exp_avg_sq") if name == "adam"
                       else ("momentum_buffer",))
         self.slots: Dict[str, Dict[str, Tensor]] = {
             n: {s: torch.zeros(p.shape, dtype=self.slot_dtype(n),
                                device=p.device) for s in slot_names}
             for n, p in named}
+
+    @property
+    def steps(self) -> int:
+        """The optimizer steps taken (read from the device)."""
+        return int(self._count)
 
     def slot_dtype(self, name: str) -> torch.dtype:
         """The storage type of parameter ``name``'s moment slots."""
@@ -234,6 +290,42 @@ class MasterOptimizer:
             elif p.grad is not None:
                 p.grad.zero_()
 
+    def count_steps(self, k: int) -> None:
+        """Advance the host's count by ``k`` steps that the device took
+        (replays), or take back the steps a capture counted."""
+        self._host_steps += k
+
+    def seek(self, step: int) -> None:
+        """Set the noise generator's offset to the draw of ``step``: before
+        a replay of captured steps from ``step`` on, whose draws then run
+        on from there as the eager steps' would. Before the first draw
+        there is nothing to set (the captured steps draw nothing)."""
+        if self._inc is not None:
+            self.generators[0].set_offset(step * self._inc[1])
+
+    def _noise(self, step: int, sizes: List[int]
+               ) -> List[Optional[Tensor]]:
+        """Step ``step``'s noise of each stream, ``sizes`` values each (None
+        where 0): on a card one draw of their sum at the offset step * inc,
+        cut in order; on the CPU a draw each from a generator seeded with
+        (the stream's key, step)."""
+        if not self.generators:
+            return [draw_noise((n,), torch.Generator(
+                device=self.params[0].device).manual_seed(_seed(key, step)))
+                if n else None for key, n in zip(STREAM_KEYS, sizes)]
+        total = sum(sizes)
+        if not total:
+            return [None] * len(sizes)
+        gen = self.generators[0]
+        if not _capturing():
+            # Under capture the draws run on from the replay's offset.
+            if self._inc is None or self._inc[0] != total:
+                gen.set_offset(0)
+                draw_noise((total,), gen)
+                self._inc = (total, gen.get_offset())
+            gen.set_offset(step * self._inc[1])
+        return list(draw_noise((total,), gen).split(sizes))
+
     @torch.no_grad()
     def step(self) -> None:
         """One update of every parameter with a gradient, at the group's
@@ -242,12 +334,9 @@ class MasterOptimizer:
         upcast as one flat f32 tensor each and rounded back with one
         noise draw of their stream."""
         lr = self.param_groups[0]["lr"]
-        # The step's noise streams, on the parameters' device.
-        device = self.params[0].device
-        gp, gm = (torch.Generator(device=device).manual_seed(
-            _seed(key, self.steps)) for key in (SR_BASE_KEY, MOMENTS_KEY))
-        t = self.steps + 1
-        self.steps = t
+        step = self._host_steps
+        self._host_steps = step + 1
+        self._count.add_(1)
         live = [(n, p) for n, p in zip(self.names, self.params)
                 if p.grad is not None]
         if not live:
@@ -259,38 +348,56 @@ class MasterOptimizer:
         stored = [self.slots[n][s] for s in slot_kinds for n, _ in live]
         work, slot_flat = _as_f32(stored)
         if self.name == "adam":
-            # torch.optim.Adam's arithmetic, its foreach form.
+            # torch.optim.Adam's arithmetic, its foreach form: capturable
+            # (the corrections in f32 from the device count) on a card.
             b1, b2 = ADAM_BETAS
             m, v = work[:len(live)], work[len(live):]
             torch._foreach_lerp_(m, grads, 1 - b1)
             torch._foreach_mul_(v, b2)
             torch._foreach_addcmul_(v, grads, grads, value=1 - b2)
             denom = torch._foreach_sqrt(v)
-            torch._foreach_div_(denom, (1 - b2 ** t) ** 0.5)
-            torch._foreach_add_(denom, ADAM_EPS)
-            torch._foreach_addcdiv_(p32, m, denom,
-                                    value=-(lr / (1 - b1 ** t)))
+            if self.capturable:
+                t = self._count.float()
+                torch._foreach_div_(denom, (1 - torch.pow(b2, t)).sqrt())
+                torch._foreach_add_(denom, ADAM_EPS)
+                torch._foreach_div_(denom, -lr / (1 - torch.pow(b1, t)))
+                torch._foreach_addcdiv_(p32, m, denom)
+            else:
+                t, lr = step + 1, float(lr)
+                torch._foreach_div_(denom, (1 - b2 ** t) ** 0.5)
+                torch._foreach_add_(denom, ADAM_EPS)
+                torch._foreach_addcdiv_(p32, m, denom,
+                                        value=-(lr / (1 - b1 ** t)))
         else:
             torch._foreach_mul_(work, self.momentum)
             torch._foreach_add_(work, grads)
-            torch._foreach_add_(p32, work, alpha=-lr)
+            if self.capturable:
+                torch._foreach_add_(p32, torch._foreach_mul(work, -lr))
+            else:
+                torch._foreach_add_(p32, work, alpha=-float(lr))
         names = [n for n, _ in live]
-        _round_into(stored, names * len(slot_kinds), slot_flat, gm,
-                    self.shards)
-        _round_into(params, names, p_flat, gp, self.shards)
+        # The weights', then the moments' (STREAM_KEYS order).
+        rounds = [(params, names, p_flat),
+                  (stored, names * len(slot_kinds), slot_flat)]
+        noise = self._noise(step, [
+            sum(math.prod(shape) for shape in _full_shapes(
+                tensors, n, self.shards)) for tensors, n, _ in rounds])
+        for (tensors, n, flat), drawn in zip(rounds, noise):
+            _round_into(tensors, n, flat, drawn, self.shards)
 
     def state_dict(self) -> Dict[str, Any]:
-        """The step, the learning rate and every slot by parameter name
-        (tensors, not copies; bf16 slots stay bf16)."""
+        """The step and the learning rate as numbers (read from the
+        device), and every slot by parameter name (tensors, not copies;
+        bf16 slots stay bf16)."""
         return {"kind": "master", "name": self.name,
                 "bf16_moments": self.bf16_moments, "steps": self.steps,
-                "lr": self.param_groups[0]["lr"],
+                "lr": float(self.param_groups[0]["lr"]),
                 "slots": {n: dict(s) for n, s in self.slots.items()}}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Restore ``state_dict``'s contents in place, slot dtypes and all;
-        raises ValueError for the state of another optimizer or another
-        slot storage."""
+        """Restore ``state_dict``'s contents in place, slot dtypes and all
+        (the learning rate into the group's tensor); raises ValueError for
+        the state of another optimizer or another slot storage."""
         if state.get("kind") != "master" or state["name"] != self.name \
                 or bool(state["bf16_moments"]) != self.bf16_moments:
             raise ValueError(
@@ -309,5 +416,6 @@ class MasterOptimizer:
                         f"{tuple(stored.shape)}, expected {v.dtype} "
                         f"{tuple(v.shape)}")
                 v.copy_(stored)
-        self.steps = int(state["steps"])
-        self.param_groups[0]["lr"] = state["lr"]
+        self._host_steps = int(state["steps"])
+        self._count.fill_(self._host_steps)
+        self.param_groups[0]["lr"].fill_(float(state["lr"]))

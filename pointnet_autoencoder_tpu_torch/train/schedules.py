@@ -15,7 +15,7 @@ f32 and give the same values:
   captured train step reads it at every replay, as the JAX package
   computes its schedules inside the jit;
 - ``schedule.f32(step)``, the same value computed on the host as a float
-  (what an eager optimizer that takes a number applies; tests).
+  (the reference the tests hold the tensor form to).
 
 Both take the exponent ``floor(f32(step) * batch_size / decay_step)``,
 then ``f32(base) * rate ** exponent``. The power is taken in float64 and

@@ -123,16 +123,11 @@ class TrainState:
         self._step += k
 
     def set_lr(self) -> Tensor:
-        """Write lr(step) into the optimizer's groups and return it: into
-        a group's tensor learning rate in place, or as a host float where
-        the group holds a float (``MasterOptimizer``, whose eager update
-        takes a number; the same f32 value)."""
+        """Write lr(step) into the optimizer's groups' tensor learning
+        rates, in place, and return it."""
         lr = self.lr_schedule.tensor(self.step_tensor)
         for group in self.optimizer.param_groups:
-            if torch.is_tensor(group["lr"]):
-                group["lr"].copy_(lr)
-            else:
-                group["lr"] = self.lr_schedule.f32(self._step)
+            group["lr"].copy_(lr)
         return lr
 
     def state_dict(self) -> Dict[str, Any]:

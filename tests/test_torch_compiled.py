@@ -17,6 +17,12 @@ the JAX package:
   optimizer's flags this device needs;
 - the launch-counter accounting of a captured program, under a stand-in
   graph that records a capture and counts replays;
+- bf16 master weights (``MasterOptimizer`` in the card's form: the
+  learning rate a tensor, the step count on the device): two steps across
+  the staircase against the JAX package's ``--bf16_params`` step, both
+  with zero rounding noise, at the same tolerances; and a chunk program of
+  3 steps under a stand-in cache, which registers the noise generator and
+  sets its offset to its first step's draw before each replay;
 - the epoch metric buffer: the same log windows as the per-step metric
   dicts the loop kept before it (the earlier ``fetch_metric_windows``,
   copied here as the oracle).
@@ -33,6 +39,7 @@ import torch
 
 from pointnet_autoencoder_tpu.models.registry import get_model_spec as jspec
 from pointnet_autoencoder_tpu.nn.layers import PointMLP as JPointMLP
+from pointnet_autoencoder_tpu.train import master as jmaster
 from pointnet_autoencoder_tpu.train import schedules as jschedules
 from pointnet_autoencoder_tpu.train.loop import make_step_fns
 from pointnet_autoencoder_tpu.train.state import TrainState as JTrainState
@@ -43,7 +50,7 @@ from pointnet_autoencoder_tpu_torch.data import synthetic
 from pointnet_autoencoder_tpu_torch.inference import chunked_dispatch
 from pointnet_autoencoder_tpu_torch.nn.layers import PointMLP
 from pointnet_autoencoder_tpu_torch.ops import chamfer, fused_head
-from pointnet_autoencoder_tpu_torch.train import schedules
+from pointnet_autoencoder_tpu_torch.train import master, schedules
 from pointnet_autoencoder_tpu_torch.train.loop import (
     EpochMetrics,
     Trainer,
@@ -55,6 +62,7 @@ from pointnet_autoencoder_tpu_torch.train.state import (
     make_optimizer,
 )
 from pointnet_autoencoder_tpu_torch.utils import graphs
+from test_torch_master import _truncate, inc, stand_in_noise
 
 torch.set_num_threads(2)
 
@@ -218,6 +226,14 @@ def _sync(trainer, state, optimizer):
     slots = ({"exp_avg": first.mu, "exp_avg_sq": first.nu}
              if optimizer == "adam" else {"momentum_buffer": first.trace})
     opt = trainer.state.optimizer
+    if isinstance(opt, master.MasterOptimizer):
+        sd = opt.state_dict()
+        for slot, tree in slots.items():
+            arrays = from_flax_variables({"params": jax.device_get(tree)})
+            for name, stored in sd["slots"].items():
+                stored[slot] = arrays[name]
+        opt.load_state_dict(dict(sd, steps=int(state.step)))
+        return
     params = dict(trainer.model.named_parameters())
     for slot, tree in slots.items():
         arrays = from_flax_variables({"params": jax.device_get(tree)})
@@ -240,16 +256,47 @@ def test_two_train_steps_across_a_staircase_match_jax(tmp_path, fixture_root,
     statistics and slots copied over: Adam turns gradients that are
     rounding noise into full-size updates, so two steps apart would
     compare that noise), each against the JAX package's step."""
+    _two_steps_against_jax(tmp_path, fixture_root, optimizer)
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "momentum"])
+def test_two_master_steps_across_a_staircase_match_jax(
+        tmp_path, fixture_root, optimizer, monkeypatch):
+    """The same two steps with bf16 matmul weights (``--bf16_params``):
+    ``MasterOptimizer`` in the card's form, its learning rate a tensor
+    and its step count on the device, against the JAX package's step with
+    ``f32_math`` and ``apply_updates_sr``, the rounding noise zero on both
+    sides (truncation). After each step the matmul weight matrices equal
+    JAX's bit for bit in all but 0.5% of their entries, and no entry is
+    further from JAX's than one bf16 ulp plus 3 learning rates (a
+    gradient near zero may take the other sign, which Adam scales to a
+    full update; the biases ahead of BN, whose gradients are all such
+    rounding noise, are not compared)."""
+    monkeypatch.setattr(jmaster, "stochastic_round_bf16",
+                        lambda x, key: _truncate(x))
+    monkeypatch.setattr(master, "draw_noise", lambda shape, generator:
+                        torch.zeros(tuple(shape), dtype=torch.int32))
+    _two_steps_against_jax(tmp_path, fixture_root, optimizer,
+                           bf16_params=True)
+
+
+def _two_steps_against_jax(tmp_path, fixture_root, optimizer,
+                           bf16_params=False):
     spec = jspec("model")
     module, variables = spec.init_variables(jax.random.PRNGKey(0), NUM_POINT)
     variables = _perturbed(variables)
+    lr = jschedules.learning_rate_schedule(0.001, 0.7, BATCH, BATCH)
+    tx = jopt(optimizer, lr, 0.9)
+    if bf16_params:
+        variables = dict(variables,
+                         params=jmaster.cast_master_bf16(variables["params"]))
+        tx = jmaster.f32_math(tx)
     rng = np.random.RandomState(3)
     batches = [rng.randn(BATCH, NUM_POINT, 3).astype(np.float32)
                for _ in range(2)]
-    lr = jschedules.learning_rate_schedule(0.001, 0.7, BATCH, BATCH)
     bn = jschedules.bn_momentum_schedule(BATCH, BATCH)
-    tx = jopt(optimizer, lr, 0.9)
-    train_step = jax.jit(make_step_fns(module, spec, tx, bn, lr)[0])
+    train_step = jax.jit(make_step_fns(module, spec, tx, bn, lr,
+                                       stochastic_round=bf16_params)[0])
     states = [JTrainState.create(variables, tx)]
     want = []
     for x in batches:
@@ -260,8 +307,11 @@ def test_two_train_steps_across_a_staircase_match_jax(tmp_path, fixture_root,
     cfg = TrainConfig(data_path=fixture_root, category="Chair",
                       num_point=NUM_POINT, batch_size=BATCH, bf16=False,
                       decay_step=BATCH, optimizer=optimizer,
-                      log_dir=str(tmp_path / "log"))
+                      bf16_params=bf16_params, log_dir=str(tmp_path / "log"))
     trainer = Trainer(cfg, device="cpu")
+    if bf16_params:
+        # The card's form of the step, on the CPU.
+        trainer.state.optimizer.capturable = True
     got = []
     try:
         trainer.model.load_state_dict(from_flax_variables(variables))
@@ -269,9 +319,28 @@ def test_two_train_steps_across_a_staircase_match_jax(tmp_path, fixture_root,
             if i:
                 _sync(trainer, states[i], optimizer)
             got.append(trainer.train_step(torch.from_numpy(x)))
+            if bf16_params:
+                want_w = from_flax_variables(jax.device_get(
+                    {"params": states[i + 1].params,
+                     "batch_stats": states[i + 1].batch_stats}),
+                    keep_bf16=True)
+                lr_i = float(got[-1]["learning_rate"])
+                differ = total = 0
+                for name, p in trainer.model.named_parameters():
+                    if name.endswith("dense.weight"):
+                        w = want_w[name]
+                        assert p.dtype == w.dtype == torch.bfloat16
+                        gap = (p.float() - w.float()).abs()
+                        assert bool((gap <= w.float().abs() * 2.0 ** -7
+                                     + 3 * lr_i).all()), (i, name)
+                        differ += int((p != w).sum())
+                        total += p.numel()
+                assert differ <= 0.005 * total, (i, differ, total)
     finally:
         trainer.close()
     assert trainer.state.step == 2 and int(trainer.state.step_tensor) == 2
+    if bf16_params:
+        assert trainer.state.optimizer.steps == 2
     for g, w in zip(got, want):
         for key in ("loss", "pcloss"):
             np.testing.assert_allclose(float(g[key]), float(w[key]),
@@ -385,6 +454,78 @@ def test_a_failed_capture_raises_and_restores_the_counters():
     with pytest.raises(RuntimeError, match="capture failed"):
         graphs.CapturedProgram(broken, StandInGraph())
     assert graphs.launch_counts() == before
+
+
+class StandInCache:
+    """``ProgramCache``'s calls on the CPU: the warm-up runs the function;
+    a program is captured on a ``StandInGraph`` whose capture sets
+    ``capturing[0]``, and the generators each program registers are
+    kept by key."""
+
+    def __init__(self, capturing):
+        self.capturing = capturing
+        self.programs, self.registered = {}, {}
+
+    def warm_up(self, fn):
+        return fn()
+
+    def program(self, key, fn, inputs=(), generators=()):
+        if key not in self.programs:
+            self.registered[key] = tuple(generators)
+            graph = StandInGraph()
+            graph.capture = self.capture
+            self.programs[key] = graphs.CapturedProgram(
+                fn, graph, tuple(t.clone() for t in inputs))
+        return self.programs[key]
+
+    @contextlib.contextmanager
+    def capture(self):
+        self.capturing[0] = True
+        try:
+            yield
+        finally:
+            self.capturing[0] = False
+
+    def clear(self):
+        self.programs.clear()
+
+    close = clear
+
+
+def test_a_master_chunk_program_registers_and_seeks_the_noise_generator(
+        tmp_path, fixture_root, monkeypatch):
+    """``--bf16_params --bf16_moments`` at log_every 3: the first chunk
+    (steps 0-2) is the eager warm-up, its draws at s * inc after the draw
+    that reads inc; the program of the next chunks registers the device
+    pipeline's generator and the noise generator, its capture sets no
+    offset (its draws run on from where the capture finds the generator),
+    and each replay starts at its first step's draw: 3 * inc, then 6 *
+    inc."""
+    cfg = TrainConfig(data_path=fixture_root, category="Chair",
+                      num_point=NUM_POINT, batch_size=BATCH, bf16=False,
+                      bf16_params=True, bf16_moments=True, log_every=3,
+                      log_dir=str(tmp_path / "log"))
+    trainer = Trainer(cfg, device="cpu")
+    try:
+        gen = stand_in_noise(monkeypatch, trainer.state.optimizer)
+        capturing = [False]
+        monkeypatch.setattr(master, "_capturing", lambda: capturing[0])
+        cache = trainer._programs = StandInCache(capturing)
+        metrics = EpochMetrics(9, "cpu")
+        for _ in range(3):
+            trainer._chunk("train", torch.zeros((3, BATCH), dtype=torch.long),
+                           metrics)
+        assert trainer.state.step == 9 and metrics.count == 9
+        assert cache.registered == {
+            ("train", 3): (trainer.train_pipe.generator, gen)}
+        # The weights' noise and the two bf16 moment slots'.
+        i = inc(3 * sum(p.numel()
+                        for n, p in trainer.model.named_parameters()
+                        if master.is_matmul_param(n)))
+        assert gen.sets == [0, 0, i, 2 * i, 3 * i, 6 * i]
+        assert gen.draws == [0, 0, i, 2 * i, 3 * i, 4 * i, 5 * i]
+    finally:
+        trainer.close()
 
 
 def test_program_cache_refuses_the_cpu():

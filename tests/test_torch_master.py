@@ -21,6 +21,12 @@ JAX package's train/master.py.
   envelope, tests/test_master.py:249-278); a resume after step 5 ends
   bit-equal to 10 uninterrupted steps; the checkpoint serves through
   ``InferenceSession`` and ``cli.export``.
+- The card's form of the step on the CPU (``capturable``: a tensor
+  learning rate, the bias corrections in f32 from the device count)
+  against the same optax arithmetic; the noise generator's offsets on a
+  card through a stand-in CUDA generator: step s draws at s * inc, a
+  resume at step 5 at 5 * inc, from a checkpoint as this optimizer has
+  always written it (an int step count, a float learning rate).
 """
 
 import dataclasses
@@ -139,7 +145,7 @@ def test_sr_accumulates_tiny_updates():
     p = nn.Parameter(torch.ones(2048, dtype=torch.bfloat16))
     opt = master.MasterOptimizer([("dense.weight", p)], "momentum",
                                  momentum=0.0)
-    opt.param_groups[0]["lr"] = 1.0
+    opt.param_groups[0]["lr"].fill_(1.0)
     u = 1e-3 * 2.0 ** -7
     for _ in range(400):
         p.grad = torch.full((2048,), -u, dtype=torch.bfloat16)
@@ -232,6 +238,23 @@ def _truncate(x):
 
 @pytest.mark.parametrize("name", ["adam", "momentum"])
 def test_update_matches_jax_f32_math_with_zero_noise(name, monkeypatch):
+    _zero_noise_update_against_jax(name, False, monkeypatch)
+
+
+@pytest.mark.parametrize("name", ["adam", "momentum"])
+def test_device_form_matches_jax_f32_math_with_zero_noise(name,
+                                                          monkeypatch):
+    """The card's form (``capturable``: the learning rate a tensor, the
+    bias corrections in f32 from the device count, as optax computes
+    them from its count), run on the CPU, at the same tolerances, and its
+    f32 leaf at least as close to optax's as the host form's."""
+    device = _zero_noise_update_against_jax(name, True, monkeypatch)
+    assert device <= _zero_noise_update_against_jax(name, False, monkeypatch)
+
+
+def _zero_noise_update_against_jax(name, capturable, monkeypatch) -> float:
+    """Five updates against ``f32_math(optax)``'s with zero noise, held to
+    the tolerances below; returns the f32 leaf's largest gap."""
     rng = np.random.RandomState(5)
     w = rng.randn(16, 12).astype(np.float32)
     b = (0.1 * rng.randn(16)).astype(np.float32)
@@ -248,6 +271,7 @@ def test_update_matches_jax_f32_math_with_zero_noise(name, monkeypatch):
                    torch.from_numpy(gamma))
     opt = master.MasterOptimizer(model.named_parameters(), name,
                                  momentum=0.9)
+    opt.capturable = capturable
     monkeypatch.setattr(master, "draw_noise", lambda shape, generator:
                         torch.zeros(tuple(shape), dtype=torch.int32))
     for _ in range(5):
@@ -266,7 +290,7 @@ def test_update_matches_jax_f32_math_with_zero_noise(name, monkeypatch):
         for p, g in ((model.layer.dense.weight, gw),
                      (model.layer.dense.bias, gb), (model.layer.bn.gamma, gg)):
             p.grad = torch.from_numpy(g).to(p.dtype)
-        opt.param_groups[0]["lr"] = lr
+        opt.param_groups[0]["lr"].fill_(lr)
         opt.step()
     tol = dict(rtol=1e-6, atol=1e-9)
     for got, want in ((model.layer.dense.weight, jparams["dense"]["kernel"]),
@@ -296,19 +320,22 @@ def test_update_matches_jax_f32_math_with_zero_noise(name, monkeypatch):
                 slots[port][slot].numpy(), want, rtol=1e-6,
                 atol=max(1e-9, 2.0 ** -22 * float(np.abs(want).max())),
                 err_msg=f"{slot} {port}")
+    return float(np.abs(model.layer.bn.gamma.detach().numpy()
+                        - np.asarray(jparams["bn"]["gamma"])).max())
 
 
 def test_f32_leaves_equal_torch_adam_bit_for_bit():
     """Without bf16 leaves the update is torch.optim.Adam's single-tensor
-    arithmetic, bit for bit, so the flags change only the storage."""
+    arithmetic, bit for bit, so the flags change only the storage. Both
+    step at the learning rate the group's f32 tensor holds."""
     torch.manual_seed(0)
     a = [nn.Parameter(torch.randn(8, 5)), nn.Parameter(torch.randn(5))]
     b = [nn.Parameter(t.detach().clone()) for t in a]
-    ref = torch.optim.Adam(a, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
-                           foreach=False)
     ours = master.MasterOptimizer(
         [(f"bn.p{i}", p) for i, p in enumerate(b)], "adam")
-    ours.param_groups[0]["lr"] = 1e-3
+    lr = ours.param_groups[0]["lr"].fill_(1e-3)
+    ref = torch.optim.Adam(a, lr=float(lr), betas=(0.9, 0.999), eps=1e-8,
+                           foreach=False)
     for _ in range(6):
         grads = [torch.randn_like(p) for p in a]
         for p, q, g in zip(a, b, grads):
@@ -317,6 +344,84 @@ def test_f32_leaves_equal_torch_adam_bit_for_bit():
         ours.step()
     for p, q in zip(a, b):
         assert torch.equal(p, q)
+
+
+# -- the noise streams' offsets on a card -------------------------------------
+
+
+class StandInGenerator:
+    """A CUDA generator's offset calls, on the CPU: each offset set is
+    recorded, and each draw at its offset, which it moves on by 4 per 1000
+    values begun (a whole
+    number of Philox rounds; the optimizer reads what a draw of its size
+    advances, once, from the generator)."""
+
+    def __init__(self):
+        self.offset = 0
+        self.draws = []
+        self.sets = []
+
+    def get_offset(self):
+        return self.offset
+
+    def set_offset(self, offset):
+        self.sets.append(offset)
+        self.offset = offset
+
+    def draw(self, shape):
+        self.draws.append(self.offset)
+        self.offset += inc(math.prod(shape))
+        return torch.zeros(tuple(shape), dtype=torch.int32)
+
+
+def inc(size):
+    """The offset a stand-in draw of ``size`` values advances."""
+    return 4 * -(-size // 1000)
+
+
+def stand_in_noise(monkeypatch, opt):
+    """``opt``'s noise generator, as on a card, replaced by a stand-in
+    that ``master.draw_noise`` then draws from; returns it."""
+    monkeypatch.setattr(master, "draw_noise",
+                        lambda shape, generator: generator.draw(shape))
+    opt.generators = (StandInGenerator(),)
+    return opt.generators[0]
+
+
+def test_step_s_draws_at_s_inc_and_a_resume_at_5_at_5_inc(monkeypatch):
+    """Step s draws both streams' noise in one draw at offset s * inc, inc
+    read once from a draw at offset 0; a state resumed at step 5 draws at
+    5 * inc. The draw holds the weights' noise, for the bf16 weight and
+    bias, then the moments', for their two bf16 slots each."""
+    rng = np.random.RandomState(2)
+
+    def make():
+        model = _Mixed(torch.from_numpy(rng.randn(40, 30).astype(
+            np.float32)).to(torch.bfloat16), torch.zeros(
+            40, dtype=torch.bfloat16), torch.ones(40))
+        return model, master.MasterOptimizer(model.named_parameters(),
+                                             "adam", bf16_moments=True)
+
+    def step(model, opt):
+        for p in model.parameters():
+            p.grad = torch.from_numpy(rng.randn(*p.shape).astype(
+                np.float32)).to(p.dtype)
+        opt.step()
+
+    model, opt = make()
+    gen = stand_in_noise(monkeypatch, opt)
+    for _ in range(3):
+        step(model, opt)
+    i = inc(1240 + 2480)
+    assert gen.draws == [0, 0, i, 2 * i] and gen.offset == 3 * i
+    assert opt.steps == 3
+    state = dict(opt.state_dict(), steps=5)
+    model, again = make()
+    gen = stand_in_noise(monkeypatch, again)
+    again.load_state_dict(state)
+    assert again.steps == 5
+    step(model, again)
+    assert gen.draws == [0, 5 * i]
 
 
 # -- bf16 moments -------------------------------------------------------------
@@ -357,7 +462,7 @@ def test_bf16_moments_update_tracks_f32_adam():
         p = nn.Parameter(torch.from_numpy(w.copy()))
         opt = master.MasterOptimizer([("conv.weight", p)], "adam",
                                      bf16_moments=moments)
-        opt.param_groups[0]["lr"] = 1e-3
+        opt.param_groups[0]["lr"].fill_(1e-3)
         for _ in range(5):
             p.grad = g.clone()
             opt.step()
@@ -371,7 +476,7 @@ def test_bf16_moments_no_ema_stall():
     p = nn.Parameter(torch.ones(512, 512))
     opt = master.MasterOptimizer([("conv.weight", p)], "adam",
                                  bf16_moments=True)
-    opt.param_groups[0]["lr"] = 1e-3
+    opt.param_groups[0]["lr"].fill_(1e-3)
     nu = opt.slots["conv.weight"]["exp_avg_sq"]
     for value, steps in ((0.1, 30), (0.2, 30)):
         if value == 0.2:
@@ -388,7 +493,7 @@ def test_state_dict_round_trip_keeps_dtypes_and_refuses_another_kind():
     q = nn.Parameter(torch.randn(4))
     opt = master.MasterOptimizer([("dense.weight", p), ("bn.gamma", q)],
                                  "adam", bf16_moments=True)
-    opt.param_groups[0]["lr"] = 1e-2
+    opt.param_groups[0]["lr"].fill_(1e-2)
     for _ in range(2):
         p.grad, q.grad = torch.randn_like(p), torch.randn_like(q)
         opt.step()
@@ -501,6 +606,44 @@ def test_resume_after_step_5_is_bit_equal_to_10_steps(
             assert torch.equal(v, got["optimizer"]["slots"][n][s]), (n, s)
     for t in (whole, first, again):
         t.close()
+
+
+def test_an_int_step_count_in_a_checkpoint_resumes_at_its_offsets(
+        fixture_root, tmp_path, monkeypatch):
+    """A Trainer checkpoint as this optimizer has always written it
+    (``steps`` a Python int, ``lr`` a float) resumes with the step on the
+    host and the device, the learning rate in the group's tensor, and the
+    first draw after it at 5 * inc."""
+    cfg = _config(fixture_root, tmp_path / "log", bf16_params=True,
+                  bf16_moments=True, async_checkpoints=False)
+    first = Trainer(cfg, device="cpu")
+    for x in _batches(fixture_root, 5):
+        first.train_step(x)
+    opt = first.state.optimizer
+    tree = {"model": first.model.state_dict(), "step": 5, "epoch": 1,
+            "best_loss": 1.0,
+            "optimizer": {"kind": "master", "name": "adam",
+                          "bf16_moments": True, "steps": 5, "lr": 0.001,
+                          "slots": {n: dict(s)
+                                    for n, s in opt.slots.items()}}}
+    checkpoint.CheckpointManager(cfg.log_dir).save_periodic(
+        checkpoint.to_host(tree))
+    first.close()
+    again = Trainer(dataclasses.replace(cfg, resume=True), device="cpu")
+    try:
+        opt = again.state.optimizer
+        lr = opt.param_groups[0]["lr"]
+        assert again.state.step == opt.steps == 5
+        assert torch.is_tensor(lr) and float(lr) == float(np.float32(0.001))
+        gen = stand_in_noise(monkeypatch, opt)
+        again.train_step(_batches(fixture_root, 1)[0])
+        size = sum(p.numel() for n, p in again.model.named_parameters()
+                   if master.is_matmul_param(n))
+        # The weights' noise and the two bf16 moment slots'.
+        assert gen.draws == [0, 5 * inc(3 * size)]
+        assert opt.steps == 6
+    finally:
+        again.close()
 
 
 def test_checkpoint_serves_and_exports(fixture_root, tmp_path):

@@ -5,7 +5,9 @@ PipelinedSession on the same weights (the twin of
 tests/test_inference.py's test_pipelined_session_matches_unpipelined and
 tests/test_serve.py's test_server_over_pipelined_session), and
 cli/serve.py's --pipeline_parallel, --num_microbatches and
---compilation_cache_dir.
+--compilation_cache_dir; and the compiled stages' schedule under stand-in
+programs that overwrite one static output buffer at every call, as a
+replayed graph does.
 
 Tolerance: rtol 1e-5, atol 1e-6, the JAX tests'.
 """
@@ -147,3 +149,85 @@ def test_serve_cli_pipeline_flags(weights):
     with pytest.raises(NotImplementedError, match="compilation_cache_dir"):
         cli_serve.build_server(parse(base + ["--compilation_cache_dir",
                                              "/nonexistent/cache"]))
+
+
+class StandInProgram:
+    """A captured stage as a replay behaves: static inputs copied in, and
+    one static output buffer that every replay overwrites in place."""
+
+    def __init__(self, fn, inputs):
+        self.fn = fn
+        self.inputs = tuple(t.clone() for t in inputs)
+        self.outputs = fn(*self.inputs).clone()
+
+    def replay(self, *inputs):
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        self.outputs.copy_(self.fn(*self.inputs))
+        return self.outputs
+
+
+class StandInCache:
+    """``utils/graphs.ProgramCache``'s calls, on the CPU."""
+
+    def __init__(self):
+        self.programs = {}
+        self.warm_ups = 0
+
+    def warm_up(self, fn):
+        self.warm_ups += 1
+        return fn()
+
+    def program(self, key, fn, inputs=(), generators=()):
+        if key not in self.programs:
+            self.programs[key] = StandInProgram(fn, inputs)
+        return self.programs[key]
+
+    def close(self):
+        self.programs.clear()
+
+
+@pytest.mark.parametrize("first", ["reconstruct", "embed"])
+@pytest.mark.parametrize("name", ["model", "model_hierachy"])
+def test_compiled_stages_hand_over_before_stage_0_replays_again(weights,
+                                                                name, first):
+    """Stage 0 runs a microbatch ahead of stage 1 and its program
+    overwrites its output at every replay: the embedding must reach stage
+    1's static input, or stage 1's own tensor while stage 1 warms up,
+    before stage 0 replays for the next microbatch. Two rounds of
+    reconstruct, embed and decode, 4 microbatches of a ragged 7, equal the
+    unpipelined session's and JAX's in every call. With ``embed`` first,
+    the first reconstruct replays stage 0 while stage 1 warms up (a
+    server whose first request is an embed)."""
+    module, variables, path = weights[name]
+    n = SIZES[name]
+    ref = InferenceSession(name, path, n, batch_size=8, device="cpu")
+    pp = PipelinedSession(ref, devices=["cpu", "cpu"], num_microbatches=4)
+    assert pp.forward_path == "eager (the CPU runs eager)"
+    caches = pp._programs = (StandInCache(), StandInCache())
+    stand_in = types.SimpleNamespace(_model=module, _variables=variables,
+                                     batch_size=8, model_name=name)
+    jpp = JPipe(stand_in, devices=jax.devices()[:2], num_microbatches=4)
+    batch = _clouds(7, n, 2)
+    emb = ref.embed(batch)
+    calls = {"reconstruct": lambda: pp.reconstruct(batch),
+             "embed": lambda: pp.embed(batch),
+             "decode": lambda: pp.decode(emb)}
+    order = ([first] + [op for op in ("reconstruct", "embed", "decode")
+                        if op != first])
+    got = {op: [] for op in order}
+    for _ in range(2):
+        for op in order:
+            got[op].append(calls[op]())
+    # Stage 1 takes the same (mb, D) f32 input in reconstruct and decode.
+    assert [c.warm_ups for c in caches] == [4, 4]
+    assert [len(c.programs) for c in caches] == [1, 1]
+    for rec in got["reconstruct"]:
+        np.testing.assert_allclose(rec, ref.reconstruct(batch), **TOL)
+        np.testing.assert_allclose(rec, jpp.reconstruct(batch), **TOL)
+    for got_emb in got["embed"]:
+        np.testing.assert_allclose(got_emb, emb, **TOL)
+        np.testing.assert_allclose(got_emb, jpp.embed(batch), **TOL)
+    for dec in got["decode"]:
+        np.testing.assert_allclose(dec, ref.decode(emb), **TOL)
+        np.testing.assert_allclose(dec, jpp.decode(emb), **TOL)

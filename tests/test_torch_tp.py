@@ -5,7 +5,8 @@ test_tp_higher_degrees_match_single_device and
 test_tp_rejects_indivisible_degree, and of tests/test_master.py's
 test_bf16_params_composes_with_model_parallel (at 2 data x 2 model ranks,
 not 4 x 2), plus InferenceSession(model_parallel=...) against the session
-alone.
+alone, and which of its replicas capture their forwards (``plan_programs``,
+with a stand-in program cache and ``torch.device`` values only).
 
 Grids: 1 x 2, 2 x 2 and 1 x 4 (data x model) at N=64 (the upconv family
 emits 2048 points from 128), B=16 (8 for model_fc_upconv). The ranks
@@ -41,7 +42,10 @@ from pointnet_autoencoder_tpu.train.state import make_optimizer as jopt
 from pointnet_autoencoder_tpu_torch.config import TrainConfig
 from pointnet_autoencoder_tpu_torch.convert import from_flax_variables
 from pointnet_autoencoder_tpu_torch.data import synthetic
-from pointnet_autoencoder_tpu_torch.inference import InferenceSession
+from pointnet_autoencoder_tpu_torch.inference import (
+    InferenceSession,
+    plan_programs,
+)
 from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
 from pointnet_autoencoder_tpu_torch.parallel import mesh, tp
 
@@ -331,3 +335,31 @@ def test_bf16_params_composes_with_model_parallel(fixture_root, tmp_path):
     # The data group's ranks hold the same slices.
     for n, t in ranks[0]["state"].items():
         assert torch.equal(t, ranks[2]["state"][n]), n
+
+
+def test_a_split_replica_is_captured_only_on_one_card():
+    """A replica whose m devices are one card gets a program cache; one
+    over two cards runs eager and says why; the CPU and compiled=False run
+    eager."""
+    made = []
+
+    def cache(device):
+        made.append(device)
+        return ("cache", device)
+
+    c0, c1 = torch.device("cuda:0"), torch.device("cuda:1")
+    plans = plan_programs([c0, c0, c0, c1], 2, True, cache)
+    assert plans[0] == (("cache", c0), "captured CUDA graphs on cuda:0")
+    assert plans[1] == (None, "eager (a replica over cuda:0, cuda:1: one "
+                              "card cannot check a capture across cards)")
+    assert made == [c0]
+    assert [c for c, _ in plan_programs([c1, c1, c1, c1], 4, True,
+                                        cache)] == [("cache", c1)]
+    assert [c for c, _ in plan_programs([c0, c1], 1, True, cache)] == [
+        ("cache", c0), ("cache", c1)]
+    assert plan_programs([c0, c0], 2, False, cache) == [
+        (None, "eager (compiled=False: the eager reference)")]
+    cpu = torch.device("cpu")
+    assert plan_programs([cpu, cpu], 2, True, cache) == [
+        (None, "eager (the CPU runs eager)")]
+    assert len(made) == 4
