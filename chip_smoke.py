@@ -295,6 +295,26 @@ line each; any failure exits non-zero before the final line:
             ``ops.benchmarks --quick`` through its ``main``: K1 and K2 21
             launches, K6 6, nothing else, and each run's final loss equal
             to the same loop's run eagerly on the card.
+            The roofline (``utils/roofline.py``) of each family's bf16
+            step, ``model`` f32, both master steps and the served
+            reconstructs (B=32 f32 and bf16, B=1 f32): a ``StepCost`` of
+            one eager call on the card and of the same call on the CPU
+            (the Trainer's state moved there first; the head's argmax and
+            the EMD's outputs taken from the card's call, inside the
+            kernels' charges), equal op by op outside the parts the two
+            run differently by design (the optimizer's update; a served
+            call's copies between the host and the card), with the
+            difference printed, and ``roofline_report`` against the
+            graphed host median and against the trace's device busy
+            time: floor, memory bound, bound, pct_of_bound and mfu. Then
+            the encoder's training forward and backward at B=32, N=2048
+            with ``moment_stats`` True and False from the same weights:
+            in f32 features within rtol/atol 2e-3 and BN moving
+            statistics within rtol 1e-3, atol 1e-4 of each other (the JAX
+            package's tolerances), in bf16 both within the bf16 tolerance
+            (one flipped bf16 rounding of a folded BN scale moves a whole
+            channel by a bf16 step), and each one's device busy time per
+            call, the median of 10 traced calls.
 
 The f32 step checks of phases 6, 7 and 9 take the first step of a fresh
 Trainer, which is its warm-up and runs eagerly, so the choices that
@@ -323,11 +343,6 @@ NUM_POINT = 2048
 BATCH = 32
 SEED = 0
 EPS = 1e-3
-# Published peaks of one H100 SXM (dense): f32 outside the tensor cores,
-# bf16 on the tensor cores, and HBM bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
 ENCODER_WIDTHS = (3, 64, 64, 64, 128, 1024)
 # Tolerances of kernel against plain version, same inputs, same card.
 # f32: the kernel and cuBLAS sum the products in different orders.
@@ -369,19 +384,6 @@ TRAIN_EPOCHS = 2
 EMD_COST_TOL = 2e-3
 EMD_GRAD_TOL = 5e-3
 EMD_F64_FACTOR = 2.0
-EMD_LEVELS = 10
-# K6's bound counts the function's work once: per pair d2 (3 sub, 3 mul,
-# 2 add), sqrt, max and rsqrt; per pair and annealed level one exp2 on the
-# SFUs and 19 f32 operations (level * d2; the two products of pass A and
-# their sums, 4; w = (K * ratioL) * ratioR reusing pass A's product, 1;
-# its row sum; wr; the cost term, 2; three gradient terms of 3 each). The
-# last level has K = 1: no exp2, no level * d2 and no K products, 16.
-EMD_PAIR_OPS = 11
-EMD_LEVEL_OPS = 19
-EMD_LAST_LEVEL_OPS = 16
-# SFU rate of one H100 SXM: 16 results per SM per clock, 132 SMs at the
-# 1980 MHz boost clock.
-PEAK_SFU_PER_S = 16 * 132 * 1.98e9
 EMD_STEP_BATCH = 8
 # model_hierachy's first stage: 64 centers, held against the label by the
 # Chamfer kernels.
@@ -1602,13 +1604,8 @@ def phase_cli_test(torch, counters, fe, ch, data, best_path, tmp, rng):
     chain = session.model.encoder.fold()
     p1 = torch.from_numpy(clouds(rng, 1, NUM_POINT)).to("cuda")
     p2 = torch.from_numpy(clouds(rng, 1, NUM_POINT)).to("cuda")
-    macs = sum(c * f for c, f in zip(ENCODER_WIDTHS[:-1], ENCODER_WIDTHS[1:]))
-    k5_bound = bound(2.0 * NUM_POINT * macs, (
-        p1.numel() * 4 + sum(w.numel() * w.element_size()
-                             for w in chain.weights)
-        + chain.affine.numel() * 4 + 2 * 1024 * 4))
-    k1_bound = bound(10.0 * NUM_POINT * NUM_POINT,
-                     2 * NUM_POINT * 3 * 4 + 2 * NUM_POINT * 8)
+    k5_bound = bound("fused_encoder_eval", b=1, n=NUM_POINT, dtype="f32")
+    k1_bound = bound("nn_distance", b=1, n=NUM_POINT, m=NUM_POINT)
     for what, fn, b in (
             ("fused_encoder_eval f32", lambda: fe.encoder_extrema_cuda(
                 p1, chain), k5_bound),
@@ -2671,6 +2668,8 @@ def sp_kernel_times(torch, ch, fe, fh, rng):
     centers): the device time per call, median of 50 traced calls, beside
     each bound (bf16 for K3, K4 and K5, the training type), and K1's
     library yardstick."""
+    from pointnet_autoencoder_tpu_torch.utils import roofline
+
     dev = torch.device("cuda")
     n = NUM_POINT // SP_RANKS
     a = torch.from_numpy(clouds(rng, BATCH, n)).to(dev)
@@ -2683,7 +2682,7 @@ def sp_kernel_times(torch, ch, fe, fh, rng):
         lib, lib_counts = median_device_ms(
             torch, lambda o=other: cdist_yardstick(torch, a, o),
             repeats=True)
-        bd = bound(10.0 * BATCH * n * m, 20.0 * BATCH * (n + m))
+        bd = bound("nn_distance", b=BATCH, n=n, m=m)
         lines.append(f"K1 B={BATCH} N={n} M={m}: {ms:.5f} ms "
                      f"({_event_counts(counts)}), bound {bd['bound_ms']:.5f} "
                      f"({bd['bound_by']}); library (torch.cdist + two min) "
@@ -2693,32 +2692,22 @@ def sp_kernel_times(torch, ch, fe, fh, rng):
     f = w.shape[1]
     gvals = torch.from_numpy((1e-3 * rng.randn(BATCH, f)).astype(
         np.float32)).to(dev)
-    rows_x = int(torch.unique(arg.long() + n * torch.arange(
-        BATCH, device=dev)[:, None]).numel())
-    for what, fn, bd in (
+    rows_x = roofline.distinct_rows(arg, n)
+    for what, fn, bd, note in (
             ("K3 bf16", lambda: fh.head_max_cuda(x, w, scale, shift),
-             bound(2.0 * BATCH * n * 128 * f,
-                   x.numel() * 2 + w.numel() * 2 + 2 * f * 4
-                   + BATCH * f * 8, PEAK_BF16_FLOPS)),
+             bound("fused_head_fwd", b=BATCH, n=n, f=f, dtype="bf16"), ""),
             ("K4 bf16", lambda: fh.head_bwd_cuda(x, w, gvals, arg),
-             bound(4.0 * BATCH * f * 128,
-                   x.numel() * 2 + rows_x * 128 * 2 + w.numel() * 2
-                   + BATCH * f * 8 + 128 * f * 4, PEAK_BF16_FLOPS))):
+             bound("fused_head_bwd", b=BATCH, n=n, f=f, dtype="bf16",
+                   rows=rows_x), f"; {rows_x} argmax rows")):
         ms, counts = median_device_ms(torch, fn)
         lines.append(f"{what} B={BATCH} N={n}: {ms:.5f} ms "
                      f"({_event_counts(counts)}), bound {bd['bound_ms']:.5f} "
-                     f"({bd['bound_by']})")
+                     f"({bd['bound_by']}){note}")
     chain = fe.fold_layers(
         [tuple(torch.from_numpy(t).to(dev) for t in layer)
          for layer in random_layers(rng)], eps=EPS, dtype=torch.bfloat16)
     p16 = a.to(torch.bfloat16)
-    macs = sum(ci * co for ci, co in zip(ENCODER_WIDTHS[:-1],
-                                         ENCODER_WIDTHS[1:]))
-    bd = bound(2.0 * BATCH * n * macs,
-               p16.numel() * 2 + sum(t.numel() * t.element_size()
-                                     for t in chain.weights)
-               + chain.affine.numel() * 4 + 2 * BATCH * 1024 * 4,
-               PEAK_BF16_FLOPS)
+    bd = bound("fused_encoder_eval", b=BATCH, n=n, dtype="bf16")
     ms, counts = median_device_ms(torch, lambda: fe.encoder_extrema_cuda(
         p16, chain))
     lines.append(f"K5 bf16 B={BATCH} N={n}: {ms:.5f} ms "
@@ -3918,18 +3907,16 @@ def cuda_ms(torch, fn, reps=20, warmup=3) -> float:
 
 def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
                   launches, errs) -> list:
+    from pointnet_autoencoder_tpu_torch.utils import roofline
+
     dev = torch.device("cuda")
     pts = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to(dev)
     chain = session.model.encoder.fold()
     rows = []
 
-    # K5: operations 2*B*N*sum(C*F); bytes: points, weights and folded rows
-    # read once, the (B, 1024) max and min written once.
-    macs = sum(c * f for c, f in zip(ENCODER_WIDTHS[:-1], ENCODER_WIDTHS[1:]))
-    flops = 2.0 * BATCH * NUM_POINT * macs
-    nbytes = (pts.numel() * 4 + sum(w.numel() * w.element_size()
-                                    for w in chain.weights)
-              + chain.affine.numel() * 4 + 2 * BATCH * 1024 * 4)
+    # Each bound is utils/roofline.kernel_bound's: K5's operations
+    # 2*B*N*sum(C*F); its bytes the points, weights and folded rows read
+    # once, the (B, 1024) max and min written once.
     k_ms = cuda_ms(torch, lambda: fe.encoder_extrema_cuda(pts, chain))
     p_ms = cuda_ms(torch, lambda: fe.encoder_extrema_plain(pts, chain))
     rows.append(dict(
@@ -3938,7 +3925,8 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
         replaces="pointnet_autoencoder_tpu/ops/fused_encoder.py:61",
         launches=launches["fused_encoder_eval"],
         max_abs_err=errs["fused_encoder"], ms=k_ms, plain_ms=p_ms,
-        **bound(flops, nbytes), library_ms=None))
+        **bound("fused_encoder_eval", b=BATCH, n=NUM_POINT, dtype="f32"),
+        library_ms=None))
     bf16_chain = fe.fold_layers(
         [tuple(torch.from_numpy(x).to(dev) for x in layer)
          for layer in random_layers(rng)], eps=EPS, dtype=torch.bfloat16)
@@ -3950,8 +3938,7 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
         dev_ms, counts = median_device_ms(
             torch, lambda p5=p5, c5=c5: fe.encoder_extrema_cuda(p5, c5))
         bf16 = name == "bf16"
-        b5 = bound(flops, nbytes - (pts.numel() * 2 if bf16 else 0),
-                   PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+        b5 = bound("fused_encoder_eval", b=BATCH, n=NUM_POINT, dtype=name)
         say("timings", f"fused_encoder_eval {name} B={BATCH} N={NUM_POINT}: "
             + (f"{kb_ms:.4f} ms by CUDA events (tensor cores); " if bf16
                else "")
@@ -3965,8 +3952,6 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
     # written once.
     x1 = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to(dev)
     x2 = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to(dev)
-    flops = 10.0 * BATCH * NUM_POINT * NUM_POINT
-    nbytes = 2 * BATCH * NUM_POINT * 3 * 4 + 2 * BATCH * NUM_POINT * 8
     k_ms = cuda_ms(torch, lambda: ch.nn_distance_cuda(x1, x2))
     p_ms = cuda_ms(torch, lambda: ch.nn_distance_plain(x1, x2))
 
@@ -3988,7 +3973,9 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
         source="pointnet_autoencoder_tpu_torch/csrc/chamfer.cu",
         replaces="pointnet_autoencoder_tpu/ops/chamfer.py:92",
         launches=launches["nn_distance"], max_abs_err=errs["nn_distance"],
-        ms=k_ms, plain_ms=p_ms, **bound(flops, nbytes), library_ms=l_ms))
+        ms=k_ms, plain_ms=p_ms,
+        **bound("nn_distance", b=BATCH, n=NUM_POINT, m=NUM_POINT),
+        library_ms=l_ms))
 
     # K3 and K4 at the training path's shapes, in its default type (bf16)
     # for the JSON rows, and in f32 for the record. K3: operations
@@ -3999,9 +3986,7 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
     head = {}
     for dtype_name in ("f32", "bf16"):
         dtype = torch.float32 if dtype_name == "f32" else torch.bfloat16
-        peak = PEAK_F32_FLOPS if dtype_name == "f32" else PEAK_BF16_FLOPS
         x, w, scale, shift = head_inputs(torch, rng, BATCH, NUM_POINT, dtype)
-        es = x.element_size()
         b, n, c = x.shape
         f = w.shape[1]
         _, arg = fh.head_max_cuda(x, w, scale, shift)
@@ -4013,18 +3998,14 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
             ms=cuda_ms(torch, lambda: fh.head_max_cuda(x, w, scale, shift)),
             plain_ms=cuda_ms(torch, lambda: fh.head_max_plain(
                 x, w, scale, shift)),
-            **bound(2.0 * b * n * c * f,
-                    x.numel() * es + w.numel() * es + 2 * f * 4 + b * f * 8,
-                    peak))
-        rows_x = int(torch.unique(arg.long() + n * torch.arange(
-            b, device=dev)[:, None]).numel())
+            **bound("fused_head_fwd", b=b, n=n, c=c, f=f, dtype=dtype_name))
+        rows_x = roofline.distinct_rows(arg, n)
         bwd = dict(
             ms=cuda_ms(torch, lambda: fh.head_bwd_cuda(x, w, gvals, arg)),
             plain_ms=cuda_ms(torch, lambda: fh.head_bwd_plain(
                 x, w, gvals, arg)),
-            **bound(4.0 * b * f * c,
-                    x.numel() * es + rows_x * c * es + w.numel() * es
-                    + b * f * 8 + c * f * 4, peak))
+            **bound("fused_head_bwd", b=b, n=n, c=c, f=f, dtype=dtype_name,
+                    rows=rows_x))
         bwd_dev, bwd_counts = median_device_ms(
             torch, lambda: fh.head_bwd_cuda(x, w, gvals, arg))
         # K4 writes dx once in the matmul type: its trace holds its own
@@ -4092,31 +4073,28 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
             # K2 writes every output once: no memset before it.
             require(bool(counts) and not any("Memset" in n for n in counts),
                     f"K2's trace holds a memset or nothing: {sorted(counts)}")
-    pts = 2 * BATCH * NUM_POINT
     rows.append(dict(
         name="nn_distance_grad", route="cuda",
         source="pointnet_autoencoder_tpu_torch/csrc/chamfer.cu",
         replaces="pointnet_autoencoder_tpu/ops/chamfer.py:229",
         launches=launches["nn_distance_grad"],
         max_abs_err=errs["nn_distance_grad"], ms=k_ms, plain_ms=p_ms,
-        **bound(13.0 * pts, 32.0 * pts), library_ms=l_ms))
+        **bound("nn_distance_grad", b=BATCH, n=NUM_POINT, m=NUM_POINT),
+        library_ms=l_ms))
 
     # K6 at the training path's shapes (xyz1 the label, xyz2 the
-    # prediction). Bound: operations, counted once for the function (see
-    # EMD_PAIR_OPS): the larger of the f32 operations over the f32 peak and
-    # the exp2, sqrt and rsqrt over the SFU rate; its bytes are both clouds
-    # read once and cost and gradients written once. No single PyTorch
-    # call computes the function.
+    # prediction). Bound: operations, counted once for the function
+    # (utils/roofline.py): the larger of the f32 operations over the f32
+    # peak and the exp2, sqrt and rsqrt over the SFU rate; its bytes are
+    # both clouds read once and cost and gradients written once. No single
+    # PyTorch call computes the function.
     x1 = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to(dev)
     x2 = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to(dev)
     pairs = float(BATCH * NUM_POINT * NUM_POINT)
-    flops = (EMD_PAIR_OPS + (EMD_LEVELS - 1) * EMD_LEVEL_OPS
-             + EMD_LAST_LEVEL_OPS) * pairs
-    k6 = bound(flops, BATCH * (4 + 2 * 2 * NUM_POINT * 3 * 4))
-    sfu = (EMD_LEVELS - 1 + 2) * pairs  # exp2 per annealed level, sqrt, rsqrt
-    sfu_ms = sfu / PEAK_SFU_PER_S * 1e3
-    if sfu_ms > k6["bound_ms"]:
-        k6 = {"bound_ms": sfu_ms, "bound_by": "operations"}
+    k6 = bound("emd_forward", b=BATCH, n=NUM_POINT, m=NUM_POINT)
+    flops = roofline.emd_ops(BATCH, NUM_POINT, NUM_POINT)
+    sfu = roofline.EMD_SFU_PER_PAIR * pairs
+    sfu_ms = sfu / roofline.PEAK_SFU_PER_S * 1e3
     rows.append(dict(
         name="emd_forward", route="cuda",
         source="pointnet_autoencoder_tpu_torch/csrc/emd.cu",
@@ -4126,9 +4104,10 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
         plain_ms=cuda_ms(torch, lambda: em.emd_forward_plain(x1, x2),
                          reps=5, warmup=1),
         **k6, library_ms=None))
-    say("timings", f"emd_forward bound: {EMD_LEVELS * pairs:.4g} "
+    say("timings", f"emd_forward bound: {roofline.EMD_LEVELS * pairs:.4g} "
         f"pair-levels, {flops:.4g} f32 operations "
-        f"({flops / PEAK_F32_FLOPS * 1e3:.4f} ms), {sfu:.4g} SFU results "
+        f"({flops / roofline.PEAK_F32_FLOPS * 1e3:.4f} ms), {sfu:.4g} SFU "
+        f"results "
         f"({sfu_ms:.4f} ms)")
 
     # One served batch: host time of reconstruct, then one torch.profiler
@@ -4173,12 +4152,13 @@ def phase_timings(torch, fe, ch, fh, em, session, trainer, emd_trainer, rng,
     _, j1, _, j2 = ch.nn_distance_cuda(c1, c2)
     h1, h2 = (torch.from_numpy(hier.randn(BATCH, n).astype(np.float32)).to(
         dev) for n in (HIER_CENTERS, NUM_POINT))
-    both = BATCH * (HIER_CENTERS + NUM_POINT)  # points of both clouds
     for what, fn, b in (
             ("nn_distance", lambda: ch.nn_distance_cuda(c1, c2),
-             bound(10.0 * BATCH * HIER_CENTERS * NUM_POINT, 20.0 * both)),
+             bound("nn_distance", b=BATCH, n=HIER_CENTERS, m=NUM_POINT)),
             ("nn_distance_grad", lambda: ch.nn_distance_grad_cuda(
-                c1, c2, j1, j2, h1, h2), bound(13.0 * both, 32.0 * both))):
+                c1, c2, j1, j2, h1, h2), bound(
+                    "nn_distance_grad", b=BATCH, n=HIER_CENTERS,
+                    m=NUM_POINT))):
         dev_ms, counts = median_device_ms(torch, fn)
         say("timings", f"{what} B={BATCH} N={HIER_CENTERS} M={NUM_POINT} "
             f"(model_hierachy's centers): device time per call, median of "
@@ -4369,11 +4349,13 @@ def _event_counts(counts: dict) -> str:
     return ", ".join(sorted(f"{_short(n)} x{c}" for n, c in counts.items()))
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> dict:
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+def bound(kernel: str, **shape) -> dict:
+    """{"bound_ms", "bound_by"} of one call of ``kernel`` at ``shape``
+    (utils/roofline.kernel_bound), as the kernels line carries them."""
+    from pointnet_autoencoder_tpu_torch.utils import roofline
+
+    kb = roofline.kernel_bound(kernel, **shape)
+    return {"bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4580,7 +4562,7 @@ def _compiled_run(torch, counters, tr, epochs=1):
 
 
 def compiled_training(torch, counters, data, tmp, name, bf16, input_mode,
-                      x, master=None):
+                      x, master=None, count=False):
     """A captured Trainer (the default) beside an eager one
     (``compiled=False``) from the same seed: one train epoch (device
     input: log_every 3, so chunks of 3, 3, 3 and 1 steps; the first chunk
@@ -4592,8 +4574,10 @@ def compiled_training(torch, counters, data, tmp, name, bf16, input_mode,
     and the graphed Trainer holding its train programs of 3 steps and of
     1. Then each one's step on ``x`` timed and traced, and with device
     input (one master case: ``MASTER_EPOCH_TRACED``) an epoch of each
-    traced, the graphed one in one graph launch a chunk. Returns the
-    report line and the timings."""
+    traced, the graphed one in one graph launch a chunk. ``count``: then
+    a ``StepCost`` of one more eager step on the card and of the same
+    step on the CPU (``step_costs``). Returns the report line, the
+    timings and the two costs (None without ``count``)."""
     from pointnet_autoencoder_tpu_torch.parallel.sp import cudnn_deterministic
     from pointnet_autoencoder_tpu_torch.train import master as master_mod
     from pointnet_autoencoder_tpu_torch.train.loop import Trainer
@@ -4761,7 +4745,13 @@ def compiled_training(torch, counters, data, tmp, name, bf16, input_mode,
                      f"{_overhead_str(e_epoch, steps)}; the port's kernels "
                      f"in each epoch's trace {g_epoch['own']}, as the "
                      f"counters count it")
-        return line, timing
+        costs = None
+        if count:
+            cfg = _compiled_config(
+                data, os.path.join(tmp, f"cost_{name}_{bf16}_{master}"),
+                name, bf16, "host", **flags)
+            costs = step_costs(torch, trainers[False], x, cfg, context)
+        return line, timing, costs
     finally:
         for tr in trainers.values():
             tr.close()
@@ -4831,13 +4821,15 @@ SERVING_OP_KERNELS = {"reconstruct": "fused_encoder_eval",
 
 
 def compiled_serving(torch, counters, weights, rng, batch, bf16,
-                     model_parallel=1):
+                     model_parallel=1, count=False):
     """A captured session beside an eager one: reconstruct, embed,
     decode, chamfer and fscore at ``batch``, each called twice on each (on
     the captured one a warm-up, then a replay), all bit-equal, with the
     same launches; a served reconstruct timed and traced both ways.
     ``model_parallel`` 2: a TP-split session whose two devices are
-    cuda:0, captured whole."""
+    cuda:0, captured whole. ``count``: a ``StepCost`` of one eager
+    reconstruct on the card and of the same call of a session on the
+    CPU. Returns the report line, the timings and the costs (or None)."""
     from pointnet_autoencoder_tpu_torch.inference import InferenceSession
 
     m = model_parallel
@@ -4893,6 +4885,20 @@ def compiled_serving(torch, counters, weights, rng, batch, bf16,
                 f"compiled.serve.{batch}", min_events=least))
         require(timing[True][1]["graph_launches"] == 1,
                 f"serving {tag}: host operations {timing[True][1]['host']}")
+        costs = None
+        if count:
+            from pointnet_autoencoder_tpu_torch.utils import roofline
+
+            cpu = InferenceSession("model", weights, NUM_POINT,
+                                   batch_size=batch, bf16=bf16, device="cpu",
+                                   compiled=False)
+            costs = []
+            for s in (sessions[False], cpu):
+                t0 = time.perf_counter()
+                with roofline.StepCost() as cost:
+                    s.reconstruct(x)
+                costs.append(cost)
+            costs.append(time.perf_counter() - t0)
         return (f"serving {tag}: reconstruct, embed, decode, chamfer and "
                 f"fscore graphed (a warm-up, then a replay) bit-equal to "
                 f"eager, the same launches (two calls each: {seen}); "
@@ -4900,7 +4906,7 @@ def compiled_serving(torch, counters, weights, rng, batch, bf16,
                 f" graphed {timing[True][0]:.3f} ms, "
                 f"{_overhead_str(timing[True][1])}; eager "
                 f"{timing[False][0]:.3f} ms, "
-                f"{_overhead_str(timing[False][1])}"), timing
+                f"{_overhead_str(timing[False][1])}"), timing, costs
     finally:
         for s in sessions.values():
             s.close()
@@ -5056,6 +5062,266 @@ def compiled_pipeline(torch, counters, weights, rng):
         ref.close()
 
 
+@contextlib.contextmanager
+def shared_kernel_outputs(store: dict, replay: bool):
+    """Within the block, the head's argmax and the EMD's outputs (cost,
+    grad1, grad2) are recorded from the card's kernel calls into
+    ``store``; with ``replay`` the CPU's plain versions hand back the
+    card's, in call order (the EMD's without computing its dense form,
+    tens of seconds of host time at B=32, N=2048). Both are inside their
+    kernels' charges, so a StepCost counts neither's work; the argmax sets
+    K4's charge, its distinct rows, which a near-tie the CPU decided the
+    other way would move."""
+    from pointnet_autoencoder_tpu_torch.ops import emd as em
+    from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
+
+    head_name = "head_max_plain" if replay else "head_max_cuda"
+    emd_name = "emd_forward_plain" if replay else "emd_forward_cuda"
+    head_fn, emd_fn = getattr(fh, head_name), getattr(em, emd_name)
+    if not replay:
+        store.update(argmax=[], emd=[])
+    taken = {"argmax": 0, "emd": 0}
+
+    def take(key):
+        out = store[key][taken[key]]
+        taken[key] += 1
+        return out
+
+    def head(x, w, scale, shift):
+        maxout, argmax = head_fn(x, w, scale, shift)
+        if replay:
+            return maxout, take("argmax")
+        store["argmax"].append(argmax.cpu())
+        return maxout, argmax
+
+    def emd(x1, x2):
+        if replay:
+            return take("emd")
+        out = emd_fn(x1, x2)
+        store["emd"].append(tuple(t.cpu() for t in out))
+        return out
+
+    # A kernel wrapper counts its launches on the function its module's
+    # name holds: the stand-in carries the count meanwhile.
+    patched = ((fh, head_name, head_fn, head), (em, emd_name, emd_fn, emd))
+    for mod, name, fn, stand_in in patched:
+        stand_in.launches = getattr(fn, "launches", 0)
+        setattr(mod, name, stand_in)
+    try:
+        yield
+    finally:
+        for mod, name, fn, stand_in in patched:
+            setattr(mod, name, fn)
+            if hasattr(fn, "launches"):
+                fn.launches = stand_in.launches
+
+
+def step_costs(torch, tr, x, cpu_config, context):
+    """A ``utils/roofline.StepCost`` of one step of the eager card Trainer
+    ``tr`` on ``x``, and of the same step on a CPU Trainer of
+    ``cpu_config`` given ``tr``'s state from before it (weights, BN
+    statistics, optimizer slots and step), the card's argmax and EMD
+    outputs replayed (``shared_kernel_outputs``). Returns (card, cpu,
+    the CPU step's seconds)."""
+    from pointnet_autoencoder_tpu_torch.train import checkpoint
+    from pointnet_autoencoder_tpu_torch.train.loop import Trainer
+    from pointnet_autoencoder_tpu_torch.utils import roofline
+
+    require(tr._programs is None, "step_costs counts an eager Trainer")
+    before = checkpoint.to_host(tr.state.state_dict())
+    store = {}
+    with context(), shared_kernel_outputs(store, replay=False):
+        with roofline.StepCost() as card:
+            tr.train_step(x)
+    torch.cuda.synchronize()
+    cpu = Trainer(cpu_config, device="cpu")
+    try:
+        cpu.state.load_state_dict(before)
+        x_host = x.cpu()
+        t0 = time.perf_counter()
+        with shared_kernel_outputs(store, replay=True):
+            with roofline.StepCost() as host:
+                cpu.train_step(x_host)
+        seconds = time.perf_counter() - t0
+    finally:
+        cpu.close()
+    return card, host, seconds
+
+
+def cost_gap(card, cpu) -> str:
+    """Holds the card's StepCost to the CPU's for the same call: every op
+    of the model part, every kernel's charge and the matmul flops equal.
+    Returns the difference of the parts the two run differently by design
+    (the optimizer's update, the copies between host and card), which is
+    the whole difference, with the ops in it that differ."""
+    def part(cost, name):
+        return {op: v for (p, op), v in cost.ops.items() if p == name}
+
+    require(part(card, "model") == part(cpu, "model")
+            and card.kernels == cpu.kernels
+            and card.matmul_flops == cpu.matmul_flops,
+            f"StepCost card vs CPU outside the update: model part "
+            f"{card.part('model')} vs {cpu.part('model')}, kernels "
+            f"{card.kernels} vs {cpu.kernels}, matmul flops "
+            f"{card.matmul_flops} vs {cpu.matmul_flops}")
+    parts = sorted(({p for p, _ in card.ops} | {p for p, _ in cpu.ops})
+                   - {"model"})
+    gap = card.bytes - cpu.bytes
+    by_design = sum(card.part(p)["bytes"] - cpu.part(p)["bytes"]
+                    for p in parts)
+    require(gap == by_design, f"StepCost card - CPU {gap} B, the update "
+            f"and transfers {by_design} B")
+    ops = []
+    for p in parts:
+        a, b = part(card, p), part(cpu, p)
+        for op in sorted(set(a) | set(b)):
+            ca, cb = a.get(op, [0, 0.0, 0.0]), b.get(op, [0, 0.0, 0.0])
+            if ca != cb:
+                ops.append(f"{op.replace('aten.', '')} {ca[0]}x {ca[1]:.0f} "
+                           f"B / {cb[0]}x {cb[1]:.0f} B")
+    return (f"card {card.bytes:.0f} B, CPU {cpu.bytes:.0f} B: equal op by op "
+            f"in the model part ({card.part('model')['calls']:.0f} ops, "
+            f"{card.part('model')['bytes']:.0f} B), in the {len(card.kernels)}"
+            f" kernels' charges and the matmul flops; the difference "
+            f"{gap:.0f} B is exactly the {' and '.join(parts)} part's "
+            f"(card / CPU: {'; '.join(ops)})")
+
+
+def roofline_line(torch, tag, config, dtype, batch, timing, costs,
+                  serving=False) -> str:
+    """``roofline_report`` of the card's StepCost against the graphed host
+    median and against the traced device busy time, and ``cost_gap``;
+    also printed as one JSON line."""
+    from pointnet_autoencoder_tpu_torch.utils import roofline
+
+    card, cpu, cpu_s = costs
+    host_ms, trace = timing[True][0], timing[True][1]
+    reports = {what: roofline.roofline_report(
+        config, batch, NUM_POINT, ms, cost=card, dtype=dtype,
+        serving=serving) for what, ms in (("host", host_ms),
+                                          ("busy", trace["busy_ms"]))}
+    gap = cost_gap(card, cpu)
+    say("compiled", "roofline json " + json.dumps(
+        {"case": tag, "reports": reports, "card": card.summary(),
+         "cpu": cpu.summary(), "cpu_seconds": cpu_s}))
+    r = reports["host"]
+    terms = ", ".join(f"{k[:-3]} {v:.5f}" for k, v in r.items()
+                      if k.endswith("_ms") and k not in (
+                          "measured_ms", "analytic_floor_ms", "mem_bound_ms",
+                          "bound_ms", "composed_bound_ms"))
+    return (f"roofline {tag}: floor {r['analytic_floor_ms']:.5f} ms "
+            f"({terms}); memory bound {r['mem_bound_ms']:.4f} ms "
+            f"({r['hbm_bytes_GB']:.4f} GB, {r['program_flops_G']:.2f} "
+            f"GFLOP counted); bound {r['bound_ms']:.4f} ms"
+            + (" (composed: floor + memory bound)"
+               if "composed_bound_ms" in r else " (the memory bound)")
+            + "; " + "; ".join(
+                f"against the {what} {rep['measured_ms']:.4f} ms: "
+                f"pct_of_bound {rep['pct_of_bound']:.1f}%, pct_of_roofline "
+                f"{rep['pct_of_roofline']:.2f}%, mfu {rep['mfu']:.5f}"
+                for what, rep in (("graphed host median", reports["host"]),
+                                  ("device busy", reports["busy"])))
+            + f" (H100 roofline at {nvidia_smi_line()}); StepCost {gap}; "
+            f"the CPU's step took {cpu_s:.1f} s")
+
+
+def median_busy_ms(torch, fn, label, reps=10) -> float:
+    """The median over ``reps`` traced calls of ``fn()`` (each followed by
+    a synchronize) of the device's busy time inside each call's host
+    span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            with record_function(label):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    spans = [e.time_range for e in events
+             if e.name == label and e.device_type == DeviceType.CPU]
+    require(len(spans) == reps, f"trace holds {len(spans)} calls")
+    device = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == DeviceType.CUDA and e.name != label
+                    and not getattr(e, "is_user_annotation", False))
+    busy = []
+    for span in spans:
+        total, end = 0.0, span.start
+        for a, b in device:
+            a, b = max(a, span.start), min(b, span.end)
+            if b > max(a, end):
+                total += b - max(a, end)
+                end = b
+        busy.append(total / 1e3)
+    require(all(b > 0 for b in busy), f"a traced call shows no device "
+            f"time: {busy}")
+    return statistics.median(busy)
+
+
+def compiled_moment_stats(torch, rng):
+    """The encoder's training forward and backward at B=32, N=2048 with
+    ``moment_stats`` True and False from the same weights, in f32 and in
+    bf16: in f32 the features and the new BN moving statistics held at
+    the JAX package's tolerances (tests/test_fused_encoder.py:217-226:
+    features rtol/atol 2e-3, statistics rtol 1e-3, atol 1e-4); in bf16 at
+    the bf16 tolerance (``TOL["bf16"]``), since one flipped bf16 rounding
+    of a channel's folded BN scale moves that channel by a bf16 step
+    (2^-8, twice JAX's rtol) in every later layer: the count of features
+    outside JAX's tolerance is printed. Each one's device busy time per
+    call, the median of 10 traced calls. Returns the report line."""
+    from pointnet_autoencoder_tpu_torch.nn.encoder import PointNetEncoder
+
+    dev = torch.device("cuda")
+    pts = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to(dev)
+    cot = torch.from_numpy(rng.randn(BATCH, 1024).astype(np.float32)).to(
+        dev)
+
+    def call(enc):
+        out = enc(pts, train=True, bn_momentum=0.5)
+        (out.float() * cot).sum().backward()
+        return out
+
+    parts = []
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        encoders = {m: PointNetEncoder(
+            dtype=dtype, generator=torch.Generator().manual_seed(SEED),
+            moment_stats=m).to(dev) for m in (True, False)}
+        feats, stats = {}, {}
+        for m, enc in encoders.items():
+            feats[m] = call(enc).detach().float().cpu().numpy()
+            stats[m] = {n: b.cpu().numpy() for n, b in enc.named_buffers()}
+        feat_tol, stat_tol = (((2e-3, 2e-3), (1e-3, 1e-4)) if name == "f32"
+                              else (TOL["bf16"], TOL["bf16"]))
+        feat_err = max_err(feats[True], feats[False])
+        outside = int(np.sum(np.abs(feats[True] - feats[False])
+                             > 2e-3 + 2e-3 * np.abs(feats[False])))
+        require(close(feats[True], feats[False], *feat_tol),
+                f"moment_stats {name} features: max abs err {feat_err:.3e} "
+                f"over (rtol, atol) {feat_tol}")
+        stat_err = max(max_err(stats[True][n], stats[False][n])
+                       for n in stats[False])
+        require(all(close(stats[True][n], stats[False][n], *stat_tol)
+                    for n in stats[False]),
+                f"moment_stats {name} BN moving statistics: max abs err "
+                f"{stat_err:.3e} over (rtol, atol) {stat_tol}")
+        busy = {m: median_busy_ms(torch, lambda e=enc: call(e),
+                                  f"compiled.moment_stats.{name}.{m}")
+                for m, enc in encoders.items()}
+        parts.append(
+            f"{name}: features max abs err {feat_err:.3e} ((rtol, atol) "
+            f"{feat_tol}; {outside} of {feats[False].size} outside JAX's "
+            f"2e-3), BN moving statistics {stat_err:.3e} ({stat_tol}); "
+            f"device busy per call, median of 10 traced calls: "
+            f"moment_stats {busy[True]:.4f} ms, direct {busy[False]:.4f} ms")
+    return (f"encoder training forward and backward, B={BATCH} "
+            f"N={NUM_POINT}, moment_stats against direct statistics "
+            f"({nvidia_smi_line()}): " + "; ".join(parts))
+
+
 def phase_compiled(torch, counters, data, weights, tmp, rng):
     """The captured steps and forwards. See the module docstring, phase
     22."""
@@ -5072,24 +5338,45 @@ def phase_compiled(torch, counters, data, weights, tmp, rng):
     x = torch.from_numpy(clouds(rng, BATCH, NUM_POINT)).to("cuda")
     cases = [(name, True, "device") for name in ALL_FAMILIES]
     cases += [("model", False, "device"), ("model", True, "host")]
+    roofs = []
     for name, bf16, mode in cases:
         t0 = time.perf_counter()
-        case(compiled_training(torch, counters, data, tmp, name, bf16, mode,
-                               x)[0], t0)
+        line, timing, costs = compiled_training(
+            torch, counters, data, tmp, name, bf16, mode, x,
+            count=mode == "device")
+        case(line, t0)
+        if costs is not None:
+            dtype = "bf16" if bf16 else "f32"
+            roofs.append((f"{name} {dtype} step", name, dtype, BATCH,
+                          timing, costs, False))
     t0 = time.perf_counter()
     case(compiled_resume(torch, data, tmp, x), t0)
     for tag in COMPILED_MASTERS:
         t0 = time.perf_counter()
-        case(compiled_training(torch, counters, data, tmp, "model", True,
-                               "device", x, master=tag)[0], t0)
+        line, timing, costs = compiled_training(
+            torch, counters, data, tmp, "model", True, "device", x,
+            master=tag, count=True)
+        case(line, t0)
+        roofs.append((f"model bf16 {tag} step", "model", "bf16", BATCH,
+                      timing, costs, False))
         t0 = time.perf_counter()
         case(compiled_master_resume(torch, data, tmp, tag), t0)
     for batch, bf16, m in ((BATCH, False, 1), (1, False, 1),
                            (BATCH, True, 1), (BATCH, False, 2),
                            (1, False, 2)):
         t0 = time.perf_counter()
-        case(compiled_serving(torch, counters, weights, rng, batch, bf16,
-                              model_parallel=m)[0], t0)
+        line, timing, costs = compiled_serving(
+            torch, counters, weights, rng, batch, bf16, model_parallel=m,
+            count=m == 1)
+        case(line, t0)
+        if costs is not None:
+            dtype = "bf16" if bf16 else "f32"
+            roofs.append((f"served reconstruct B={batch} {dtype}", "model",
+                          dtype, batch, timing, costs, True))
+    t0 = time.perf_counter()
+    for roof in roofs:
+        say("compiled", roofline_line(torch, *roof) + " ok")
+    case(f"{len(roofs)} roofline reports", t0)
     t0 = time.perf_counter()
     case(compiled_pipeline(torch, counters, weights, rng), t0)
     # The runs main makes, kept to run each again eagerly.
@@ -5132,6 +5419,9 @@ def phase_compiled(torch, counters, data, weights, tmp, rng):
         "program): " + " | ".join(out.getvalue().strip().splitlines())
         + f"; launches {got}; final losses equal to the same loops run "
         f"eagerly on the card: {'; '.join(finals)} ok")
+    t0 = time.perf_counter()
+    case(compiled_moment_stats(torch, np.random.RandomState(SEED + 101)),
+         t0)
     say("compiled", f"phase took {time.perf_counter() - t_phase:.1f} s")
 
 

@@ -8,7 +8,8 @@ variable tree or from its reference-named array archive.
   port's (out, in); ConvTranspose kernels (kh, kw, cin, cout) are flipped
   in both spatial axes and permuted to torch's (cin, cout, kh, kw), since
   flax correlates the un-flipped kernel over the dilated input where
-  ``F.conv_transpose2d`` (like TF's conv2d_transpose) scatters it; BN
+  ``F.conv_transpose2d`` (like TF's conv2d_transpose) scatters it; N-D
+  ``Conv`` kernels (*k, cin, cout) are permuted to (cout, cin, *k); BN
   ``gamma``/``beta`` come from params and ``mean``/``var`` from
   batch_stats. Leaves of a ``--bf16_params`` run (the ``ml_dtypes``
   bfloat16 arrays ``np.asarray`` gives) are upcast to f32 exactly, or
@@ -101,6 +102,13 @@ def from_flax_variables(tree: Mapping, keep_bf16: bool = False
                                  f"ConvTranspose kernel, got {arr.shape}")
             out[".".join(mods + ["weight"])] = put(
                 arr[::-1, ::-1].transpose(2, 3, 0, 1))
+        elif collection == "params" and leaf == "kernel" and mods[-1] == "conv":
+            if not 3 <= arr.ndim <= 5:
+                raise ValueError(f"{'/'.join(path)}: expected a 1-3-D conv "
+                                 f"kernel (*k, cin, cout), got {arr.shape}")
+            # (*k, cin, cout) -> (cout, cin, *k): both correlate.
+            out[".".join(mods + ["weight"])] = put(arr.transpose(
+                (arr.ndim - 1, arr.ndim - 2) + tuple(range(arr.ndim - 2))))
         elif leaf in ("bias", "gamma", "beta", "mean", "var"):
             out[".".join(path)] = put(arr)
         else:

@@ -8,8 +8,10 @@ points.
   N: the CUDA kernel masks the ragged last tile itself, so the reference's
   tile-divisibility gate does not apply here.
 - Training runs conv1..conv4 as ``PointMLP`` with direct batch statistics
-  (the reference's default, ``moment_stats=False``) and conv5 as the fused
-  head the TPU takes (``FusedPointMLPMax`` with ``impl == "pallas"``):
+  (the reference's default, ``moment_stats=False``), or with
+  ``moment_stats=True`` as ``MomentStatsPointMLP`` (the statistics from the
+  layer input's moments, ``head_stats``), and conv5 as the fused head the
+  TPU takes (``FusedPointMLPMax`` with ``impl == "pallas"``):
   ``head_stats``, the BN moving update, then ``fused_dense_bn_relu_max``.
 - Under point parallelism (``point_group``, set by
   ``PointAutoencoder.set_point_group``) the points are this rank's share:
@@ -24,6 +26,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from pointnet_autoencoder_tpu_torch.nn.layers import PointMLP
 from pointnet_autoencoder_tpu_torch.ops import fused_encoder, fused_head
@@ -32,24 +35,53 @@ from pointnet_autoencoder_tpu_torch.parallel import sp
 Tensor = torch.Tensor
 
 
+class MomentStatsPointMLP(PointMLP):
+    """Dense + BN + ReLU whose training batch statistics come from the
+    moments of the layer INPUT (``fused_head.head_stats``: one (C, P) @
+    (P, C) product and O(C·F)) instead of two reductions of the (P, F)
+    activation; the same parameters, moving update and affine arithmetic
+    as ``PointMLP``, and the same eval. The statistics' gradient terms come
+    from ``head_stats``' autograd. ``bn.group`` averages the moments over
+    the ranks (data or point parallel), so the statistics stay the global
+    batch's."""
+
+    def forward(self, x: Tensor, train: bool = False,
+                bn_momentum: float = 0.9) -> Tensor:
+        if not train:
+            return super().forward(x, train, bn_momentum)
+        d = self.dense
+        mean, var = fused_head.head_stats(
+            x.to(d.dtype), d.weight.t().to(d.dtype), d.bias.to(d.dtype),
+            group=self.bn.group)
+        self.bn.update(mean.detach(), var.detach(), bn_momentum)
+        return F.relu(self.bn.normalize(d(x), mean, var))
+
+
 class PointNetEncoder(nn.Module):
     """conv1..conv5 as ``PointMLP`` parameter holders (names
     ``conv{i}.dense.{weight,bias}``, ``conv{i}.bn.{gamma,beta,mean,var}``),
     applied through the fused eval op, or in training layer by layer with
-    the fused conv5 head."""
+    the fused conv5 head. ``moment_stats``: conv1..conv4 take their
+    training statistics from input moments (``MomentStatsPointMLP``); off
+    by default, as in the JAX package, where the model builds the encoder
+    without it."""
 
     WIDTHS = (64, 64, 64, 128, 1024)
 
     def __init__(self, dtype: torch.dtype = torch.float32,
                  device: Optional[torch.device] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 moment_stats: bool = False):
         super().__init__()
         self.dtype = dtype
         # A parallel.mesh.DataGroup whose ranks split the points, or None.
         self.point_group = None
         c = 3
         for i, f in enumerate(self.WIDTHS):
-            self.add_module(f"conv{i + 1}", PointMLP(
+            mlp = (MomentStatsPointMLP
+                   if moment_stats and i < len(self.WIDTHS) - 1
+                   else PointMLP)
+            self.add_module(f"conv{i + 1}", mlp(
                 c, f, dtype=dtype, device=device, generator=generator))
             c = f
 

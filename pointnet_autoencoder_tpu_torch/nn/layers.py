@@ -1,13 +1,15 @@
 """Layer library: Dense, BatchNorm, PointMLP, FC and UpConv, train and
-eval.
+eval; and the rest of the reference's layer surface, which no shipped
+model uses: N-D ``Conv``, ``max_pool``, ``avg_pool`` and ``Dropout``.
 
 Counterpart of ``pointnet_autoencoder_tpu/nn/layers.py``. Parameter names
 follow the reference's flax tree, so weights carry across by name:
 ``<layer>.dense.{weight,bias}`` (``<layer>.convt.{weight,bias}`` for
-UpConv) and ``<layer>.bn.{gamma,beta}`` parameters, ``<layer>.bn.{mean,var}``
-buffers. Dense weights are stored (out, in) and transposed-conv weights
-(cin, cout, kh, kw), the PyTorch habits; ``convert.py`` moves the
-reference's kernels into them.
+UpConv, ``<layer>.conv.{weight,bias}`` for Conv) and
+``<layer>.bn.{gamma,beta}`` parameters, ``<layer>.bn.{mean,var}``
+buffers. Dense weights are stored (out, in), transposed-conv weights
+(cin, cout, kh, kw) and conv weights (cout, cin, *kernel), the PyTorch
+habits; ``convert.py`` moves the reference's kernels into them.
 
 Init follows the reference: Glorot-uniform kernels from an explicit
 ``torch.Generator``, zero biases, BN gamma 1, beta 0, mean 0, var 1,
@@ -17,7 +19,7 @@ variance with the unbiased variance and takes momentum as 1 - m.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -91,6 +93,11 @@ class BatchNorm(nn.Module):
             self.update(mean, var, momentum)
         else:
             mean, var = self.mean.float(), self.var.float()
+        return self.normalize(x, mean, var)
+
+    def normalize(self, x: Tensor, mean: Tensor, var: Tensor) -> Tensor:
+        """x normalized by the f32 statistics (mean, var) and the affine:
+        folded in f32, applied in x's dtype."""
         inv = torch.rsqrt(var + self.epsilon) * self.gamma.float()
         shift = self.beta.float() - mean * inv
         return x * inv.to(x.dtype) + shift.to(x.dtype)
@@ -238,3 +245,149 @@ class UpConv(nn.Module):
         if self.bn is not None:
             x = self.bn(x, train, bn_momentum)
         return F.relu(x) if self.relu else x
+
+
+def _same_pads(sizes, window, strides) -> Tuple[Tuple[int, int], ...]:
+    """flax's (and TF's) SAME padding per spatial axis: ceil(n / s)
+    outputs, the total pad split with the odd element after."""
+    pads = []
+    for n, k, s in zip(sizes, window, strides):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+def _padded(x: Tensor, window, strides, padding: str,
+            value: float = 0.0) -> Tensor:
+    """Channels-first ``x`` padded on its spatial axes by ``padding``
+    ("SAME" or "VALID")."""
+    if padding == "VALID":
+        return x
+    if padding != "SAME":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                         f"{padding!r}")
+    pads = _same_pads(x.shape[2:], window, strides)
+    return F.pad(x, [p for pair in reversed(pads) for p in pair],
+                 value=value)
+
+
+class Convolution(nn.Module):
+    """N-D convolution (rank ``len(kernel_size)``, 1 to 3) with flax's
+    ``SAME`` or ``VALID`` padding on a channels-last (B, *spatial, C)
+    tensor, computed in the module's compute dtype. ``padding="SAME"``
+    with a stride pads as TF does, the odd pad after, which
+    ``F.conv*d``'s own ``padding="same"`` (stride 1 only) cannot."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Sequence[int],
+                 strides: Optional[Sequence[int]] = None,
+                 padding: str = "SAME", dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        if not 1 <= len(self.kernel_size) <= 3:
+            raise ValueError(f"Conv takes a 1-, 2- or 3-D kernel, got "
+                             f"{self.kernel_size}")
+        self.strides = (tuple(strides) if strides is not None
+                        else (1,) * len(self.kernel_size))
+        self.padding = padding
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(
+            (features, in_features) + self.kernel_size, dtype=torch.float32,
+            device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            features, dtype=torch.float32, device=device))
+        # Glorot over the flax kernel's fans: receptive field prod(kernel),
+        # the same fans as torch's (cout, cin, *kernel) layout gives.
+        nn.init.xavier_uniform_(self.weight, generator=generator)
+
+    def forward(self, x: Tensor) -> Tensor:
+        conv = getattr(F, f"conv{len(self.kernel_size)}d")
+        xc = _padded(x.to(self.dtype).movedim(-1, 1), self.kernel_size,
+                     self.strides, self.padding)
+        y = conv(xc, self.weight.to(self.dtype), self.bias.to(self.dtype),
+                 stride=self.strides)
+        return y.movedim(1, -1)
+
+
+class Conv(nn.Module):
+    """General N-D convolution + optional BN + ReLU on channels-last
+    tensors (the reference's tf_util.conv1d / conv2d / conv3d): the
+    layer-library surface beside the pointwise ``PointMLP`` that the
+    models use."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Sequence[int],
+                 strides: Optional[Sequence[int]] = None,
+                 padding: str = "SAME", bn: bool = False, relu: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv = Convolution(in_features, features, kernel_size, strides,
+                                padding, dtype=dtype, device=device,
+                                generator=generator)
+        self.bn = BatchNorm(features, device=device) if bn else None
+        self.relu = relu
+
+    def forward(self, x: Tensor, train: bool = False,
+                bn_momentum: float = 0.9) -> Tensor:
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x, train, bn_momentum)
+        return F.relu(x) if self.relu else x
+
+
+def _pool(x: Tensor, kind: str, window: Sequence[int],
+          strides: Optional[Sequence[int]], padding: str) -> Tensor:
+    window = tuple(window)
+    strides = tuple(strides or window)
+    pad_value = float("-inf") if kind == "max" else 0.0
+    xc = _padded(x.movedim(-1, 1), window, strides, padding, pad_value)
+    pool = getattr(F, f"{kind}_pool{len(window)}d")
+    return pool(xc, window, strides).movedim(1, -1)
+
+
+def max_pool(x: Tensor, window: Sequence[int],
+             strides: Optional[Sequence[int]] = None,
+             padding: str = "VALID") -> Tensor:
+    """N-D max pool over the spatial axes of a channels-last tensor
+    (tf_util.max_pool2d / max_pool3d); strides default to the window;
+    SAME pads with -inf. The models' symmetric pool over all points is a
+    max over axis 1; this is the general form."""
+    return _pool(x, "max", window, strides, padding)
+
+
+def avg_pool(x: Tensor, window: Sequence[int],
+             strides: Optional[Sequence[int]] = None,
+             padding: str = "VALID") -> Tensor:
+    """N-D average pool (tf_util.avg_pool2d / avg_pool3d); SAME pads with
+    zeros that count in the window's mean, as flax's default."""
+    return _pool(x, "avg", window, strides, padding)
+
+
+class Dropout(nn.Module):
+    """Dropout gated on the train flag (tf_util.dropout): in training
+    each element is kept with probability ``keep_prob`` and scaled by
+    1 / keep_prob, else zeroed; in eval the identity. The mask is drawn
+    from ``generator`` (a ``torch.Generator`` on the input's device; the
+    default generator when None), so its bits differ from JAX's by
+    design."""
+
+    def __init__(self, keep_prob: float = 0.5,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not 0.0 <= keep_prob <= 1.0:
+            raise ValueError(f"keep_prob must be in [0, 1], got {keep_prob}")
+        self.keep_prob = keep_prob
+        self.generator = generator
+
+    def forward(self, x: Tensor, train: bool = True) -> Tensor:
+        if not train or self.keep_prob == 1.0:
+            return x
+        if self.keep_prob == 0.0:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < self.keep_prob
+        return torch.where(keep, x / self.keep_prob, torch.zeros_like(x))

@@ -1,7 +1,9 @@
 """The port's loss and encoder ops: Chamfer (nn_distance) and approximate
 EMD (approx_match), and the fused conv5 head, with the CUDA kernels of
 ``csrc/`` on the card and their plain PyTorch versions on the CPU; the
-same names as the JAX package's ``ops``.
+same names as the JAX package's ``ops``. Each kernel call (on the CPU its
+plain version) runs inside ``utils/roofline.charge``: a ``StepCost``
+counts it as the kernel's bound, not op by op.
 """
 
 from pointnet_autoencoder_tpu_torch.ops.chamfer import (

@@ -25,12 +25,14 @@ as the reference op's registered gradient.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Tuple, Union
 
 import torch
 
 from pointnet_autoencoder_tpu_torch.csrc import build as _build
+from pointnet_autoencoder_tpu_torch.utils import roofline
 
 Tensor = torch.Tensor
 
@@ -202,8 +204,10 @@ class _NnDistance(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xyz1, xyz2, dense):
         ctx.kernel = xyz1.is_cuda and not dense
+        ctx.dense = dense
         fwd = nn_distance_cuda if ctx.kernel else nn_distance_plain
-        dist1, idx1, dist2, idx2 = fwd(xyz1, xyz2)
+        with _charged(dense, "nn_distance", xyz1, xyz2):
+            dist1, idx1, dist2, idx2 = fwd(xyz1, xyz2)
         ctx.save_for_backward(xyz1, xyz2, idx1, idx2)
         ctx.mark_non_differentiable(idx1, idx2)
         return dist1, idx1, dist2, idx2
@@ -213,7 +217,19 @@ class _NnDistance(torch.autograd.Function):
         xyz1, xyz2, idx1, idx2 = ctx.saved_tensors
         grad = nn_distance_grad_cuda if ctx.kernel else \
             nn_distance_grad_plain
-        return (*grad(xyz1, xyz2, idx1, idx2, g_d1, g_d2), None)
+        with _charged(ctx.dense, "nn_distance_grad", xyz1, xyz2):
+            gx1, gx2 = grad(xyz1, xyz2, idx1, idx2, g_d1, g_d2)
+        return gx1, gx2, None
+
+
+def _charged(dense: bool, kernel: str, xyz1: Tensor, xyz2: Tensor):
+    """The kernel's charge in a ``utils/roofline.StepCost`` (on every
+    device: the CPU's plain version stands for it); the dense form is
+    counted op by op."""
+    if dense:
+        return contextlib.nullcontext()
+    return roofline.charge(kernel, b=xyz1.shape[0], n=xyz1.shape[1],
+                           m=xyz2.shape[1])
 
 
 def nn_distance(xyz1: Tensor, xyz2: Tensor):

@@ -33,6 +33,7 @@ import torch
 
 from pointnet_autoencoder_tpu_torch.csrc import build as _build
 from pointnet_autoencoder_tpu_torch.ops.chamfer import _prepare, sqdist_matrix
+from pointnet_autoencoder_tpu_torch.utils import roofline
 
 Tensor = torch.Tensor
 # cost (B,), grad1 (B, N, 3), grad2 (B, M, 3)
@@ -285,13 +286,16 @@ class _EmdCost(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xyz1, xyz2):
+        b, n, _ = xyz1.shape
+        m = xyz2.shape[1]
         if xyz1.is_cuda:
-            cost, grad1, grad2 = emd_forward_cuda(xyz1, xyz2)
-        elif 4 * xyz1.shape[0] * xyz1.shape[1] * xyz2.shape[1] \
-                > _DENSE_BYTES_LIMIT:
-            cost, grad1, grad2 = emd_forward_chunked(xyz1, xyz2)
+            fwd = emd_forward_cuda
+        elif 4 * b * n * m > _DENSE_BYTES_LIMIT:
+            fwd = emd_forward_chunked
         else:
-            cost, grad1, grad2 = emd_forward_plain(xyz1, xyz2)
+            fwd = emd_forward_plain
+        with roofline.charge("emd_forward", b=b, n=n, m=m):
+            cost, grad1, grad2 = fwd(xyz1, xyz2)
         ctx.save_for_backward(grad1, grad2)
         return cost
 

@@ -29,6 +29,7 @@ from typing import Sequence, Tuple
 import torch
 
 from pointnet_autoencoder_tpu_torch.csrc import build as _build
+from pointnet_autoencoder_tpu_torch.utils import roofline
 
 Tensor = torch.Tensor
 # (w (C, F), b, gamma, beta, mean, var) for one Dense+BN layer.
@@ -193,5 +194,8 @@ def fused_encoder_eval(points: Tensor, chain: FoldedChain) -> Tensor:
     points: (B, N, C0), cast to the chain's matmul type. Any N: the
     kernel masks the ragged last tile itself."""
     extrema = encoder_extrema_cuda if points.is_cuda else encoder_extrema_plain
-    return _finish(chain, *extrema(points, chain))
+    with roofline.charge("fused_encoder_eval", b=points.shape[0],
+                         n=points.shape[1], dtype=chain.dtype):
+        ymax, ymin = extrema(points, chain)
+    return _finish(chain, ymax, ymin)
 

@@ -28,6 +28,7 @@ import torch
 
 from pointnet_autoencoder_tpu_torch.csrc import build as _build
 from pointnet_autoencoder_tpu_torch.ops.fused_encoder import fold_affine
+from pointnet_autoencoder_tpu_torch.utils import roofline
 
 Tensor = torch.Tensor
 
@@ -227,6 +228,12 @@ def head_bwd_cuda(x: Tensor, w: Tensor, gvals: Tensor,
 head_bwd_cuda.launches = 0
 
 
+def _shape(x: Tensor, w: Tensor) -> dict:
+    """The head's shape, as ``utils/roofline.kernel_bound`` takes it."""
+    b, n, c = x.shape
+    return dict(b=b, n=n, c=c, f=w.shape[1], dtype=x.dtype)
+
+
 class _HeadMax(torch.autograd.Function):
     """max over points of relu(batchnorm(x @ w + b)) with the given
     statistics; backward from the one-hot cotangent the max leaves."""
@@ -235,7 +242,8 @@ class _HeadMax(torch.autograd.Function):
     def forward(ctx, x, w, b, gamma, beta, mean, var, eps):
         scale, shift = fold_affine(b, gamma, beta, mean, var, eps)
         fwd = head_max_cuda if x.is_cuda else head_max_plain
-        maxout, argmax = fwd(x, w, scale, shift)
+        with roofline.charge("fused_head_fwd", **_shape(x, w)):
+            maxout, argmax = fwd(x, w, scale, shift)
         ctx.save_for_backward(x, w, b, gamma, beta, var, maxout, argmax)
         ctx.eps = eps
         return maxout
@@ -263,7 +271,9 @@ class _HeadMax(torch.autograd.Function):
         db = scale * sum_dy
         gvals = dy_sel * scale  # (B, F): dL/dy at the argmax rows
         bwd = head_bwd_cuda if x.is_cuda else head_bwd_plain
-        dx, dw = bwd(x, w, gvals, argmax)
+        with roofline.charge("fused_head_bwd", argmax=argmax,
+                             **_shape(x, w)):
+            dx, dw = bwd(x, w, gvals, argmax)
         return (dx, dw.to(w.dtype), db.to(b.dtype), dgamma, dbeta, dmean,
                 dvar, None)
 

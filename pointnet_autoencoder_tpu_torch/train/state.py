@@ -20,6 +20,7 @@ import torch
 from torch import Tensor, nn
 
 from pointnet_autoencoder_tpu_torch.train.schedules import Staircase
+from pointnet_autoencoder_tpu_torch.utils import roofline
 
 
 # The metrics a train step reports of its schedules: the values it
@@ -185,7 +186,10 @@ class TrainState:
             loss.backward()
         if reduce_gradients is not None:
             reduce_gradients(self.model.parameters())
-        self.optimizer.step()
+        # The update is the part of a step the card and the CPU run
+        # differently by design (utils/roofline.StepCost).
+        with roofline.region("optimizer"):
+            self.optimizer.step()
         self._step += 1
         self.step_tensor.add_(1)
         out = {k: v.detach() for k, v in metrics.items()}

@@ -43,7 +43,7 @@ def test_every_module_is_listed():
                  "train.loop", "train.master", "parallel", "parallel.mesh",
                  "parallel.sp", "parallel.tp", "parallel.pp",
                  "data.fastio", "ops", "ops.oracles", "ops.hwcheck",
-                 "utils", "utils.profiling", "utils.graphs",
+                 "utils", "utils.profiling", "utils.graphs", "utils.roofline",
                  "ops.benchmarks"):
         assert f"pointnet_autoencoder_tpu_torch.{name}" in mods
 
