@@ -125,8 +125,18 @@ line each; any failure exits non-zero before the final line:
             one-card session; each rank's step host median, trace and peak
             memory. A 2-replica ``InferenceSession`` against the one-card
             session within 1e-5 (ragged batch included), K5 once per
-            replica and batch, a ``PointServer`` over it. No time here is
-            a multi-card time.
+            replica and batch, a ``PointServer`` over it. The ranks'
+            bf16 Trainers of ``model`` and ``model_emd`` captured (a tape
+            each: a graph per stretch between two all-reduces, the
+            all-reduces eager between replays) beside eager from one
+            seed, 2 device-input epochs at log_every 3: train state, eval
+            losses and launches bit-equal, 15 all-reduces a step both
+            ways, at most one graph launch more; host median, host
+            operations, graph launches and collectives a step, both ways.
+            The NCCL group of one captured (its all-reduces inside each
+            graph, one graph launch a chunk) bit-equal to the graphed
+            Trainer without a group; the logs name both paths. No time
+            here is a multi-card time.
 14. master: bf16 master weights and moments (``--bf16_params
             --bf16_moments``, train/master.py). Stochastic rounding of 2^20
             values (zeros, subnormals, the largest finite, infs, NaNs) on
@@ -170,8 +180,9 @@ line each; any failure exits non-zero before the final line:
             ``cli.train --point_parallel --data_parallel 2``, 2 bf16 epochs:
             per-rank launches the path's, the ranks' states bit-equal, eval
             pcloss falling. K1, K3, K4 and K5 at one rank's shard shapes:
-            device time per call beside each bound. No time here is a
-            multi-card time.
+            device time per call beside each bound. ``model`` and
+            ``model_emd`` captured beside eager as in phase 13. No time
+            here is a multi-card time.
 16. fastio: (run after phase 6 writes its fixture) the data loader's
             native parser (data/fastio.py over csrc/fastio.cpp) on every
             .pts and .seg file of the 384-shape fixture, bit-equal to its
@@ -200,7 +211,8 @@ line each; any failure exits non-zero before the final line:
             one-card format) in a one-card session against
             ``InferenceSession(model_parallel=2)`` on cuda:0 twice
             (captured: its two devices are one card), within
-            rtol and atol 1e-5.
+            rtol and atol 1e-5. ``model`` captured beside eager as in
+            phase 13.
 18. pipeline_parallel: ``PipelinedSession`` on ["cuda:0", "cuda:0"]
             (a stream per stage), B=32 in 4 microbatches, f32 and bf16:
             reconstruct, embed and decode against the unpipelined session
@@ -219,7 +231,11 @@ line each; any failure exits non-zero before the final line:
             test_dp_sp_train_step_matches_single_device); per-rank
             launches K3 = K4 = K1 = 1, K2 = 1 (``model_emd`` 0), K6 = 0;
             the combined Chamfer indices equal to K1's on the card alone.
-            No time in phases 17-19 is a multi-card time.
+            The step functions of ``model`` captured
+            (``make_sp_step_fns(compiled=True)``, the default) beside
+            eager, 2 epochs of 5 steps on batches made on the card, held
+            as in phase 13. No time in phases 17-19 is a multi-card
+            time.
 20. hwcheck: the port's ``ops/hwcheck.py`` in this process (``main`` with
             --device cuda and a fuzz draw for every shape of its pool):
             K1, K2, K3 (f32 and bf16), K5 (f32 and bf16, N = 64, 63, 65,
@@ -1666,6 +1682,10 @@ def phase_export_import(torch, best_path, tmp, rng):
 
 DP_RANKS = 2
 DP_STEP_MODELS = ("model", "model_emd")
+# The all-reduces of one data-parallel `model` step: conv1-4's BN, the
+# head's statistics, fc1's and fc2's BN, forward and backward, and the
+# gradients.
+DP_MODEL_COLLECTIVES = 15
 
 
 @contextlib.contextmanager
@@ -1764,9 +1784,10 @@ def dp_rank_steps(device, out_dir, data, preempt_argv):
     """A rank of phase data_parallel's 2-rank checks: for each model of
     DP_STEP_MODELS, one f32 train step through ``cli.train``'s build on
     this rank's rows of the one-device step's batch, replaying its
-    choices, with the launches counted; then device-input training of
-    ``model`` where rank 1 alone sends itself SIGTERM after its step 3,
-    and a resume at 2 ranks. Writes ``<out_dir>/dp_rank<r>.pt``."""
+    choices, with the launches counted, and the bf16 Trainer captured
+    beside eager (``grouped_captured``); then device-input training of
+    ``model`` where rank 1 alone sends itself SIGTERM after its first
+    chunk, and a resume at 2 ranks. Writes ``<out_dir>/dp_rank<r>.pt``."""
     import signal
 
     import torch
@@ -1799,17 +1820,23 @@ def dp_rank_steps(device, out_dir, data, preempt_argv):
                                     (store["differed"], store["made"]))
         tr.close()
         lg.close()
+    out["captured"] = {model: grouped_captured(
+        torch, counters, train_argv(model, data, os.path.join(
+            out_dir, f"{model}_captured_log")),
+        torch.from_numpy(clouds(np.random.RandomState(SEED + 22), BATCH,
+                                NUM_POINT)[rows]).cuda(),
+        f"chip_smoke.dp.{model}") for model in DP_STEP_MODELS}
 
     tr, lg = cli_train.build_trainer(parse(preempt_argv))
-    step_fn = tr.train_step
+    chunk_fn = tr._chunk
 
-    def train_step(batch):
-        metrics = step_fn(batch)
-        if rank == 1 and tr.state.step == 3:
+    def chunk(kind, idxs, metrics):
+        # A captured chunk runs no train_step: the signal follows a chunk.
+        chunk_fn(kind, idxs, metrics)
+        if rank == 1 and kind == "train" and not tr._preempted:
             os.kill(os.getpid(), signal.SIGTERM)
-        return metrics
 
-    tr.train_step = train_step
+    tr._chunk = chunk
     tr.train()
     stopped = (tr.state.step, tree_bytes_hash(torch, tr.model.state_dict()))
     tr.close()
@@ -1827,7 +1854,7 @@ def dp_rank_steps(device, out_dir, data, preempt_argv):
 
 def dp_nccl_step(device, out_dir, data):
     """The world-size-1 rank over NCCL: phase data_parallel's f32 `model`
-    step on the whole batch, choices its own."""
+    step on the whole batch, choices its own; then ``nccl_captured``."""
     import torch
 
     from pointnet_autoencoder_tpu_torch.cli import train as cli_train
@@ -1848,6 +1875,41 @@ def dp_nccl_step(device, out_dir, data):
                os.path.join(out_dir, "nccl_rank0.pt"))
     tr.close()
     lg.close()
+    torch.save(nccl_captured(torch, counters, data, out_dir),
+               os.path.join(out_dir, "nccl_captured.pt"))
+
+
+def nccl_captured(torch, counters, data, out_dir) -> dict:
+    """The bf16 `model` Trainer captured (the default), in an NCCL group of
+    one rank or in none: ``TRAIN_EPOCHS`` device-input epochs at log_every
+    ``GROUPED_LOG_EVERY`` and an eval epoch after each (launches, train
+    state, eval losses, its programs' graphs and collectives), then a
+    traced epoch (its graph launches) and the step's timing on a batch on
+    the card."""
+    import torch.distributed as dist
+
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.train.loop import Trainer
+
+    tag = "nccl" if dist.is_initialized() else "alone"
+    cfg = cli_train.config_from_args(cli_train.build_parser().parse_args(
+        train_argv("model", data, os.path.join(out_dir, f"{tag}_cap_log"))
+        + ["--log_every", str(GROUPED_LOG_EVERY)]))
+    tr = Trainer(cfg, device="cuda")
+    try:
+        out = grouped_epochs(torch, counters, tr)
+        epoch = overhead_trace(torch, lambda: tr.train_one_epoch(
+            TRAIN_EPOCHS), f"chip_smoke.{tag}.epoch", reps=1)
+        out["epoch_graph_launches"] = epoch["graph_launches"]
+        out["chunks"] = -(-len(tr.train_pipe) // GROUPED_LOG_EVERY)
+        x = torch.from_numpy(clouds(np.random.RandomState(SEED + 22), BATCH,
+                                    NUM_POINT)).cuda()
+        out["timing"] = grouped_step_timing(
+            torch, {True: lambda: tr.train_step(x)["loss"].item()},
+            f"chip_smoke.{tag}.step")[True]
+        return out
+    finally:
+        tr.close()
 
 
 def dp_train_report(out_dir, trainer):
@@ -1898,6 +1960,172 @@ def dp_gaps(got: dict, want: dict):
         if n not in noise:
             leaf = max(leaf, err / float(w.abs().max()))
     return leaf, whole, (num / den) ** 0.5
+
+
+# The captured runs of the grouped ranks beside their eager runs: device
+# input at log_every 3, so each epoch's 10 steps run as chunks of 3, 3, 3
+# and 1 (the first chunk of the first epoch is the warm-up, eager; the
+# first eval epoch too).
+GROUPED_LOG_EVERY = 3
+
+
+def counting_all_reduces(torch, fn) -> int:
+    """The all-reduces ``fn()`` issues from the host (an eager step's or a
+    tape's; an NCCL collective captured in a graph issues none)."""
+    import torch.distributed as dist
+
+    real, seen = dist.all_reduce, [0]
+
+    def all_reduce(*args, **kwargs):
+        seen[0] += 1
+        return real(*args, **kwargs)
+
+    dist.all_reduce = all_reduce
+    try:
+        fn()
+    finally:
+        dist.all_reduce = real
+    return seen[0]
+
+
+def grouped_step_timing(torch, steps, label) -> dict:
+    """Each step of ``steps`` ({captured: step()}, each ending with the
+    loss on the host) on a rank: after two calls each, 10 host-clock
+    samples each, the steps taken in turns (the order swapped every
+    round); the all-reduces one step issues; and the fuller of two traces
+    of 3 steps (a trace may lose device events; the last step read: host
+    operations, graph launches, device busy and idle share). The ranks
+    run the same calls, so their all-reduces pair up. Returns {captured:
+    timing}."""
+    for step in steps.values():
+        step()
+        step()
+    host = {c: [] for c in steps}
+    order = sorted(steps)
+    for i in range(10):
+        for c in order if i % 2 == 0 else order[::-1]:
+            t0 = time.perf_counter()
+            steps[c]()
+            host[c].append(1e3 * (time.perf_counter() - t0))
+    out = {}
+    for c in order:
+        trace = max((overhead_trace(torch, steps[c], f"{label}.{c}", reps=3)
+                     for _ in range(2)), key=lambda t: t["device_events"])
+        out[c] = dict(host_ms=statistics.median(host[c]),
+                      host_spread=(min(host[c]), max(host[c])),
+                      collectives=counting_all_reduces(torch, steps[c]),
+                      host_ops=trace["host_ops"],
+                      graph_launches=trace["graph_launches"],
+                      busy_ms=trace["busy_ms"], idle=trace["idle"],
+                      device_events=trace["device_events"])
+    return out
+
+
+def grouped_epochs(torch, counters, tr) -> dict:
+    """``TRAIN_EPOCHS`` train epochs of the Trainer ``tr``, an eval epoch
+    after each: its launches, its train state on the host, the eval
+    losses, its step count and its programs' (graphs, collectives)."""
+    for fn in counters.values():
+        fn.launches = 0
+    evals = []
+    for epoch in range(TRAIN_EPOCHS):
+        tr.train_one_epoch(epoch)
+        evals.append(tr.eval_one_epoch(epoch))
+    torch.cuda.synchronize()
+    return dict(launches={k: fn.launches for k, fn in counters.items()},
+                state=_host_state(torch, tr), evals=evals,
+                step=tr.state.step,
+                programs=None if tr._steps is None else {
+                    k: (p.graphs, p.collectives)
+                    for k, p in tr._steps.programs._programs.items()})
+
+
+def grouped_captured(torch, counters, argv, x, label) -> dict:
+    """In a rank of a group: the Trainer of ``cli.train`` flags ``argv``
+    captured (the default: a tape over gloo, one graph per chunk over
+    NCCL) and eager (``compiled=False``), from one seed, each
+    ``TRAIN_EPOCHS`` device-input epochs at log_every
+    ``GROUPED_LOG_EVERY`` with an eval epoch after each: its launches, its
+    train state on the host, the eval losses and step count; its programs'
+    graphs and collectives (captured); then its step on ``x``, this rank's
+    part of a batch on the card (``grouped_step_timing``). Returns
+    {True: captured, False: eager}."""
+    import dataclasses
+
+    from pointnet_autoencoder_tpu_torch.cli import train as cli_train
+    from pointnet_autoencoder_tpu_torch.train.loop import Trainer
+
+    base = cli_train.config_from_args(cli_train.build_parser().parse_args(
+        argv + ["--log_every", str(GROUPED_LOG_EVERY)]))
+    trainers = {}
+    try:
+        for compiled in (True, False):
+            trainers[compiled] = Trainer(dataclasses.replace(
+                base, log_dir=f"{base.log_dir}_{compiled}"), device="cuda",
+                compiled=compiled)
+        out = {c: grouped_epochs(torch, counters, tr)
+               for c, tr in trainers.items()}
+        timing = grouped_step_timing(torch, {
+            c: (lambda tr=tr: tr.train_step(x)["loss"].item())
+            for c, tr in trainers.items()}, label)
+        for c in out:
+            out[c]["timing"] = timing[c]
+        return out
+    finally:
+        for tr in trainers.values():
+            tr.close()
+
+
+def grouped_held(torch, tag, ranks, want_collectives=None,
+                 what=f"{TRAIN_EPOCHS} device-input epochs at log_every "
+                      f"{GROUPED_LOG_EVERY}") -> str:
+    """Require each rank's captured run (``grouped_captured``) bit-equal to
+    its eager run (train state, eval losses, steps) with equal launches,
+    the same all-reduces per step both ways (``want_collectives`` if
+    given), and its traced step within collectives + 1 graph launches;
+    returns the report of rank 0 (and the ranks' spread of host ms)."""
+    for r, runs in enumerate(ranks):
+        cap, eager = runs[True], runs[False]
+        bad = tree_mismatch(torch, cap["state"], eager["state"])
+        require(bad is None, f"{tag} rank {r}: captured and eager train "
+                f"states differ at {bad}")
+        require(cap["evals"] == eager["evals"]
+                and cap["step"] == eager["step"],
+                f"{tag} rank {r}: eval losses {cap['evals']} captured, "
+                f"{eager['evals']} eager; steps {cap['step']}, "
+                f"{eager['step']}")
+        require(cap["launches"] == eager["launches"],
+                f"{tag} rank {r}: launches {cap['launches']} captured, "
+                f"{eager['launches']} eager")
+        ct, et = cap["timing"], eager["timing"]
+        require(ct["collectives"] == et["collectives"]
+                and (want_collectives is None
+                     or ct["collectives"] == want_collectives),
+                f"{tag} rank {r}: {ct['collectives']} all-reduces a captured "
+                f"step, {et['collectives']} eager (want {want_collectives})")
+        require(1 <= ct["graph_launches"] <= ct["collectives"] + 1
+                and et["graph_launches"] == 0,
+                f"{tag} rank {r}: {ct['graph_launches']} graph launches a "
+                f"captured step with {ct['collectives']} collectives")
+    cap, eager = ranks[0][True], ranks[0][False]
+    ct, et = cap["timing"], eager["timing"]
+    spread = [round(rk[c]["timing"]["host_ms"], 3) for rk in ranks
+              for c in (True, False)]
+    def steps(t):
+        lo, hi = t["host_spread"]
+        return (f"host median {t['host_ms']:.3f} ms (min {lo:.3f}, max "
+                f"{hi:.3f}), {t['host_ops']} host operations, "
+                f"{t['graph_launches']} graph launches, {t['collectives']} "
+                f"collectives, {t['device_events']} device events, busy "
+                f"{t['busy_ms']:.4f} ms, idle share {t['idle']:.4f}")
+
+    return (f"{tag}: {what}, captured bit-equal to eager on every rank "
+            f"(weights, optimizer slots and counts, BN statistics, eval "
+            f"losses {cap['evals']}), launches {cap['launches']} both ways; "
+            f"programs (graphs, collectives) {cap['programs']}. One step on "
+            f"a batch on the card, rank 0, captured and eager in turns: "
+            f"captured {steps(ct)}; eager {steps(et)} (host ms per rank, "
+            f"captured and eager: {spread})")
 
 
 def phase_data_parallel(torch, counters, session, weights, data, tmp, rng):
@@ -2026,6 +2254,13 @@ def phase_data_parallel(torch, counters, session, weights, data, tmp, rng):
             f"{got[0]['flips'][1] + got[1]['flips'][1]} (replaced by the "
             f"one card's); per-rank launches {got[0]['launches']} ok")
 
+    # The ranks' bf16 Trainers captured (tapes over gloo) beside eager.
+    for model in DP_STEP_MODELS:
+        say("data_parallel", grouped_held(
+            torch, f"{model} DP 2 ranks over gloo (tape)",
+            [r["captured"][model] for r in ranks],
+            DP_MODEL_COLLECTIVES if model == "model" else None) + " ok")
+
     # 3. NCCL at world size 1: the step without a group, bit for bit.
     mesh.launch(dp_nccl_step, devices=["cuda:0"], backend="nccl",
                 args=(out_dir, data))
@@ -2041,6 +2276,41 @@ def phase_data_parallel(torch, counters, session, weights, data, tmp, rng):
     say("data_parallel", f"model f32 step in an NCCL group of 1: loss, "
         f"every gradient and BN statistic bit-equal to the step without a "
         f"group; launches {nccl['launches']} ok")
+    grouped, alone = (torch.load(os.path.join(out_dir, "nccl_captured.pt")),
+                      nccl_captured(torch, counters, data, out_dir))
+    bad = tree_mismatch(torch, grouped["state"], alone["state"])
+    require(bad is None and grouped["evals"] == alone["evals"]
+            and grouped["launches"] == alone["launches"],
+            f"the captured NCCL group of 1 differs from the graphed step "
+            f"without a group: state at {bad}, evals {grouped['evals']} vs "
+            f"{alone['evals']}, launches {grouped['launches']} vs "
+            f"{alone['launches']}")
+    require(all(g == 1 and c == 0 for g, c in grouped["programs"].values())
+            and grouped["epoch_graph_launches"] == grouped["chunks"]
+            and grouped["timing"]["graph_launches"] == 1
+            and grouped["timing"]["collectives"] == 0,
+            f"the NCCL group of 1 is not one graph a chunk: programs "
+            f"{grouped['programs']}, {grouped['epoch_graph_launches']} graph "
+            f"launches an epoch of {grouped['chunks']} chunks, a step "
+            f"{grouped['timing']}")
+    with open(os.path.join(out_dir, "nccl_cap_log", "log_train.txt")) as f:
+        path_line = f.readline().strip()
+    require(path_line.startswith("step path: captured CUDA graphs on cuda:0 "
+                                 "of a nccl group of 1 ranks (the "
+                                 "collectives inside each graph"),
+            f"the NCCL rank's log names another path: {path_line}")
+    gt, at = grouped["timing"], alone["timing"]
+    say("data_parallel", f"model bf16 in an NCCL group of 1, captured (its "
+        f"collectives inside the graphs): {TRAIN_EPOCHS} device-input "
+        f"epochs bit-equal to the graphed Trainer without a group (state, "
+        f"eval losses {grouped['evals']}, launches); programs "
+        f"{grouped['programs']}, an epoch {grouped['epoch_graph_launches']} "
+        f"graph launches for {grouped['chunks']} chunks; one step host "
+        f"median {gt['host_ms']:.3f} ms ({gt['host_ops']} host operations, "
+        f"{gt['device_events']} device events, busy {gt['busy_ms']:.4f} "
+        f"ms) against {at['host_ms']:.3f} ms without a group "
+        f"({at['host_ops']} host operations, {at['device_events']} device "
+        f"events, busy {at['busy_ms']:.4f} ms); its log: {path_line!r} ok")
 
     # 4. Preemption: SIGTERM to rank 1 only, device input. The ranks agree
     # at the epoch's end (where the host waits for the epoch's metrics).
@@ -2062,12 +2332,13 @@ def phase_data_parallel(torch, counters, session, weights, data, tmp, rng):
             and p0["resumed"][0] == TRAIN_EPOCHS * steps_per_epoch,
             f"preemption resume: {p0['resumed_at']} -> {p0['resumed'][0]}, "
             f"{p1['resumed_at']} -> {p1['resumed'][0]}")
-    say("data_parallel", f"SIGTERM to rank 1 alone after its step 3: both "
-        f"ranks stopped at step {p0['stopped'][0]} (the epoch's end, where "
-        f"they agree), weights bit-equal, one preemption checkpoint by rank "
-        f"0; a resume at 2 ranks started at epoch {p0['resumed_at'][0]} "
-        f"step {p0['resumed_at'][1]} and ended at step {p0['resumed'][0]} "
-        f"bit-equal across ranks; the 2-rank run took {ranks_s:.1f} s ok")
+    say("data_parallel", f"SIGTERM to rank 1 alone after its first chunk: "
+        f"both ranks stopped at step {p0['stopped'][0]} (the epoch's end, "
+        f"where they agree), weights bit-equal, one preemption checkpoint "
+        f"by rank 0; a resume at 2 ranks started at epoch "
+        f"{p0['resumed_at'][0]} step {p0['resumed_at'][1]} and ended at "
+        f"step {p0['resumed'][0]} bit-equal across ranks; the 2-rank run "
+        f"took {ranks_s:.1f} s ok")
 
     # 2. Training 2 epochs through cli.train's launch path, bf16, device
     # input and background saves (the defaults).
@@ -2100,6 +2371,14 @@ def phase_data_parallel(torch, counters, session, weights, data, tmp, rng):
     evals = [r["pcloss"] for r in recs if r["split"] == "test"]
     require(len(evals) == TRAIN_EPOCHS and all(np.isfinite(evals))
             and evals[-1] < evals[0], f"DP eval pcloss {evals}")
+    with open(os.path.join(log_dir, "log_train.txt")) as f:
+        text = f.read()
+    path_line = next(line for line in text.splitlines()
+                     if line.startswith("step path:"))
+    require(path_line.startswith("step path: captured tape on cuda:0 of a "
+                                 "gloo group of 2 ranks")
+            and "tape ('train', 5): 76 graphs and 75 collectives" in text,
+            f"DP training's log names another path: {path_line}")
     bests = sorted(n for n in os.listdir(log_dir)
                    if n.startswith("best_model_epoch_"))
     require(bool(bests) and checkpoint.CheckpointManager(log_dir).latest()
@@ -2110,7 +2389,8 @@ def phase_data_parallel(torch, counters, session, weights, data, tmp, rng):
     require(rec.shape == x.shape and np.all(np.isfinite(rec)),
             "a one-card session on the DP checkpoint")
     say("data_parallel", f"cli.train --data_parallel 2 on cuda:0 twice "
-        f"(gloo), bf16, device input: {TRAIN_EPOCHS} epochs in "
+        f"(gloo), bf16, device input, its log: {path_line!r}: "
+        f"{TRAIN_EPOCHS} epochs in "
         f"{train_s:.1f} s (rank start and data loading included); eval "
         f"pcloss {[round(v, 6) for v in evals]}; weights bit-equal across "
         f"ranks (sha256 {reports[0]['hash'][:16]}); checkpoints by rank 0 "
@@ -2659,6 +2939,12 @@ def sp_rank_steps(device, out_dir, data):
             torch.cuda.max_memory_allocated(tr.device) / 2**20,)
         tr.close()
         lg.close()
+    # The bf16 Trainers captured (tapes over gloo) beside eager.
+    out["captured"] = {model: grouped_captured(
+        torch, counters, train_argv(model, data, os.path.join(
+            out_dir, f"{model}_sp_captured_log"))
+        + ["--point_parallel", "--data_parallel", str(SP_RANKS)], xl,
+        f"chip_smoke.sp.{model}") for model in SP_STEP_MODELS}
     torch.save(out, os.path.join(out_dir, f"sp_rank{rank}.pt"))
 
 
@@ -2813,6 +3099,10 @@ def phase_point_parallel(torch, counters, data, tmp, rng):
     ranks_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(out_dir, f"sp_rank{r}.pt"))
              for r in range(SP_RANKS)]
+    for model in SP_STEP_MODELS:
+        say("point_parallel", grouped_held(
+            torch, f"{model} SP 2 ranks over gloo (tape)",
+            [r["captured"][model] for r in ranks]) + " ok")
     chamfer_calls = {"model_cpu": 0, "model_hierachy": 2}
     for model in SP_STEP_MODELS + SP_FAMILIES:
         one, fl = single[model], floor[model]
@@ -3099,6 +3389,12 @@ def tp_rank_steps(device, out_dir, data):
                          net.state_dict().items()
                          if tp.spec_for_name(k) is not None}
     out["shapes"] = shapes
+    # The bf16 Trainer captured (a tape over gloo) beside eager.
+    out["captured"] = grouped_captured(
+        torch, counters, train_argv("model", data, os.path.join(
+            out_dir, "tp_captured_log"))
+        + ["--model_parallel", str(TP_RANKS)],
+        case["x"].cuda(), "chip_smoke.tp.model")
     torch.save(out, os.path.join(out_dir, f"tp_rank{group.rank}.pt"))
 
 
@@ -3153,6 +3449,9 @@ def phase_tensor_parallel(torch, counters, data, tmp, rng):
     ranks_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(out_dir, f"tp_rank{r}.pt"))
              for r in range(TP_RANKS)]
+    say("tensor_parallel", grouped_held(
+        torch, "model TP 1 x 2 ranks over gloo (tape)",
+        [r["captured"] for r in ranks]) + " ok")
     want_launches = {
         "model": {"fused_head_fwd": 1, "fused_head_bwd": 1, "nn_distance": 1,
                   "nn_distance_grad": 1, "emd_forward": 0,
@@ -3380,6 +3679,7 @@ def phase_pipeline_parallel(torch, fe, session, weights, rng):
 
 DPSP_DATA = 2
 DPSP_POINT = 2
+DPSP_STEPS = 5
 
 
 def dp_sp_rank_steps(device, out_dir):
@@ -3437,6 +3737,48 @@ def dp_sp_rank_steps(device, out_dir):
             buffers={n: b.detach().cpu() for n, b in net.named_buffers()},
             launches={n: fn.launches for n, fn in counters.items()},
             nn=(i1.cpu(), i2.cpu()), shape=tuple(xl.shape))
+
+    # The step functions captured (a tape over gloo) beside eager, from
+    # the card alone's `model` weights: TRAIN_EPOCHS epochs of DPSP_STEPS
+    # batches made on the card, an eval step after each epoch.
+    case = torch.load(os.path.join(out_dir, "model_dpsp_case.pt"))
+    gen = torch.Generator(device=device).manual_seed(SEED + 83)
+    batches = [sp.point_batch_shard(torch.rand(
+        (BATCH, NUM_POINT, 3), generator=gen, device=device), grid, *axes)
+        for _ in range(DPSP_STEPS)]
+    runs, fns = {}, {}
+    for compiled in (True, False):
+        net = get_model_spec("model").make(NUM_POINT)
+        net.load_state_dict(case["state"])
+        net.to(device)
+        state = TrainState(net, make_optimizer("adam", net.parameters()),
+                           schedules.learning_rate_schedule(
+                               0.001, 0.7, BATCH, 200000))
+        step, evaluate = sp.make_sp_step_fns(
+            state, "model", schedules.Staircase(case["momentum"], 1.0, 1, 1),
+            grid, *axes, compiled=compiled)
+        for fn in counters.values():
+            fn.launches = 0
+        evals = []
+        for _ in range(TRAIN_EPOCHS):
+            for xb in batches:
+                step(xb)
+            evals.append(float(evaluate(batches[0])["loss"]))
+        torch.cuda.synchronize()
+        runs[compiled] = dict(
+            launches={n: fn.launches for n, fn in counters.items()},
+            state=_host_state(torch, types.SimpleNamespace(state=state)),
+            evals=evals, step=state.step,
+            programs=None if not compiled else {
+                k: (p.graphs, p.collectives)
+                for k, p in step.programs._programs.items()})
+        fns[compiled] = step
+    timing = grouped_step_timing(torch, {
+        c: (lambda step=step: step(batches[0])["loss"].item())
+        for c, step in fns.items()}, "chip_smoke.dpsp")
+    for c in runs:
+        runs[c]["timing"] = timing[c]
+    out["captured"] = runs
     torch.save(out, os.path.join(out_dir, f"dpsp_rank{grid.world.rank}.pt"))
 
 
@@ -3502,6 +3844,12 @@ def phase_dp_sp(torch, tmp):
     ranks_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(out_dir, f"dpsp_rank{r}.pt"))
              for r in range(ranks_n)]
+    say("dp_sp", grouped_held(
+        torch, "model DP x SP 2 x 2 ranks over gloo (tape)",
+        [r["captured"] for r in ranks],
+        what=f"{TRAIN_EPOCHS} epochs of {DPSP_STEPS} steps of "
+             f"make_sp_step_fns on batches made on the card, an eval step "
+             f"after each") + " ok")
     per_b, per_n = BATCH // DPSP_DATA, NUM_POINT // DPSP_POINT
     for model in ("model", "model_emd"):
         one = single[model]
@@ -4598,7 +4946,7 @@ def compiled_training(torch, counters, data, tmp, name, bf16, input_mode,
                 name, bf16, input_mode, **flags)
             tr = trainers[compiled] = Trainer(cfg, device="cuda",
                                               compiled=compiled)
-            require((tr._programs is not None) == compiled,
+            require((tr._steps is not None) == compiled,
                     f"{tag}: compiled={compiled} but no programs")
             require(isinstance(tr.state.optimizer,
                                master_mod.MasterOptimizer) == bool(master),
@@ -4633,7 +4981,7 @@ def compiled_training(torch, counters, data, tmp, name, bf16, input_mode,
         if master and input_mode == "device":
             # The chunks of log_every steps and the last, shorter one ran
             # as captured programs (the first chunk is the warm-up).
-            held = sorted(k for k in trainers[True]._programs._programs
+            held = sorted(k for k in trainers[True]._steps.programs._programs
                           if k[0] == "train")
             want = sorted({("train", COMPILED_LOG_EVERY),
                            ("train", steps - (chunks - 1)
@@ -4800,7 +5148,7 @@ def compiled_resume(torch, data, tmp, x):
                 f"capturable {[g['capturable'] for g in groups]}")
             for _ in range(3):
                 tr.train_step(x)
-            require(tr._programs is not None and len(tr._programs._programs)
+            require(tr._steps is not None and len(tr._steps.programs._programs)
                     == 1, f"resume of the {form} form: no captured step")
             states[form] = _host_state(torch, tr)
         finally:
@@ -4945,8 +5293,8 @@ def compiled_master_resume(torch, data, tmp, master):
                         f"{master}: resumed at step {tr.state.step}")
                 for xi in batches[5:]:
                     tr.train_step(xi)
-            require(tr._programs is not None
-                    and len(tr._programs._programs) == 1,
+            require(tr._steps is not None
+                    and len(tr._steps.programs._programs) == 1,
                     f"{master} resume: no captured step")
             torch.cuda.synchronize()
             results[form] = (_host_state(torch, tr), _noise_offsets(tr))
@@ -5127,7 +5475,7 @@ def step_costs(torch, tr, x, cpu_config, context):
     from pointnet_autoencoder_tpu_torch.train.loop import Trainer
     from pointnet_autoencoder_tpu_torch.utils import roofline
 
-    require(tr._programs is None, "step_costs counts an eager Trainer")
+    require(tr._steps is None, "step_costs counts an eager Trainer")
     before = checkpoint.to_host(tr.state.state_dict())
     store = {}
     with context(), shared_kernel_outputs(store, replay=False):

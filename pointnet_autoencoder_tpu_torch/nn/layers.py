@@ -15,6 +15,10 @@ Init follows the reference: Glorot-uniform kernels from an explicit
 ``torch.Generator``, zero biases, BN gamma 1, beta 0, mean 0, var 1,
 eps 1e-3. ``torch.nn.BatchNorm1d`` is not used: it updates its running
 variance with the unbiased variance and takes momentum as 1 - m.
+
+``PointMLP``, ``FC``, ``UpConv`` and ``Conv`` train unless told not to
+(``train=True`` by default), as the JAX package's layers do;
+``BatchNorm`` takes ``train`` from its caller.
 """
 
 from __future__ import annotations
@@ -79,7 +83,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
-    def forward(self, x: Tensor, train: bool = False,
+    def forward(self, x: Tensor, train: bool,
                 momentum: Union[float, Tensor] = 0.9) -> Tensor:
         if train:
             axes = tuple(range(x.dim() - 1))
@@ -154,7 +158,7 @@ class PointMLP(nn.Module):
             x = self.bn(x, train, bn_momentum)
         return F.relu(x) if self.relu else x
 
-    def forward(self, x: Tensor, train: bool = False,
+    def forward(self, x: Tensor, train: bool = True,
                 bn_momentum: float = 0.9) -> Tensor:
         group = self.tp_group
         if group is None:
@@ -239,7 +243,7 @@ class UpConv(nn.Module):
         self.bn = BatchNorm(features, device=device) if bn else None
         self.relu = relu
 
-    def forward(self, x: Tensor, train: bool = False,
+    def forward(self, x: Tensor, train: bool = True,
                 bn_momentum: float = 0.9) -> Tensor:
         x = self.convt(x)
         if self.bn is not None:
@@ -331,7 +335,7 @@ class Conv(nn.Module):
         self.bn = BatchNorm(features, device=device) if bn else None
         self.relu = relu
 
-    def forward(self, x: Tensor, train: bool = False,
+    def forward(self, x: Tensor, train: bool = True,
                 bn_momentum: float = 0.9) -> Tensor:
         x = self.conv(x)
         if self.bn is not None:

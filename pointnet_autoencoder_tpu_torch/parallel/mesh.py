@@ -20,6 +20,11 @@ port inserts the collectives by hand:
 - metrics and the preemption flag ride one all-reduce where the host
   waits anyway (``train/loop.py``).
 
+Every all-reduce of a step goes through ``utils/graphs.collective``: on
+a card, a rank of a gloo group records its step as a tape of graphs
+with the collectives run eagerly between them, and a rank of an NCCL
+group captures them inside its one graph (``train/loop.py``).
+
 With ``model_parallel`` m > 1 the k ranks form a (k/m, m) grid in JAX's
 row-major order, rank = d*m + t (``ProcessMesh``): the ranks of one model
 group (same d) hold one data shard and split the decoder's FC layers
@@ -46,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from pointnet_autoencoder_tpu_torch.device import resolve_device
+from pointnet_autoencoder_tpu_torch.utils import graphs
 
 Tensor = torch.Tensor
 
@@ -143,6 +149,14 @@ def process_rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def _sum_(x: Tensor, group) -> Tensor:
+    """Sum ``x`` over ``group`` in place, as a collective of a step
+    (``utils/graphs.collective``); returns x."""
+    graphs.collective(lambda: dist.all_reduce(x, op=dist.ReduceOp.SUM,
+                                              group=group))
+    return x
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the group. Each rank's result feeds its own loss, so the
     gradient of the global loss with respect to a rank's input is the sum
@@ -151,15 +165,11 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: Tensor, group) -> Tensor:
         ctx.group = group
-        y = x.contiguous().clone()
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
-        return y
+        return _sum_(x.contiguous().clone(), group)
 
     @staticmethod
     def backward(ctx, grad: Tensor):
-        g = grad.contiguous().clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        return g, None
+        return _sum_(grad.contiguous().clone(), ctx.group), None
 
 
 class DataGroup:
@@ -214,8 +224,8 @@ class DataGroup:
         grads = [p.grad for p in params if p.grad is not None]
         if not grads:
             return
-        flat = torch.cat([g.reshape(-1).float() for g in grads])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        flat = _sum_(torch.cat([g.reshape(-1).float() for g in grads]),
+                     self.group)
         if divisor != 1:
             flat.div_(divisor)
         offset = 0
@@ -225,8 +235,7 @@ class DataGroup:
 
     def sum_(self, x: Tensor) -> Tensor:
         """Sum ``x`` over the ranks in place (no gradient); returns x."""
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
-        return x
+        return _sum_(x, self.group)
 
     def any(self, flag: bool) -> bool:
         """True on every rank if ``flag`` is true on any (a max

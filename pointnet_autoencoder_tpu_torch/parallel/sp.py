@@ -58,7 +58,8 @@ the point group, the encoder's BN and head moments are taken over every
 rank (equal shards of rows and points), the neck's and decoder's over the
 batch group, and the gradients and metrics are summed over every rank and
 divided by the batch axis's size: summed over the point shares, averaged
-over the rows.
+over the rows. On a card the step functions are captured programs, as
+the Trainer's are (``compiled``).
 """
 
 from __future__ import annotations
@@ -67,13 +68,19 @@ import contextlib
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from pointnet_autoencoder_tpu_torch.ops import chamfer
 from pointnet_autoencoder_tpu_torch.ops import emd as emdlib
 from pointnet_autoencoder_tpu_torch.ops import fused_encoder, fused_head
 from pointnet_autoencoder_tpu_torch.parallel.mesh import DATA_AXIS
 from pointnet_autoencoder_tpu_torch.train.schedules import Staircase
-from pointnet_autoencoder_tpu_torch.train.state import SCHEDULE_KEYS
+from pointnet_autoencoder_tpu_torch.train.master import MasterOptimizer
+from pointnet_autoencoder_tpu_torch.train.state import (
+    SCHEDULE_KEYS,
+    StepPrograms,
+)
+from pointnet_autoencoder_tpu_torch.utils.graphs import ProgramCache
 
 Tensor = torch.Tensor
 LossFn = Callable[[Tensor, Tensor, Dict[str, Tensor]],
@@ -326,9 +333,34 @@ def point_batch_shard(batch: Tensor, mesh, axis: str = DATA_AXIS,
     return out.contiguous()
 
 
+def _captured(step: Callable, programs: StepPrograms, kind: str,
+              train: bool) -> Callable:
+    """``step`` (a batch -> 0-dim metric tensors) replayed from a captured
+    program of ``programs`` per batch shape, after its warm-up; a train
+    step counts one step a replay."""
+    keys = {}
+
+    def call(batch: Tensor):
+        if not programs.warm(kind):
+            return programs.warm_up(kind, lambda: step(batch))
+        key = (kind, tuple(batch.shape), batch.dtype)
+
+        def rows(x):
+            out = step(x)
+            keys[key] = sorted(out)
+            return torch.stack([out[k].float() for k in keys[key]])
+
+        rows = programs.run(key, rows, (batch,), steps=int(train))
+        return dict(zip(keys[key], rows.clone().unbind()))
+
+    call.programs = programs.programs
+    return call
+
+
 def make_sp_step_fns(state, name: str, bn_schedule: Staircase, mesh,
                      axis: str = DATA_AXIS,
-                     batch_axis: Optional[str] = None):
+                     batch_axis: Optional[str] = None,
+                     compiled: bool = True):
     """(train_step, eval_step) of the point-sharded step of ``--model
     name`` on ``mesh`` (a ``parallel.mesh.ProcessMesh``), the JAX
     package's ``make_sp_step_fns``: each takes this rank's part of a
@@ -340,6 +372,10 @@ def make_sp_step_fns(state, name: str, bn_schedule: Staircase, mesh,
     axis: the mesh axis whose ranks split the points.
     batch_axis: a second mesh axis whose ranks split the batch (DP x SP);
       None: every rank of ``axis`` holds the whole batch.
+    compiled: on a card, each step a captured program per batch shape,
+      the JAX package's jitted steps (a tape over gloo, one graph over
+      NCCL; the first call of each shape eager, as the warm-up); False,
+      or the CPU: the eager step, the reference.
     """
     if batch_axis == axis:
         raise ValueError(f"axis and batch_axis are both {axis!r}")
@@ -370,4 +406,12 @@ def make_sp_step_fns(state, name: str, bn_schedule: Staircase, mesh,
     def eval_step(batch_local: Tensor):
         return combined(state.eval_step(batch_local, loss_fn, context))
 
-    return train_step, eval_step
+    if not (compiled and on_card):
+        return train_step, eval_step
+    programs = StepPrograms(
+        state, ProgramCache(next(state.model.parameters()).device,
+                            taped=dist.get_backend() != "nccl"),
+        state.optimizer if isinstance(state.optimizer, MasterOptimizer)
+        else None)
+    return (_captured(train_step, programs, "train", True),
+            _captured(eval_step, programs, "eval", False))

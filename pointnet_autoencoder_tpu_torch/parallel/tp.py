@@ -290,8 +290,8 @@ class InProcessFC(nn.Module):
                 total = p if total is None else total + p
             y = (total + first.dense.bias.float()).to(first.dense.dtype)
             return first.activate(y, False, bn_momentum)
-        outs = [shard(x.to(dev)) for shard, dev in zip(self.shards,
-                                                         self.devices)]
+        outs = [shard(x.to(dev), False, bn_momentum)
+                for shard, dev in zip(self.shards, self.devices)]
         if self.gathers:
             return torch.cat([o.to(self.devices[0]) for o in outs], dim=-1)
         return outs

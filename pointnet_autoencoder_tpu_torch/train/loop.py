@@ -11,7 +11,7 @@ one device or as one rank of a data-parallel group:
 - Input (``input_mode``): ``"device"`` (the default) keeps the dataset
   on the device and builds each batch there (``data/device_pipeline.py``);
   ``"host"`` assembles batches on a host thread (``data/pipeline.py``).
-- Compiled steps: on one card (no process group) the
+- Compiled steps: on a card the
   steps are captured programs (``utils/graphs.py``, CUDA graphs), the
   JAX package's jitted, donated steps: with device input one program of
   ``log_every`` steps (batch assembly included) per replay and one of
@@ -22,7 +22,12 @@ one device or as one rank of a data-parallel group:
   runs the eager step, the reference. A train program registers the
   generators it draws from: the device pipeline's, and
   ``MasterOptimizer``'s noise generator, whose offset is set to the first
-  step's draw before each replay.
+  step's draw before each replay. A rank of an NCCL group captures its
+  collectives inside the program; a rank of a gloo group, whose
+  collectives go through the host, records each program as a tape: a
+  graph for each stretch between two collectives, the collectives run
+  eagerly between the replays (``utils/graphs.py``), logged with their
+  counts at the first capture.
 - Metrics per step: ``loss``, ``pcloss`` (and ``pc1loss`` for
   ``model_hierachy``), ``learning_rate``, ``bn_decay`` (the values the
   step applied, computed on the device), each step's in its row of an
@@ -90,7 +95,6 @@ from __future__ import annotations
 import contextlib
 import os
 import signal
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -126,6 +130,7 @@ from pointnet_autoencoder_tpu_torch.train.logging import (
 )
 from pointnet_autoencoder_tpu_torch.train.state import (
     SCHEDULE_KEYS,
+    StepPrograms,
     TrainState,
     make_optimizer,
 )
@@ -192,10 +197,10 @@ class Trainer:
     ``data_parallel`` None takes the group this process is in, if any.
 
     compiled: on a card, run the steps as captured programs
-    (``utils/graphs.py``), the default; False runs the eager step, the
-    reference they are held to. The CPU and the ranks of a group run
-    eager whatever it says (the first log line says which path runs, and
-    why)."""
+    (``utils/graphs.py``; a tape on a rank of a gloo group), the default;
+    False runs the eager step, the reference they are held to. The CPU
+    runs eager whatever it says (the first log line says which path
+    runs, and why)."""
 
     def __init__(self, config: TrainConfig,
                  train_dataset: Optional[PartDataset] = None,
@@ -345,30 +350,35 @@ class Trainer:
             schedules.learning_rate_schedule(
                 config.learning_rate, config.decay_rate, config.batch_size,
                 config.decay_step, floor=config.lr_floor))
-        # Captured programs on one card; the reason, where the steps run
-        # eager.
+        # Captured programs on a card; the reason, where the steps run
+        # eager. A gloo rank's collectives cannot be captured: its
+        # programs are tapes.
         eager = ("the CPU runs eager" if self.device.type != "cuda" else
                  "compiled=False: the eager reference" if not compiled else
-                 "a rank of a torch.distributed group: its collectives run "
-                 "on the host and cannot be captured"
-                 if self.world is not None else None)
-        self._programs = (ProgramCache(self.device) if eager is None
-                          else None)
-        # The program kinds warmed up (run once eagerly) in the state's
-        # generation ``_warm_generation``, and each step's metric names.
-        self._warmed: set = set()
-        self._warm_generation = self.state.generation
+                 None)
+        taped = self.world is not None and dist.get_backend() != "nccl"
+        self._steps = (StepPrograms(
+            self.state, ProgramCache(self.device, taped=taped),
+            self._master, self.logger.log) if eager is None else None)
+        # Each step's metric names.
         self._keys: Dict[str, List[str]] = {}
+        where = str(self.device) + ("" if self.world is None else
+                                    f" of a {dist.get_backend()} group of "
+                                    f"{world} ranks")
+        how = ("each stretch between two collectives one CUDA graph, the "
+               "collectives run eagerly between the replays, at most one "
+               "graph more than collectives a replay; " if taped else
+               "the collectives inside each graph; "
+               if self.world is not None else "")
+        master_note = ("; MasterOptimizer's update inside each train "
+                       "program, its noise generator registered with it"
+                       if self._master is not None else "")
         self.logger.log(
             "step path: eager (" + eager + ")" if eager else
-            f"step path: captured CUDA graphs on {self.device} (a program "
-            f"of log_every={config.log_every} train steps per replay with "
-            f"device input, the eval epoch in one; one step per replay "
-            f"with host input" + ("; MasterOptimizer's update inside each "
-                                  "train program, its noise generator "
-                                  "registered with it"
-                                  if self._master is not None else "")
-            + ")")
+            f"step path: captured {'tape' if taped else 'CUDA graphs'} on "
+            f"{where} ({how}a program of log_every={config.log_every} train "
+            f"steps per replay with device input, the eval epoch in one; one "
+            f"step per replay with host input{master_note})")
 
         self.ckpt = checkpoint.CheckpointManager(config.log_dir)
         self._saver = (checkpoint.AsyncSaver(self.ckpt, log=self.logger.log)
@@ -418,68 +428,18 @@ class Trainer:
         self._keys["eval"] = sorted(metrics)
         return metrics
 
-    def _warm(self, kind: str) -> bool:
-        """Whether ``kind`` ("train" or "eval") has run once eagerly in the
-        state's generation, in this thread (a thread's first cuBLAS or
-        cuDNN call makes its handle, which cannot happen under capture).
-        A new generation (``TrainState.load_state_dict`` replaced the
-        optimizer's slots) releases every program and needs a warm-up
-        again."""
-        if self._warm_generation != self.state.generation:
-            self._programs.clear()
-            self._warmed.clear()
-            self._warm_generation = self.state.generation
-        return (threading.get_ident(), kind) in self._warmed
-
-    def _warmed_up(self, kind: str) -> None:
-        self._warmed.add((threading.get_ident(), kind))
-
-    def _count_steps(self, k: int) -> None:
-        """Advance the host's step counts (the state's, and the master
-        optimizer's) by ``k``."""
-        self.state.count_steps(k)
-        if self._master is not None:
-            self._master.count_steps(k)
-
-    def _run_program(self, key: Tuple, step_rows: Callable,
-                     inputs: Tuple[torch.Tensor, ...], steps: int = 0,
-                     generators: Tuple[torch.Generator, ...] = ()
-                     ) -> torch.Tensor:
-        """Replay the program of ``key`` on ``inputs`` (capturing
-        ``step_rows(*inputs)`` first, which returns the (k, keys) f32 rows
-        of its steps' metrics); returns the rows, which the next replay
-        overwrites. ``steps``: train steps in one replay, which the
-        capture counted on the host and each replay counts; a train
-        program also registers the master optimizer's noise generator,
-        set to its first step's draw before each replay."""
-
-        def record(*static):
-            rows = step_rows(*static)
-            self._count_steps(-steps)
-            return rows
-
-        if steps and self._master is not None:
-            generators += self._master.generators
-        prog = self._programs.program(key, record, inputs, generators)
-        if steps and self._master is not None:
-            self._master.seek(self.state.step)
-        rows = prog.replay(*inputs)
-        self._count_steps(steps)
-        return rows
-
     def train_step(self, batch: torch.Tensor) -> Metrics:
         """One optimizer step on ``batch`` (B, N, 3), its own label; on a
         card (``compiled``) the replay of a captured step, the first one
         after a warm-up eager. Returns the step's metrics, 0-dim tensors
         of the caller's own."""
-        if self._programs is None:
+        if self._steps is None:
             return self._eager_train_step(batch)
-        if not self._warm("train"):
-            out = self._programs.warm_up(lambda: self._eager_train_step(batch))
-            self._warmed_up("train")
-            return out
+        if not self._steps.warm("train"):
+            return self._steps.warm_up(
+                "train", lambda: self._eager_train_step(batch))
 
-        rows = self._run_program(
+        rows = self._steps.run(
             ("step", tuple(batch.shape), batch.dtype),
             lambda x: EpochMetrics.row(self._eager_train_step(x))[1][None],
             (batch,), steps=1)
@@ -488,14 +448,13 @@ class Trainer:
     def eval_step(self, batch: torch.Tensor) -> Metrics:
         """The eval loss and metrics on ``batch``; captured as
         ``train_step``."""
-        if self._programs is None:
+        if self._steps is None:
             return self._eager_eval_step(batch)
-        if not self._warm("eval"):
-            out = self._programs.warm_up(lambda: self._eager_eval_step(batch))
-            self._warmed_up("eval")
-            return out
+        if not self._steps.warm("eval"):
+            return self._steps.warm_up(
+                "eval", lambda: self._eager_eval_step(batch))
 
-        rows = self._run_program(
+        rows = self._steps.run(
             ("eval_step", tuple(batch.shape), batch.dtype),
             lambda x: EpochMetrics.row(self._eager_eval_step(x))[1][None],
             (batch,))
@@ -523,7 +482,7 @@ class Trainer:
             return torch.stack(out)
 
         k = idxs.shape[0]
-        if self._programs is None:
+        if self._steps is None:
             # Eager, a stop at the next step boundary.
             for j in range(k):
                 if train and self._should_stop():
@@ -531,14 +490,12 @@ class Trainer:
                 metrics.put(step(self._assemble(pipe, data, idxs[j],
                                                 rotate)))
             return
-        if not self._warm(kind):
-            out = self._programs.warm_up(lambda: rows(idxs, eager_step))
-            self._warmed_up(kind)
+        if not self._steps.warm(kind):
+            out = self._steps.warm_up(kind, lambda: rows(idxs, eager_step))
         else:
-            out = self._run_program((kind, k),
-                                    lambda ix: rows(ix, eager_step), (idxs,),
-                                    steps=k if train else 0,
-                                    generators=(pipe.generator,))
+            out = self._steps.run((kind, k), lambda ix: rows(ix, eager_step),
+                                  (idxs,), steps=k if train else 0,
+                                  generators=(pipe.generator,))
         metrics.put_rows(self._keys[kind], out)
 
     def _assemble(self, pipe: DeviceBatchIterator, data: DeviceDataset,
@@ -881,8 +838,8 @@ class Trainer:
         if self._closed:
             return
         self._closed = True
-        if self._programs is not None:
-            self._programs.close()
+        if self._steps is not None:
+            self._steps.programs.close()
         if self._saver is not None:
             self._saver.close()
             self._saver = None

@@ -14,7 +14,8 @@ no host sync, so it can be captured as a CUDA graph
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Iterable, Optional
+import threading
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import Tensor, nn
@@ -209,3 +210,82 @@ class TrainState:
         out = dict(metrics)
         out["loss"] = loss
         return out
+
+
+class StepPrograms:
+    """A ``TrainState``'s steps as captured programs on a card, kept in
+    ``programs`` (a ``utils/graphs.ProgramCache``; tapes on a rank of a
+    gloo group). The first call of each kind in each thread runs eagerly
+    as its warm-up (``warm_up``): a thread's first cuBLAS or cuDNN call
+    makes its handle, which cannot happen under capture, and the first
+    step makes the optimizer's slots. A new generation of the state
+    (``load_state_dict`` replaced the slots) releases every program and
+    needs a warm-up again. ``master``: a ``MasterOptimizer``, whose noise
+    generators every train program registers, set to the program's first
+    step's draw before each replay. ``log``: told each tape's graphs and
+    collectives at its capture."""
+
+    def __init__(self, state: TrainState, programs,
+                 master=None, log: Optional[Callable[[str], None]] = None):
+        self.state = state
+        self.programs = programs
+        self.master = master
+        self.log = log
+        self._warmed: set = set()
+        self._generation = state.generation
+        self._logged: set = set()
+
+    def warm(self, kind: str) -> bool:
+        """Whether ``kind`` has run its warm-up in this thread and in the
+        state's generation."""
+        if self._generation != self.state.generation:
+            self.programs.clear()
+            self._warmed.clear()
+            self._generation = self.state.generation
+        return (threading.get_ident(), kind) in self._warmed
+
+    def warm_up(self, kind: str, fn: Callable):
+        """``fn()`` as ``kind``'s warm-up, run eagerly on the programs'
+        side stream; returns its result."""
+        out = self.programs.warm_up(fn)
+        self._warmed.add((threading.get_ident(), kind))
+        return out
+
+    def _count_steps(self, k: int) -> None:
+        """Advance the host's step counts (the state's, and the master
+        optimizer's) by ``k``."""
+        self.state.count_steps(k)
+        if self.master is not None:
+            self.master.count_steps(k)
+
+    def run(self, key, step_rows: Callable, inputs: Tuple[Tensor, ...],
+            steps: int = 0, generators: Tuple[torch.Generator, ...] = ()
+            ) -> Tensor:
+        """Replay the program of ``key`` on ``inputs`` (capturing
+        ``step_rows(*inputs)`` first, which returns the f32 rows of its
+        steps' metrics); returns the rows, which the next replay
+        overwrites. ``steps``: train steps in one replay, which the
+        capture counted on the host and each replay counts; a train
+        program also registers the master optimizer's noise generators,
+        and ``generators``."""
+
+        def record(*static):
+            rows = step_rows(*static)
+            self._count_steps(-steps)
+            return rows
+
+        if steps and self.master is not None:
+            generators += self.master.generators
+        prog = self.programs.program(key, record, inputs, generators)
+        if prog.collectives and self.log and key not in self._logged:
+            self._logged.add(key)
+            per = max(steps, 1)
+            self.log(f"tape {key}: {prog.graphs} graphs and "
+                     f"{prog.collectives} collectives a replay "
+                     f"({prog.graphs / per:g} and {prog.collectives / per:g} "
+                     f"a {'step' if steps else 'replay'})")
+        if steps and self.master is not None:
+            self.master.seek(self.state.step)
+        rows = prog.replay(*inputs)
+        self._count_steps(steps)
+        return rows

@@ -27,12 +27,25 @@ A program is one call of a function captured once with
   the counts of the eager run that does the same work.
 - A capture or a replay that fails raises; nothing runs the eager
   function in its place.
+
+A tape is such a program over collectives that cannot be captured (a
+rank of a gloo group: gloo copies each tensor to the host and back). Its
+capture ends the open graph at each collective that the function reaches
+(``collective``), runs the collective eagerly, and begins the next graph
+in the same pool; a replay runs graph, collective, graph, ... in capture
+order, each collective on the static tensor that the graph before it
+wrote and the graph after it reads. A collective of the backward runs on
+autograd's device thread, not on the thread that began the capture, so
+a tape's graphs are captured in ``relaxed`` mode, which lets another
+thread end a capture (``thread_local`` and ``global`` do not); the work
+inside each graph is the one-card step's, which makes no host sync.
+Under NCCL the collectives are captured inside the one graph.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Hashable, Iterable, Tuple
+from typing import Callable, Dict, Hashable, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -50,12 +63,30 @@ def launch_counts() -> Tuple[int, ...]:
     return tuple(fn.launches for fn in COUNTED)
 
 
+# The tape being recorded, if any. Process-wide, not per thread: the
+# backward's collectives reach it from autograd's device thread.
+_recording: Optional["CapturedProgram"] = None
+
+
+def collective(run: Callable[[], None]) -> None:
+    """Run ``run``, a collective that works in place on tensors a step
+    made, now; or, while a tape is recorded, at a boundary of the tape:
+    the open graph's capture ends, ``run`` runs eagerly, the next graph's
+    capture begins, and every replay runs ``run`` again at that point."""
+    tape = _recording
+    if tape is None:
+        run()
+    else:
+        tape._boundary(run)
+
+
 class CudaGraph:
     """A ``torch.cuda.CUDAGraph`` captured on ``stream`` into the memory
-    ``pool``, with ``generators`` registered: the three calls
-    ``CapturedProgram`` makes of a graph. Capture is thread-local, so
+    ``pool``, with ``generators`` registered: the calls ``CapturedProgram``
+    makes of a graph (``capture``, or ``begin`` and ``end`` for a tape's
+    graph; ``replay``; ``reset``). One graph's capture is thread-local, so
     another thread's copies (a background checkpoint save) do not break
-    it. It calls ``capture_begin`` and ``capture_end`` itself: the
+    it; a tape's are relaxed, which breaks on them neither. It calls ``capture_begin`` and ``capture_end`` itself: the
     ``torch.cuda.graph`` context also empties the allocator's caches at
     every capture, after which the next clones of the state (a
     checkpoint snapshot) wait on fresh device allocations. As there, the
@@ -71,21 +102,31 @@ class CudaGraph:
         self.stream = stream
         self.pool = pool
 
-    @contextlib.contextmanager
-    def capture(self):
+    def begin(self, mode: str = "relaxed") -> None:
+        """Begin capturing the work queued on ``stream``, from any thread
+        (a tape's graph; ``capture`` runs one graph on one thread)."""
         torch.cuda.synchronize(self.stream.device)
         with torch.cuda.stream(self.stream):
-            self.graph.capture_begin(self.pool,
-                                     capture_error_mode="thread_local")
-            try:
-                yield
-            except BaseException:
-                try:
-                    self.graph.capture_end()
-                except RuntimeError:
-                    pass  # the capture's own failure is the one raised
-                raise
+            self.graph.capture_begin(self.pool, capture_error_mode=mode)
+
+    def end(self) -> None:
+        """End the capture, from any thread in ``relaxed`` mode."""
+        with torch.cuda.stream(self.stream):
             self.graph.capture_end()
+
+    @contextlib.contextmanager
+    def capture(self):
+        self.begin("thread_local")
+        try:
+            with torch.cuda.stream(self.stream):
+                yield
+        except BaseException:
+            try:
+                self.end()
+            except RuntimeError:
+                pass  # the capture's own failure is the one raised
+            raise
+        self.end()
         # Replays run on the caller's stream, after what capture_begin
         # queued on the capture stream.
         torch.cuda.current_stream(self.stream.device).wait_stream(self.stream)
@@ -102,39 +143,95 @@ class CapturedProgram:
     object with ``capture()``, ``replay()`` and ``reset()``). ``inputs``
     are the static input tensors, ``outputs`` what ``fn`` returned at
     capture: the static tensors every replay overwrites. ``launches``
-    holds each counted wrapper's launches in one replay."""
+    holds each counted wrapper's launches in one replay.
+
+    ``next_graph`` makes the program a tape: a factory of the graphs that
+    follow ``graph`` (each with ``begin()`` and ``end()``, which ``graph``
+    then needs too), one after each ``collective`` that ``fn`` reaches.
+    ``steps`` holds the graphs and collectives in replay order;
+    ``graphs`` and ``collectives`` count them."""
 
     def __init__(self, fn: Callable, graph,
-                 inputs: Tuple[torch.Tensor, ...] = ()):
+                 inputs: Tuple[torch.Tensor, ...] = (),
+                 next_graph: Optional[Callable] = None):
         self.inputs = inputs
+        self.steps: Optional[List] = [graph]
+        self._next_graph = next_graph
         before = launch_counts()
         try:
-            with graph.capture():
-                self.outputs = fn(*inputs)
+            if next_graph is None:
+                with graph.capture():
+                    self.outputs = fn(*inputs)
+            else:
+                self.outputs = self._record(fn, inputs)
         finally:
+            self._next_graph = None
             after = launch_counts()
             for counted, n in zip(COUNTED, before):
                 counted.launches = n
         self.launches = tuple(a - b for a, b in zip(after, before))
-        self.graph = graph
+        self.graphs = (len(self.steps) + 1) // 2
+        self.collectives = len(self.steps) // 2
+
+    def _record(self, fn: Callable, inputs: Tuple[torch.Tensor, ...]):
+        """``fn(*inputs)`` recorded as a tape (on the first graph's
+        stream, if it has one); returns its outputs."""
+        global _recording
+        if _recording is not None:
+            raise RuntimeError("a tape is already being recorded")
+        stream = getattr(self.steps[0], "stream", None)
+        work = (contextlib.nullcontext() if stream is None
+                else torch.cuda.stream(stream))
+        with work:
+            self.steps[0].begin()
+            _recording = self
+            try:
+                out = fn(*inputs)
+            except BaseException:
+                _recording = None
+                try:
+                    self.steps[-1].end()
+                except RuntimeError:
+                    pass  # the recording's own failure is the one raised
+                raise
+            _recording = None
+            self.steps[-1].end()
+        if stream is not None:
+            torch.cuda.current_stream(stream.device).wait_stream(stream)
+        return out
+
+    def _boundary(self, run: Callable[[], None]) -> None:
+        """End the open graph, run the collective ``run``, begin the
+        next graph."""
+        self.steps[-1].end()
+        run()
+        graph = self._next_graph()
+        self.steps += [run, graph]
+        graph.begin()
 
     def replay(self, *inputs: torch.Tensor):
         """Copy ``inputs`` into the static inputs and run the captured work
-        once; returns ``outputs``."""
-        if self.graph is None:
+        once (a tape's graphs and collectives in capture order); returns
+        ``outputs``."""
+        if self.steps is None:
             raise RuntimeError("replay of a released program")
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
-        self.graph.replay()
+        for i, step in enumerate(self.steps):
+            if i % 2:
+                step()
+            else:
+                step.replay()
         for counted, n in zip(COUNTED, self.launches):
             counted.launches += n
         return self.outputs
 
     def close(self) -> None:
-        """Release the graph; its inputs and outputs go with it."""
-        if self.graph is not None:
-            self.graph.reset()
-        self.graph = None
+        """Release the graphs; their inputs and outputs go with them."""
+        if self.steps is not None:
+            for graph in self.steps[::2]:
+                graph.reset()
+        self.steps = None
         self.inputs = self.outputs = None
 
 
@@ -143,13 +240,15 @@ class ProgramCache:
     session's replica): a side stream for warm-up and capture, one memory
     pool that its programs share (they are never replayed at once, and
     each program's outputs are consumed before the next replay), and the
-    programs by key. ``close`` releases them all."""
+    programs by key. ``close`` releases them all. ``taped``: every program
+    is a tape (a rank of a gloo group)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, taped: bool = False):
         if device.type != "cuda":
             raise ValueError(f"captured programs run on a card, not on "
                              f"{device}")
         self.device = device
+        self.taped = taped
         with torch.cuda.device(device):
             self.stream = torch.cuda.Stream(device)
             self.pool = torch.cuda.graph_pool_handle()
@@ -174,13 +273,19 @@ class ProgramCache:
                 ) -> CapturedProgram:
         """The program of ``key``; if there is none, ``fn`` captured on
         static copies of ``inputs`` (made before capture, outside the
-        graph's pool)."""
+        graph's pool), as a tape if the cache is ``taped``, every graph
+        registering ``generators``."""
         prog = self._programs.get(key)
         if prog is None:
             static = tuple(t.clone() for t in inputs)
+            generators = tuple(generators)
+
+            def graph():
+                return CudaGraph(self.stream, self.pool, generators)
+
             with torch.cuda.device(self.device):
-                prog = CapturedProgram(fn, CudaGraph(self.stream, self.pool,
-                                                     generators), static)
+                prog = CapturedProgram(fn, graph(), static,
+                                       graph if self.taped else None)
             self._programs[key] = prog
         return prog
 

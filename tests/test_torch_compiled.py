@@ -57,6 +57,7 @@ from pointnet_autoencoder_tpu_torch.train.loop import (
     window_means,
 )
 from pointnet_autoencoder_tpu_torch.train.state import (
+    StepPrograms,
     TraceSGD,
     TrainState,
     make_optimizer,
@@ -510,7 +511,9 @@ def test_a_master_chunk_program_registers_and_seeks_the_noise_generator(
         gen = stand_in_noise(monkeypatch, trainer.state.optimizer)
         capturing = [False]
         monkeypatch.setattr(master, "_capturing", lambda: capturing[0])
-        cache = trainer._programs = StandInCache(capturing)
+        cache = StandInCache(capturing)
+        trainer._steps = StepPrograms(trainer.state, cache,
+                                      trainer.state.optimizer)
         metrics = EpochMetrics(9, "cpu")
         for _ in range(3):
             trainer._chunk("train", torch.zeros((3, BATCH), dtype=torch.long),

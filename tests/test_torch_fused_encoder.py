@@ -119,7 +119,7 @@ def test_fused_equals_layered_port_modules():
     with torch.inference_mode():
         layered = x
         for layer in enc.layers():
-            layered = layer(layered)
+            layered = layer(layered, train=False)
         np.testing.assert_allclose(enc(x).numpy(),
                                    layered.amax(dim=1).numpy(),
                                    rtol=1e-5, atol=1e-5)

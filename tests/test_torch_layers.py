@@ -184,7 +184,7 @@ def test_conv_matches_flax(rank, padding, stride):
     np.testing.assert_allclose(
         _load(layers.Conv(4, 6, kernel, strides=strides, padding=padding,
                           bn=True), tree, prefix="layer.")(
-            torch.from_numpy(x)).detach().numpy(),
+            torch.from_numpy(x), train=False).detach().numpy(),
         np.asarray(want_eval), **TOL)
 
 
@@ -221,6 +221,54 @@ def test_pools_default_strides_to_the_window():
     assert mx.shape == av.shape == (1, 2, 2, 2)
     assert float(mx[0, 0, 0, 0]) == 10.0   # max of {0,2,8,10}
     assert float(av[0, 0, 0, 0]) == 5.0    # mean of {0,2,8,10}
+
+
+# -- default arguments --------------------------------------------------------
+
+
+def _default_call_cases():
+    """(name, JAX module, the port's module, input) of each layer whose
+    call defaults to training, every one with BN so that the default
+    shows; inputs from a numpy seed, shifted off zero mean so that batch
+    and moving statistics differ."""
+    from pointnet_autoencoder_tpu.nn.layers import FC as JFC
+    from pointnet_autoencoder_tpu.nn.layers import PointMLP as JPointMLP
+    from pointnet_autoencoder_tpu.nn.layers import UpConv as JUpConv
+
+    rng = np.random.RandomState(0)
+    points = (rng.randn(2, 16, 3) * 3 + 1).astype(np.float32)
+    rows = (rng.randn(4, 5) * 3 + 1).astype(np.float32)
+    image = (rng.randn(2, 2, 3, 4) * 3 + 1).astype(np.float32)
+    return {
+        "PointMLP": (JPointMLP(8), layers.PointMLP(3, 8), points),
+        "FC": (JFC(6, bn=True), layers.FC(5, 6, bn=True), rows),
+        "UpConv": (JUpConv(6, (3, 3), (2, 2)),
+                   layers.UpConv(4, 6, (3, 3), (2, 2)), image),
+        "Conv": (JConv(8, (3,), bn=True), layers.Conv(3, 8, (3,), bn=True),
+                 points),
+    }
+
+
+@pytest.mark.parametrize("name", ["PointMLP", "FC", "UpConv", "Conv"])
+def test_default_call_trains_as_flax(name):
+    """A layer called with default arguments trains, as flax's does
+    (``apply(v, x, mutable=["batch_stats"])``): the same output and the
+    same moving statistics, at rtol and atol 1e-5."""
+    jmod, mod, x = _default_call_cases()[name]
+    variables = jax.device_get(jmod.init(jax.random.PRNGKey(0), x))
+    want, mutated = jmod.apply(variables, x, mutable=["batch_stats"])
+    tree = {"params": {"layer": variables["params"]},
+            "batch_stats": {"layer": variables["batch_stats"]}}
+    _load(mod, tree, prefix="layer.")
+    got = mod(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    stats = from_flax_variables({"params": {}, "batch_stats": {
+        "layer": mutated["batch_stats"]}})
+    for stat in ("mean", "var"):
+        np.testing.assert_allclose(getattr(mod.bn, stat).numpy(),
+                                   stats[f"layer.bn.{stat}"].numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=stat)
 
 
 # -- Dropout ----------------------------------------------------------------

@@ -115,7 +115,7 @@ def test_forward_and_bn_match_jax(stage, route):
     layer = _port_layer(variables, route, cin, cout, k, s)
     want = np.asarray(jmod.apply(variables, x, train=False))
     with torch.no_grad():
-        got = layer(torch.from_numpy(x)).numpy()
+        got = layer(torch.from_numpy(x), train=False).numpy()
     np.testing.assert_allclose(got, want, **TOL)
 
     want_t, mutated = jmod.apply(variables, x, train=True, bn_momentum=0.5,
@@ -132,7 +132,7 @@ def test_forward_and_bn_match_jax(stage, route):
     if k != (1, 1):
         unflipped = _port_layer(variables, route, cin, cout, k, s, flip=False)
         with torch.no_grad():
-            wrong = unflipped(torch.from_numpy(x)).numpy()
+            wrong = unflipped(torch.from_numpy(x), train=False).numpy()
         assert np.abs(wrong - want).max() > 1e-2
 
 

@@ -20,6 +20,8 @@ import types
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from pointnet_autoencoder_tpu_torch.config import TrainConfig
 from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
@@ -30,6 +32,7 @@ from pointnet_autoencoder_tpu_torch.ops import emd as em
 from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
 from pointnet_autoencoder_tpu_torch.parallel.mesh import DataGroup
 from pointnet_autoencoder_tpu_torch.train.loop import EpochMetrics, Trainer
+from pointnet_autoencoder_tpu_torch.train.state import StepPrograms
 
 
 def _setup(device):
@@ -631,3 +634,254 @@ def tp_trainer_step_rank(device, config_json, batch, out_dir):
     full = tr._full_state()
     tr.close()
     _save(out_dir, tr.rank, {"means": means, "model": full["model"]})
+
+
+# -- the tape of a gloo rank's step, on the CPU -------------------------------
+
+
+# In-place ops that change a tensor's geometry and not its data.
+METADATA_OPS = {"squeeze_", "unsqueeze_", "t_", "transpose_", "swapdims_",
+                "swapaxes_", "as_strided_", "detach_"}
+
+
+class OpRecorder(TorchDispatchMode):
+    """What a CUDA graph does, for stand-in graphs on the CPU: while a
+    graph of this recorder is open (``current``), every aten op that runs
+    is recorded with its arguments and outputs, and storages that existed
+    before the program and that an op writes are saved, to be restored
+    when the graph ends (a capture leaves the state as it found it). An
+    op that gives the host a value (a sync) fails the recording: replays
+    could not read it. Active while the program's function runs (the
+    backward's nodes see the mode the backward was called under)."""
+
+    def __init__(self):
+        super().__init__()
+        self.current = None
+        self.made = set()
+        self.saved = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        graph = self.current
+        if graph is None or func.namespace == "profiler":
+            # Nothing open, or a host-side annotation.
+            return func(*args, **kwargs)
+        inputs = {t.untyped_storage().data_ptr()
+                  for t in tree_flatten((args, kwargs))[0]
+                  if isinstance(t, torch.Tensor)}
+        for i, arg in enumerate(func._schema.arguments):
+            if arg.alias_info is None or not arg.alias_info.is_write:
+                continue
+            value = args[i] if i < len(args) else kwargs.get(arg.name)
+            for t in (value if isinstance(value, (list, tuple))
+                      else [value]):
+                if isinstance(t, torch.Tensor):
+                    st = t.untyped_storage()
+                    ptr = st.data_ptr()
+                    if ptr not in self.made and ptr not in self.saved:
+                        self.saved[ptr] = (st, st.clone())
+        out = func(*args, **kwargs)
+        if func.overloadpacket.__name__ in METADATA_OPS:
+            # Already applied to the recorded tensors: a replay keeps it.
+            return out
+        geometries = []
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                ptr = t.untyped_storage().data_ptr()
+                if ptr not in inputs:
+                    self.made.add(ptr)
+                geometries.append((t.shape, t.stride(),
+                                   t.storage_offset()))
+            elif isinstance(t, (bool, int, float, complex)):
+                raise RuntimeError(f"{func} gives the host a value inside a "
+                                   f"captured stretch")
+            else:
+                geometries.append(None)
+        # The output's geometry as the op made it (a later in-place view
+        # op, such as matmul's squeeze_, may change the tensor's).
+        graph.ops.append((func, args, kwargs, out, geometries))
+        return out
+
+
+class OpGraph:
+    """A stand-in graph of ``recorder``: ``begin``/``end`` (and
+    ``capture``) record the ops between them; ``replay`` runs them again
+    on the same tensors, each output copied into the recorded one, and
+    notes its index in ``log``."""
+
+    def __init__(self, recorder: OpRecorder, log: list, index: int):
+        self.recorder, self.log, self.index = recorder, log, index
+        self.ops = []
+
+    def begin(self):
+        self.log.append(("begin", self.index))
+        self.recorder.current = self
+
+    def end(self):
+        rec = self.recorder
+        rec.current = None
+        with torch.no_grad():
+            for st, copy in rec.saved.values():
+                st.copy_(copy)
+        rec.saved.clear()
+
+    @contextlib.contextmanager
+    def capture(self):
+        self.begin()
+        try:
+            yield
+        finally:
+            self.end()
+
+    def replay(self):
+        self.log.append(("graph", self.index))
+        with torch.no_grad():
+            for func, args, kwargs, out, geometries in self.ops:
+                new = func(*args, **kwargs)
+                for old, fresh, geometry in zip(tree_flatten(out)[0],
+                                                tree_flatten(new)[0],
+                                                geometries):
+                    if (isinstance(old, torch.Tensor)
+                            and old.untyped_storage().data_ptr()
+                            != fresh.untyped_storage().data_ptr()):
+                        torch.as_strided(old, *geometry).copy_(fresh)
+
+    def reset(self):
+        self.ops = []
+
+
+class TapeCache:
+    """``ProgramCache``'s calls with ``OpGraph``s: the warm-up runs the
+    function, and each program is a tape (``taped``) whose function runs
+    under a fresh ``OpRecorder``. ``log`` notes each graph's capture and
+    replay, and each collective (``counting_collectives``)."""
+
+    taped = True
+
+    def __init__(self, log: list):
+        self.log = log
+        self.programs = {}
+
+    def warm_up(self, fn):
+        return fn()
+
+    def program(self, key, fn, inputs=(), generators=()):
+        from pointnet_autoencoder_tpu_torch.utils import graphs
+
+        if key not in self.programs:
+            recorder = OpRecorder()
+            made = []
+
+            def graph():
+                made.append(OpGraph(recorder, self.log, len(made)))
+                return made[-1]
+
+            def recorded(*static):
+                with recorder:
+                    return fn(*static)
+
+            self.programs[key] = graphs.CapturedProgram(
+                recorded, graph(), tuple(t.clone() for t in inputs), graph)
+        return self.programs[key]
+
+    def clear(self):
+        self.programs.clear()
+
+    close = clear
+
+
+@contextlib.contextmanager
+def counting_collectives(log: list):
+    """Within the block, every ``torch.distributed.all_reduce`` notes
+    ``("collective",)`` in ``log``."""
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+
+    def all_reduce(*args, **kwargs):
+        log.append(("collective",))
+        return real(*args, **kwargs)
+
+    dist.all_reduce = all_reduce
+    try:
+        yield
+    finally:
+        dist.all_reduce = real
+
+
+@contextlib.contextmanager
+def simulated_launches():
+    """Within the block, each kernel's plain version (the CPU's route)
+    adds one to its CUDA wrapper's launch counter, as a launch on a card
+    would."""
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+
+    pairs = ((ch, "nn_distance_plain", ch.nn_distance_cuda),
+             (ch, "nn_distance_grad_plain", ch.nn_distance_grad_cuda),
+             (fh, "head_max_plain", fh.head_max_cuda),
+             (fh, "head_bwd_plain", fh.head_bwd_cuda),
+             (fe, "encoder_extrema_plain", fe.encoder_extrema_cuda))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in pairs]
+
+    def counting(fn, counter):
+        def call(*args, **kwargs):
+            counter.launches += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for (mod, name, counter), (_, _, fn) in zip(pairs, saved):
+        setattr(mod, name, counting(fn, counter))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def tape_rank(device, config_jsons, batch, out_dir, steps):
+    """For each config of ``config_jsons`` (by tag), ``steps`` train steps
+    of a Trainer on this rank's part of ``batch`` (its rows, or its points
+    under point parallelism), eager and then through a tape
+    (``TapeCache``: the first step is the eager warm-up, the second
+    captures, every step after it replays), each with the kernels'
+    launches simulated: each step's metrics, the collectives each eager
+    step issued, the tape's graphs and collectives, the log of its
+    capture and replays, the launches, and the final parameters and BN
+    statistics."""
+    from pointnet_autoencoder_tpu_torch.ops import fused_encoder as fe
+    from pointnet_autoencoder_tpu_torch.utils import graphs
+
+    torch.set_num_threads(2)
+    counters = (ch.nn_distance_cuda, ch.nn_distance_grad_cuda,
+                fh.head_max_cuda, fh.head_bwd_cuda, fe.encoder_extrema_cuda)
+    out = {}
+    for tag, config_json in config_jsons.items():
+        res = {}
+        for taped in (False, True):
+            tr = Trainer(TrainConfig.from_json(config_json), device=device)
+            x = torch.from_numpy(batch)[tr._rows][:, tr._points].contiguous()
+            log = []
+            if taped:
+                tr._steps = StepPrograms(tr.state, TapeCache(log))
+            for fn in counters:
+                fn.launches = 0
+            losses, per_step = [], []
+            with simulated_launches(), counting_collectives(log):
+                for _ in range(steps):
+                    mark = len(log)
+                    losses.append(tr.train_step(x)["loss"].clone())
+                    per_step.append(log[mark:])
+            run = dict(
+                losses=losses, log=per_step,
+                launches=[fn.launches for fn in counters],
+                params={n: p.detach().clone()
+                        for n, p in tr.model.named_parameters()},
+                buffers={n: b.clone() for n, b in tr.model.named_buffers()},
+                step=tr.state.step, recording=graphs._recording)
+            if taped:
+                prog, = tr._steps.programs.programs.values()
+                run.update(graphs=prog.graphs, collectives=prog.collectives)
+            res["tape" if taped else "eager"] = run
+            tr.close()
+        out[tag] = res
+    _save(out_dir, torch.distributed.get_rank(), out)
