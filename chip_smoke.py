@@ -331,6 +331,21 @@ line each; any failure exits non-zero before the final line:
             (one flipped bf16 rounding of a folded BN scale moves a whole
             channel by a bf16 step), and each one's device busy time per
             call, the median of 10 traced calls.
+23. bench: the port's benchmark script as a user runs it, ``python -m
+            pointnet_autoencoder_tpu_torch.bench`` in a subprocess with
+            its self-record in the run's tmp dir and BENCH_BUDGET_S=120:
+            rc 0, every stdout line JSON, the self-record the last line,
+            the metric ``train_throughput_model_b32_n2048``, nothing
+            skipped, ``model_step_ms`` between 0.9 x phase 22's graphed
+            ``model`` step's device busy time and 1.1 x its host median;
+            every row (the train steps of the six families, the served
+            forwards at B=32, 1 and 512, the dispatch probe) timed on
+            graph replays, one a call by its ``ProgramCache``, and each
+            kernel launched during a row as often as the row's eager call
+            times its calls. Then the script again under SLURM's
+            variables (a job id whose port is free), which make it an
+            NCCL group of one rank, headline only (BENCH_BUDGET_S=0); the
+            two headlines printed.
 
 The f32 step checks of phases 6, 7 and 9 take the first step of a fresh
 Trainer, which is its warm-up and runs eagerly, so the choices that
@@ -5693,6 +5708,10 @@ def phase_compiled(torch, counters, data, weights, tmp, rng):
             torch, counters, data, tmp, name, bf16, mode, x,
             count=mode == "device")
         case(line, t0)
+        if (name, bf16, mode) == ("model", True, "device"):
+            # The graphed step's device busy time and host median, which
+            # phase bench's headline step is held between.
+            model_step = (timing[True][1]["busy_ms"], timing[True][0])
         if costs is not None:
             dtype = "bf16" if bf16 else "f32"
             roofs.append((f"{name} {dtype} step", name, dtype, BATCH,
@@ -5771,6 +5790,152 @@ def phase_compiled(torch, counters, data, weights, tmp, rng):
     case(compiled_moment_stats(torch, np.random.RandomState(SEED + 101)),
          t0)
     say("compiled", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return model_step
+
+
+# Phase bench: the port's benchmark script (bench.py).
+BENCH_BUDGET_S = 120
+BENCH_EXTRAS = ("model_emd", "serving", "serving_b1", "families",
+                "serving_b512")
+# Every row the benchmark times at N=2048 on one card.
+BENCH_ROWS = ("model", "model_emd", "serving", "serving_b1", "dispatch",
+              "model_cpu", "model_upconv", "model_fc_upconv",
+              "model_hierachy", "serving_b512")
+
+
+def free_slurm_job_id() -> int:
+    """A SLURM job id whose derived port (id % 4096 + 61440, jax's rule)
+    is free on this host now."""
+    import socket
+
+    rng = np.random.RandomState(os.getpid())
+    for port in rng.permutation(np.arange(61440, 65536)):
+        with socket.socket() as s:
+            try:
+                s.bind(("", int(port)))
+            except OSError:
+                continue
+        return int(port) - 61440
+    raise PhaseError("no free port in 61440-65535")
+
+
+def run_bench(tmp, tag, **env_extra):
+    """``python -m pointnet_autoencoder_tpu_torch.bench`` in a subprocess
+    from the repository's root, its self-record in ``tmp``: rc 0, every
+    stdout line a JSON object, the self-record the last one. Returns the
+    last line and the seconds the run took."""
+    from pointnet_autoencoder_tpu_torch.parallel import mesh
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    self_path = os.path.join(tmp, f"bench_self_{tag}.json")
+    # No launcher variable of this process reaches the benchmark.
+    launch = (mesh.LAUNCHER_ENV + mesh.SLURM_ENV + mesh.OMPI_ENV
+              + (mesh.PRTE_MARKER,))
+    env = {k: v for k, v in os.environ.items() if k not in launch}
+    env.update(BENCH_SELF_PATH=self_path, **env_extra)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pointnet_autoencoder_tpu_torch.bench"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"bench ({tag}): rc {proc.returncode}: "
+            f"{proc.stderr[-3000:]}")
+    try:
+        lines = [json.loads(line) for line in proc.stdout.splitlines()]
+    except ValueError as e:
+        raise PhaseError(f"bench ({tag}): a stdout line is not JSON ({e}): "
+                         f"{proc.stdout[-2000:]}") from None
+    require(bool(lines), f"bench ({tag}): no artifact line")
+    with open(self_path) as f:
+        require(json.loads(f.read()) == lines[-1],
+                f"bench ({tag}): the self-record is not the last line")
+    return lines[-1], seconds
+
+
+def bench_rows_held(tag, extras, names):
+    """Every row in ``names`` ran captured, one graph replay a call, and
+    launched each kernel as often as its eager call times its calls;
+    returns a summary of each."""
+    rows = extras["rows"]
+    require(sorted(rows) == sorted(names),
+            f"bench ({tag}): rows {sorted(rows)}, want {sorted(names)}")
+    out = []
+    for name in names:
+        row = rows[name]
+        want = {k: v * row["calls"] for k, v in row["eager_launches"].items()}
+        require(row["replays"] == row["calls"],
+                f"bench ({tag}) {name}: {row['replays']} replays for "
+                f"{row['calls']} calls ({row['path']})")
+        require(row["launches"] == want,
+                f"bench ({tag}) {name}: launches {row['launches']} over "
+                f"{row['calls']} calls, the eager call's times the calls "
+                f"{want}")
+        per = {k: v for k, v in row["eager_launches"].items() if v}
+        out.append(f"{name} {row['ms']!r} ms (windows {row['windows_ms']}), "
+                   f"{row['calls']} calls, {row['replays']} replays, "
+                   f"launches a call {per}")
+    return out
+
+
+def phase_bench(tmp, model_step):
+    """The port's benchmark script, as a user runs it. See the module
+    docstring, phase 23."""
+    t_phase = time.perf_counter()
+    say("bench", nvidia_smi_line())
+    busy, host = model_step
+    rec, seconds = run_bench(tmp, "one_card",
+                             BENCH_BUDGET_S=str(BENCH_BUDGET_S))
+    extras = rec["extras"]
+    require(rec["metric"] == f"train_throughput_model_b32_n{NUM_POINT}"
+            and rec["unit"] == "shapes/sec/chip"
+            and extras["device"]["count"] == 1 and extras["group"] is None,
+            f"bench: metric {rec['metric']}, unit {rec['unit']}, device "
+            f"{extras['device']}, group {extras['group']}")
+    require(extras["skipped"] == [], f"bench: skipped {extras['skipped']} "
+            f"at a budget of {BENCH_BUDGET_S} s")
+    step_ms = extras["model_step_ms"]
+    require(0.9 * busy <= step_ms <= 1.1 * host,
+            f"bench: model_step_ms {step_ms!r} outside [0.9 x the graphed "
+            f"step's busy {busy!r}, 1.1 x its host median {host!r}] of "
+            f"phase compiled")
+    for line in bench_rows_held("one card", extras, BENCH_ROWS):
+        say("bench", line + " ok")
+    roof = extras["roofline"]
+    say("bench", "roofline: " + "; ".join(
+        f"{k} pct_of_bound {v.get('pct_of_bound')!r} mfu {v['mfu']!r}"
+        for k, v in sorted(roof.items())) + "; serving B=32 pct_of_bound "
+        f"{extras['serving_roofline'].get('pct_of_bound')!r}, B=1 "
+        f"{extras['serving_b1']['roofline'].get('pct_of_bound')!r}, B=512 "
+        f"{extras['serving_b512']['roofline'].get('pct_of_bound')!r}")
+    say("bench", f"one card: headline {rec['value']!r} shapes/sec/chip, "
+        f"vs_baseline {rec['vs_baseline']!r}, model_step_ms {step_ms!r} in "
+        f"[0.9 x {busy!r}, 1.1 x {host!r}]; model_emd "
+        f"{extras['model_emd_step_ms']!r} ms; families "
+        f"{extras['family_step_ms']}; serving B=32 "
+        f"{extras['serving_fwd_ms']!r} ms, B=1 {extras['serving_b1']} "
+        f"(dispatch_overhead_ms), B=512 "
+        f"{extras['serving_b512']['measured_ms']!r} ms; bench_wall_s "
+        f"{extras['bench_wall_s']!r}, the command {seconds:.1f} s ok")
+    job_id = free_slurm_job_id()
+    rec1, seconds1 = run_bench(
+        tmp, "slurm_nccl_one", BENCH_BUDGET_S="0", SLURM_JOB_ID=str(job_id),
+        SLURM_STEP_NODELIST="localhost", SLURM_NTASKS="1", SLURM_PROCID="0",
+        SLURM_LOCALID="0")
+    ex1 = rec1["extras"]
+    require(rec1["metric"] == rec["metric"]
+            and ex1["group"] == {"backend": "nccl", "ranks": 1}
+            and ex1["skipped"] == list(BENCH_EXTRAS),
+            f"bench under SLURM: metric {rec1['metric']}, group "
+            f"{ex1['group']}, skipped {ex1['skipped']}")
+    lines = bench_rows_held("SLURM, NCCL group of 1", ex1, ("model",))
+    say("bench", f"SLURM variables (job {job_id}, port {job_id + 61440}), "
+        f"an NCCL group of 1, headline only: {rec1['value']!r} "
+        f"shapes/sec/chip, model_step_ms {ex1['model_step_ms']!r}; "
+        f"{lines[0]}; the command {seconds1:.1f} s ok")
+    say("bench", f"headlines: one card {json.dumps(rec['value'])}, NCCL "
+        f"group of 1 under SLURM {json.dumps(rec1['value'])} "
+        f"shapes/sec/chip")
+    say("bench", f"phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -5900,8 +6065,10 @@ def main() -> int:
             phase_profile(torch, counters, data, tmp,
                           np.random.RandomState(SEED + 90))
             phase = "compiled"
-            phase_compiled(torch, counters, data, weights, tmp,
-                           np.random.RandomState(SEED + 100))
+            model_step = phase_compiled(torch, counters, data, weights, tmp,
+                                        np.random.RandomState(SEED + 100))
+            phase = "bench"
+            phase_bench(tmp, model_step)
         smi = nvidia_smi_line()
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAIL in phase {phase}: {type(e).__name__}: {e}",

@@ -13,8 +13,9 @@ there) or ``host`` (host assembly, pinned copies); checkpoints are
 written on a background thread unless ``--sync_checkpoints``.
 
 ``--data_parallel k`` trains on k ranks, one process each, over
-``torch.distributed`` (``parallel/mesh.py``): under a launcher such as
-``torchrun`` this process joins its group as one rank; otherwise it spawns
+``torch.distributed`` (``parallel/mesh.py``): under a launcher
+(``torchrun``, SLURM's ``srun`` or Open MPI's ``mpirun``) this process
+joins its group as one rank; otherwise it spawns
 k local ranks on cards 0..k-1 (NCCL), or k CPU ranks with ``--device cpu``
 (gloo). Unset, it means every visible card, as in the JAX package. Asking
 for more cards than exist raises; nothing falls back to fewer cards or to
@@ -235,8 +236,9 @@ def rank_devices(args: argparse.Namespace,
 def main(argv=None, devices: Optional[Sequence] = None,
          backend: Optional[str] = None,
          after: Optional[Callable] = None) -> int:
-    """Train as the flags say. Under a launcher (torchrun's environment)
-    this process is one rank; else with more than one rank device
+    """Train as the flags say. Under a launcher (torchrun, SLURM's srun
+    or Open MPI's mpirun: ``parallel.mesh.find_rendezvous``) this process
+    is one rank; else with more than one rank device
     (``rank_devices``; ``devices`` names them explicitly, one device may
     repeat) the ranks are spawned here over ``backend`` (NCCL on cards,
     gloo on the CPU or where two ranks share a card); else this process

@@ -43,9 +43,10 @@ ranks on one device).
 from __future__ import annotations
 
 import os
+import re
 import shutil
 import tempfile
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Mapping, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -58,6 +59,18 @@ Tensor = torch.Tensor
 # What a launcher such as torchrun exports to every rank.
 LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                 "MASTER_PORT")
+# What SLURM's srun exports to every task, and Open MPI's mpirun (before
+# version 5) to every process; the JAX package's hook hands both to jax's
+# own detectors (jax/_src/clusters), whose rules these follow.
+SLURM_ENV = ("SLURM_JOB_ID", "SLURM_STEP_NODELIST", "SLURM_NTASKS",
+             "SLURM_PROCID", "SLURM_LOCALID")
+OMPI_ENV = ("OMPI_MCA_orte_hnp_uri", "OMPI_COMM_WORLD_SIZE",
+            "OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_LOCAL_RANK")
+# Open MPI 5 (PRRTE) marks its processes with this; jax 0.9.0 has no
+# detector for it, and neither has this hook.
+PRTE_MARKER = "PRTE_LAUNCHED"
+# Both schedulers' coordinator ports lie in [65535 - 4096 + 1, 65535].
+_PORT_BASE = 65535 - 4096 + 1
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -111,36 +124,135 @@ def check_batch_divisible(batch_size: int, data_parallel: int) -> None:
             f"data-parallel degree {data_parallel}")
 
 
-def initialize_distributed_if_requested(device: str = "cuda") -> bool:
-    """Join the process group that a launcher describes; True if this
-    process is (now) in one.
+def slurm_coordinator(env: Mapping[str, str] = os.environ) -> str:
+    """``host:port`` of rank 0's store under SLURM, by jax's rule
+    (``SlurmCluster.get_coordinator_address``): the first host of
+    SLURM_STEP_NODELIST, whose forms are 'node001', 'node001,host2',
+    'node[001-015],host2' and 'node[001,007-015],host2', and the port
+    SLURM_JOB_ID % 4096 + 61440."""
+    port = int(env["SLURM_JOB_ID"]) % 4096 + _PORT_BASE
+    nodes = env["SLURM_STEP_NODELIST"]
+    cut = next((i for i, ch in enumerate(nodes) if ch in ",["), len(nodes))
+    if cut == len(nodes) or nodes[cut] == ",":
+        return f"{nodes[:cut]}:{port}"
+    rest = nodes[cut + 1:]
+    end = next((i for i, ch in enumerate(rest) if ch in ",-"), None)
+    return f"{nodes[:cut]}{rest[:end]}:{port}"
 
-    A launcher such as ``torchrun`` exports RANK, WORLD_SIZE, LOCAL_RANK,
-    MASTER_ADDR and MASTER_PORT to every rank. With none of them set this
-    returns False and touches nothing; with only some set it raises, naming
-    the missing ones. ``device`` is the run's device type: ``cuda`` joins
-    over NCCL on card LOCAL_RANK (made the current device, so that
-    ``resolve_device("cuda")`` picks it), ``cpu`` over gloo."""
+
+def ompi_coordinator(env: Mapping[str, str] = os.environ) -> str:
+    """``host:port`` of rank 0's store under Open MPI's mpirun, by jax's
+    rule (``OmpiCluster.get_coordinator_address``): the launcher's first
+    address in OMPI_MCA_orte_hnp_uri (tcp, or tcp6 unbracketed), and a
+    port from its job id, ``jobid // 4096 % 4096 + 61440``."""
+    uri = env["OMPI_MCA_orte_hnp_uri"]
+    port = int(uri.split(".", 1)[0]) // 4096 % 4096 + _PORT_BASE
+    match = re.search(r"tcp://(.+?)[,:]|tcp6://\[(.+?)[,\]]", uri)
+    if match is None:
+        raise RuntimeError(f"no launcher address in OMPI_MCA_orte_hnp_uri="
+                           f"{uri!r}")
+    return f"{next(g for g in match.groups() if g is not None)}:{port}"
+
+
+class Rendezvous(NamedTuple):
+    """Where and as what this process joins its group: the launcher's
+    name, ``init_process_group``'s ``init_method``, the world size, this
+    process's rank and its local rank (its card on the host)."""
+    launcher: str
+    init_method: str
+    world_size: int
+    rank: int
+    local_rank: int
+
+
+def _need(env: Mapping[str, str], names: Sequence[str], who: str) -> None:
+    missing = [v for v in names if v not in env]
+    if missing:
+        present = [v for v in names if v in env]
+        raise RuntimeError(
+            f"{who}: {', '.join(present)} set but {', '.join(missing)} "
+            f"missing. Export all of {', '.join(LAUNCHER_ENV)} on every "
+            f"rank (torchrun does so) to name the group directly")
+
+
+def _tcp(address: str) -> str:
+    """``tcp://`` init method of a ``host:port`` (an IPv6 host
+    bracketed)."""
+    host, port = address.rsplit(":", 1)
+    return f"tcp://[{host}]:{port}" if ":" in host else f"tcp://{address}"
+
+
+def find_rendezvous(env: Mapping[str, str] = os.environ
+                    ) -> Optional[Rendezvous]:
+    """The group a launcher describes in ``env``, or None where none
+    does. In order: torchrun's LAUNCHER_ENV; Open MPI's mpirun
+    (OMPI_MCA_orte_hnp_uri and OMPI_COMM_WORLD_{SIZE,RANK,LOCAL_RANK});
+    SLURM's srun (SLURM_JOB_ID, SLURM_STEP_NODELIST, SLURM_NTASKS,
+    SLURM_PROCID, SLURM_LOCALID): jax's order, and its coordinators.
+    Raises where a launcher's variables are only partly there, and under
+    PRTE_LAUNCHED (Open MPI 5) alone, which names no coordinator."""
+    if any(v in env for v in LAUNCHER_ENV):
+        _need(env, LAUNCHER_ENV, "torchrun")
+        return Rendezvous("torchrun", "env://", int(env["WORLD_SIZE"]),
+                          int(env["RANK"]), int(env["LOCAL_RANK"]))
+    if OMPI_ENV[0] in env:
+        _need(env, OMPI_ENV, "Open MPI")
+        return Rendezvous("Open MPI", _tcp(ompi_coordinator(env)),
+                          int(env["OMPI_COMM_WORLD_SIZE"]),
+                          int(env["OMPI_COMM_WORLD_RANK"]),
+                          int(env["OMPI_COMM_WORLD_LOCAL_RANK"]))
+    if SLURM_ENV[0] in env:
+        _need(env, SLURM_ENV, "SLURM")
+        return Rendezvous("SLURM", _tcp(slurm_coordinator(env)),
+                          int(env["SLURM_NTASKS"]), int(env["SLURM_PROCID"]),
+                          int(env["SLURM_LOCALID"]))
+    if PRTE_MARKER in env:
+        raise RuntimeError(
+            f"{PRTE_MARKER} is set (Open MPI 5), which names no "
+            f"coordinator. Export all of {', '.join(LAUNCHER_ENV)} on every "
+            f"rank (torchrun does so) to name the group directly")
+    return None
+
+
+def initialize_distributed_if_requested(device: str = "cuda") -> bool:
+    """Join the process group that a launcher describes
+    (``find_rendezvous``); True if this process is (now) in one.
+
+    torchrun exports RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
+    MASTER_PORT to every rank; under SLURM (``srun``) and Open MPI
+    (``mpirun``, before version 5) the scheduler's own variables name
+    the ranks, and rank 0's host serves the store at a port derived from
+    the job id, as jax derives it. With no launcher this returns False
+    and touches nothing; with a launcher's variables only partly set, or
+    PRTE_LAUNCHED alone, it raises. ``device`` is the run's device type:
+    ``cuda`` joins over NCCL on card LOCAL_RANK (made the current device,
+    so that ``resolve_device("cuda")`` picks it), ``cpu`` over gloo.
+
+    The derived port may be taken on a shared node. Rank 0 then fails to
+    listen ("address already in use" in torch's DistNetworkError, raised
+    here as a RuntimeError that names the port) and the other ranks wait
+    for it until their timeout; export torchrun's five variables with a
+    free MASTER_PORT instead."""
     if dist.is_initialized():
         return True
-    present = [v for v in LAUNCHER_ENV if v in os.environ]
-    if not present:
+    found = find_rendezvous()
+    if found is None:
         return False
-    missing = [v for v in LAUNCHER_ENV if v not in os.environ]
-    if missing:
-        raise RuntimeError(
-            f"{', '.join(present)} set but {', '.join(missing)} missing; a "
-            f"data-parallel launch needs all of {', '.join(LAUNCHER_ENV)} "
-            f"exported on every rank (torchrun does so)")
     dev = torch.device(device)
     if dev.type == "cuda":
-        dev = resolve_device(torch.device(
-            "cuda", int(os.environ["LOCAL_RANK"])))
+        dev = resolve_device(torch.device("cuda", found.local_rank))
         torch.cuda.set_device(dev)
-    dist.init_process_group(
-        "nccl" if dev.type == "cuda" else "gloo", init_method="env://",
-        world_size=int(os.environ["WORLD_SIZE"]),
-        rank=int(os.environ["RANK"]))
+    try:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=found.init_method, world_size=found.world_size,
+            rank=found.rank)
+    except dist.DistNetworkError as e:
+        raise RuntimeError(
+            f"{found.launcher}: rank {found.rank} could not reach the store "
+            f"at {found.init_method} ({e}); if its port is in use on that "
+            f"host, export all of {', '.join(LAUNCHER_ENV)} with a free "
+            f"MASTER_PORT") from e
     return True
 
 

@@ -75,12 +75,10 @@ from pointnet_autoencoder_tpu_torch.ops import emd as emdlib
 from pointnet_autoencoder_tpu_torch.ops import fused_encoder, fused_head
 from pointnet_autoencoder_tpu_torch.parallel.mesh import DATA_AXIS
 from pointnet_autoencoder_tpu_torch.train.schedules import Staircase
-from pointnet_autoencoder_tpu_torch.train.master import MasterOptimizer
 from pointnet_autoencoder_tpu_torch.train.state import (
-    SCHEDULE_KEYS,
-    StepPrograms,
+    captured_step_fns,
+    combined_metrics,
 )
-from pointnet_autoencoder_tpu_torch.utils.graphs import ProgramCache
 
 Tensor = torch.Tensor
 LossFn = Callable[[Tensor, Tensor, Dict[str, Tensor]],
@@ -333,30 +331,6 @@ def point_batch_shard(batch: Tensor, mesh, axis: str = DATA_AXIS,
     return out.contiguous()
 
 
-def _captured(step: Callable, programs: StepPrograms, kind: str,
-              train: bool) -> Callable:
-    """``step`` (a batch -> 0-dim metric tensors) replayed from a captured
-    program of ``programs`` per batch shape, after its warm-up; a train
-    step counts one step a replay."""
-    keys = {}
-
-    def call(batch: Tensor):
-        if not programs.warm(kind):
-            return programs.warm_up(kind, lambda: step(batch))
-        key = (kind, tuple(batch.shape), batch.dtype)
-
-        def rows(x):
-            out = step(x)
-            keys[key] = sorted(out)
-            return torch.stack([out[k].float() for k in keys[key]])
-
-        rows = programs.run(key, rows, (batch,), steps=int(train))
-        return dict(zip(keys[key], rows.clone().unbind()))
-
-    call.programs = programs.programs
-    return call
-
-
 def make_sp_step_fns(state, name: str, bn_schedule: Staircase, mesh,
                      axis: str = DATA_AXIS,
                      batch_axis: Optional[str] = None,
@@ -389,29 +363,17 @@ def make_sp_step_fns(state, name: str, bn_schedule: Staircase, mesh,
     on_card = next(state.model.parameters()).is_cuda
     context = cudnn_deterministic if on_card else contextlib.nullcontext
 
-    def combined(metrics):
-        # The schedules' values are every rank's own.
-        keys = sorted(k for k, v in metrics.items()
-                      if torch.is_tensor(v) and k not in SCHEDULE_KEYS)
-        values = everyone.sum_(torch.stack([metrics[k].float()
-                                            for k in keys])) / divisor
-        return dict(metrics, **dict(zip(keys, values.unbind())))
-
     def train_step(batch_local: Tensor):
-        return combined(state.train_step(
+        return combined_metrics(state.train_step(
             batch_local, loss_fn, bn_schedule,
             lambda params: everyone.reduce_gradients(params, divisor),
-            context))
+            context), everyone, divisor)
 
     def eval_step(batch_local: Tensor):
-        return combined(state.eval_step(batch_local, loss_fn, context))
+        return combined_metrics(state.eval_step(batch_local, loss_fn,
+                                                context), everyone, divisor)
 
     if not (compiled and on_card):
         return train_step, eval_step
-    programs = StepPrograms(
-        state, ProgramCache(next(state.model.parameters()).device,
-                            taped=dist.get_backend() != "nccl"),
-        state.optimizer if isinstance(state.optimizer, MasterOptimizer)
-        else None)
-    return (_captured(train_step, programs, "train", True),
-            _captured(eval_step, programs, "eval", False))
+    return captured_step_fns(state, train_step, eval_step,
+                             taped=dist.get_backend() != "nccl")

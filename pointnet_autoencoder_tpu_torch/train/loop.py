@@ -88,6 +88,11 @@ one device or as one rank of a data-parallel group:
   bfloat16 and the optimizer is ``train/master.MasterOptimizer`` (f32
   arithmetic, stochastic rounding into the bf16 leaves), captured on one
   card as the default optimizer is.
+- The library surface (``make_step_fns``, ``fetch_metric_means``): the
+  train and eval step of a ``TrainState`` for a caller that drives its
+  own loop, captured on a card as the Trainer's steps are (one program
+  per batch shape; the Trainer keeps its own chunked programs), and one
+  copy to the host for a list of their metrics.
 """
 
 from __future__ import annotations
@@ -96,7 +101,7 @@ import contextlib
 import os
 import signal
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +120,7 @@ from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
 from pointnet_autoencoder_tpu_torch.parallel import sp, tp
 from pointnet_autoencoder_tpu_torch.parallel.sp import cudnn_deterministic
 from pointnet_autoencoder_tpu_torch.parallel.mesh import (
+    DataGroup,
     ProcessMesh,
     check_batch_divisible,
 )
@@ -128,10 +134,13 @@ from pointnet_autoencoder_tpu_torch.train.logging import (
     NullLogger,
     snapshot_config,
 )
+from pointnet_autoencoder_tpu_torch.train.schedules import Staircase
 from pointnet_autoencoder_tpu_torch.train.state import (
     SCHEDULE_KEYS,
     StepPrograms,
     TrainState,
+    captured_step_fns,
+    combined_metrics,
     make_optimizer,
 )
 from pointnet_autoencoder_tpu_torch.utils import profiling
@@ -181,6 +190,59 @@ def window_means(rows: np.ndarray, keys: List[str],
     ``(start, stop)`` window, by key."""
     return [dict(zip(keys, map(float, rows[a:b].mean(axis=0))))
             for a, b in windows]
+
+
+def fetch_metric_means(pending: Sequence[Metrics]) -> Dict[str, float]:
+    """The mean of each metric over a list of metric dicts (0-dim tensors
+    on one device), in one stacked copy to the host: the JAX package's
+    ``fetch_metric_means``."""
+    keys = sorted(pending[0])
+    rows = torch.stack([torch.stack([m[k].float() for k in keys])
+                        for m in pending]).cpu().numpy()
+    return {k: float(v) for k, v in zip(keys, rows.mean(axis=0))}
+
+
+def make_step_fns(state: TrainState, name: str, bn_schedule: Staircase,
+                  group: Optional[DataGroup] = None, compiled: bool = True):
+    """(train_step, eval_step) of ``--model name`` on ``state``, the JAX
+    package's ``make_step_fns`` for a caller that drives its own loop
+    without the Trainer. Each takes a batch (B, N, 3), its own label, and
+    returns 0-dim tensors on the device: the loss's metrics and ``loss``,
+    and from the train step also the ``learning_rate`` and ``bn_decay``
+    it applied (read at the step before it advances ``state``).
+
+    group: a ``parallel.mesh.DataGroup`` whose ranks each hold their rows
+      of a global batch. The model's BatchNorm and head statistics then
+      cover the global batch, one flat all-reduce averages the gradients
+      before the optimizer steps (the Trainer's step), and every metric
+      but the schedules' is the ranks' mean, the global batch's value.
+    compiled: on a card, each step a captured program per batch shape
+      (``train.state.captured_step_fns``: a tape on a rank of a gloo
+      group, one graph over NCCL), the first call eager as its warm-up,
+      the JAX package's jitted step; False, or the CPU: the eager step,
+      the reference.
+    """
+    loss_fn = get_model_spec(name).loss_fn
+    reduce = None
+    if group is not None:
+        state.model.set_data_group(group)
+        reduce = group.average_gradients
+
+    def mean(metrics: Metrics) -> Metrics:
+        return (metrics if group is None else
+                combined_metrics(metrics, group, group.world_size))
+
+    def train_step(batch: torch.Tensor) -> Metrics:
+        return mean(state.train_step(batch, loss_fn, bn_schedule, reduce))
+
+    def eval_step(batch: torch.Tensor) -> Metrics:
+        return mean(state.eval_step(batch, loss_fn))
+
+    if not (compiled and next(state.model.parameters()).is_cuda):
+        return train_step, eval_step
+    return captured_step_fns(
+        state, train_step, eval_step,
+        taped=group is not None and dist.get_backend() != "nccl")
 
 
 class Trainer:

@@ -20,13 +20,28 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import torch
 from torch import Tensor, nn
 
+from pointnet_autoencoder_tpu_torch.train.master import MasterOptimizer
 from pointnet_autoencoder_tpu_torch.train.schedules import Staircase
 from pointnet_autoencoder_tpu_torch.utils import roofline
+from pointnet_autoencoder_tpu_torch.utils.graphs import ProgramCache
 
 
 # The metrics a train step reports of its schedules: the values it
 # applied, the same on every rank of a parallel step.
 SCHEDULE_KEYS = ("learning_rate", "bn_decay")
+
+
+def combined_metrics(metrics: Dict[str, Any], group,
+                     divisor: int) -> Dict[str, Any]:
+    """One rank's ``metrics`` with each 0-dim tensor but the schedules'
+    summed over ``group`` (a ``parallel.mesh.DataGroup``) in one
+    all-reduce and divided by ``divisor``: the global batch's values of a
+    grouped step. The schedules' values are every rank's own."""
+    keys = sorted(k for k, v in metrics.items()
+                  if torch.is_tensor(v) and k not in SCHEDULE_KEYS)
+    values = group.sum_(torch.stack([metrics[k].float()
+                                     for k in keys])) / divisor
+    return dict(metrics, **dict(zip(keys, values.unbind())))
 
 
 class TraceSGD(torch.optim.Optimizer):
@@ -289,3 +304,48 @@ class StepPrograms:
         rows = prog.replay(*inputs)
         self._count_steps(steps)
         return rows
+
+
+def _captured(step: Callable, programs: StepPrograms, kind: str,
+              train: bool) -> Callable:
+    """``step`` (a batch -> 0-dim metric tensors) replayed from a captured
+    program of ``programs`` per batch shape, after its warm-up; a train
+    step counts one step a replay."""
+    keys = {}
+
+    def call(batch: Tensor):
+        if not programs.warm(kind):
+            return programs.warm_up(kind, lambda: step(batch))
+        key = (kind, tuple(batch.shape), batch.dtype)
+
+        def rows(x):
+            out = step(x)
+            keys[key] = sorted(out)
+            return torch.stack([out[k].float() for k in keys[key]])
+
+        rows = programs.run(key, rows, (batch,), steps=int(train))
+        return dict(zip(keys[key], rows.clone().unbind()))
+
+    call.programs = programs.programs
+    return call
+
+
+def captured_step_fns(state: TrainState, train_step: Callable,
+                      eval_step: Callable, taped: bool = False
+                      ) -> Tuple[Callable, Callable]:
+    """``train_step`` and ``eval_step`` of ``state`` (each a batch -> its
+    0-dim metric tensors, the train step advancing ``state``) as captured
+    programs on the state's card, one per batch shape, the first call of
+    each eager as its warm-up; the library steps of ``train/loop.py`` and
+    ``parallel/sp.py``. The programs share one ``StepPrograms`` over a
+    ``utils/graphs.ProgramCache`` (tapes when ``taped``: a rank of a gloo
+    group), held by each function as ``.programs``; a
+    ``MasterOptimizer``'s noise generators are registered with every
+    train program, as the Trainer's are."""
+    master = (state.optimizer if isinstance(state.optimizer,
+                                            MasterOptimizer) else None)
+    programs = StepPrograms(
+        state, ProgramCache(next(state.model.parameters()).device,
+                            taped=taped), master)
+    return (_captured(train_step, programs, "train", True),
+            _captured(eval_step, programs, "eval", False))

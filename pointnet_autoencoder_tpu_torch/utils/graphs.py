@@ -149,7 +149,8 @@ class CapturedProgram:
     follow ``graph`` (each with ``begin()`` and ``end()``, which ``graph``
     then needs too), one after each ``collective`` that ``fn`` reaches.
     ``steps`` holds the graphs and collectives in replay order;
-    ``graphs`` and ``collectives`` count them."""
+    ``graphs`` and ``collectives`` count them; ``replays`` counts the
+    replays."""
 
     def __init__(self, fn: Callable, graph,
                  inputs: Tuple[torch.Tensor, ...] = (),
@@ -172,6 +173,7 @@ class CapturedProgram:
         self.launches = tuple(a - b for a, b in zip(after, before))
         self.graphs = (len(self.steps) + 1) // 2
         self.collectives = len(self.steps) // 2
+        self.replays = 0
 
     def _record(self, fn: Callable, inputs: Tuple[torch.Tensor, ...]):
         """``fn(*inputs)`` recorded as a tape (on the first graph's
@@ -224,6 +226,7 @@ class CapturedProgram:
                 step.replay()
         for counted, n in zip(COUNTED, self.launches):
             counted.launches += n
+        self.replays += 1
         return self.outputs
 
     def close(self) -> None:
@@ -241,7 +244,8 @@ class ProgramCache:
     pool that its programs share (they are never replayed at once, and
     each program's outputs are consumed before the next replay), and the
     programs by key. ``close`` releases them all. ``taped``: every program
-    is a tape (a rank of a gloo group)."""
+    is a tape (a rank of a gloo group). ``replays``: the replays of its
+    programs, released ones included."""
 
     def __init__(self, device: torch.device, taped: bool = False):
         if device.type != "cuda":
@@ -253,6 +257,12 @@ class ProgramCache:
             self.stream = torch.cuda.Stream(device)
             self.pool = torch.cuda.graph_pool_handle()
         self._programs: Dict[Hashable, CapturedProgram] = {}
+        self._released_replays = 0
+
+    @property
+    def replays(self) -> int:
+        return self._released_replays + sum(
+            p.replays for p in self._programs.values())
 
     def warm_up(self, fn: Callable):
         """``fn()`` run eagerly on the side stream, ordered after the work
@@ -293,6 +303,7 @@ class ProgramCache:
         """Release every program (before the state they captured is
         replaced)."""
         for prog in self._programs.values():
+            self._released_replays += prog.replays
             prog.close()
         self._programs.clear()
 

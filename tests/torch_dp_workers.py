@@ -1,12 +1,16 @@
 """Rank bodies of the port's data-, point- and tensor-parallel tests
 (tests/test_torch_dp_*.py, tests/test_torch_parallel.py,
-tests/test_torch_sp*.py, tests/test_torch_tp.py).
+tests/test_torch_sp*.py, tests/test_torch_tp.py,
+tests/test_torch_launch.py).
 
 Each function runs in a process that ``parallel.mesh.launch`` spawned, as
 ``fn(device, *args)`` inside a gloo group, so this module imports neither
 JAX nor the JAX package. A rank writes what the test holds to
 ``<out_dir>/rank<r>.pt``; the test reads the files once every rank has
-ended.
+ended. ``scheduled_rank`` is a process that a test starts as a scheduler
+would (``python tests/torch_dp_workers.py scheduled_rank <out_dir>``,
+the scheduler's variables in its environment); it joins its group
+itself.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import dataclasses
 import os
 import shutil
 import signal
+import sys
 import types
 
 import numpy as np
@@ -885,3 +890,50 @@ def tape_rank(device, config_jsons, batch, out_dir, steps):
             tr.close()
         out[tag] = res
     _save(out_dir, torch.distributed.get_rank(), out)
+
+
+# -- a rank that a scheduler started -----------------------------------------
+
+
+def scheduled_rank(out_dir):
+    """Join the group that the scheduler's variables describe
+    (``initialize_distributed_if_requested``), take one step of
+    ``make_step_fns(..., group)`` on this rank's rows of a seeded batch
+    and the same step of the whole batch with no group, then run the
+    benchmark (its lines on this process's stdout)."""
+    from pointnet_autoencoder_tpu_torch import bench
+    from pointnet_autoencoder_tpu_torch.parallel import mesh
+    from pointnet_autoencoder_tpu_torch.train import schedules
+    from pointnet_autoencoder_tpu_torch.train.loop import make_step_fns
+    from pointnet_autoencoder_tpu_torch.train.state import (
+        TrainState,
+        make_optimizer,
+    )
+
+    torch.set_num_threads(1)
+    joined = mesh.initialize_distributed_if_requested("cpu")
+    group, rank, world = _setup(torch.device("cpu"))
+    x = torch.from_numpy(np.random.RandomState(1).randn(8, 64, 3).astype(
+        np.float32))
+    lr = schedules.learning_rate_schedule(0.001, 0.7, 8, 200000)
+    bn = schedules.bn_momentum_schedule(8, 200000)
+    out = dict(joined=joined, rank=rank, world=world,
+               backend=torch.distributed.get_backend())
+    for tag, g, rows in (("group", group, _rows(rank, world, 8)),
+                         ("alone", None, slice(None))):
+        model = get_model_spec("model").make(
+            64, generator=torch.Generator().manual_seed(0))
+        state = TrainState(model, make_optimizer("adam", model.parameters()),
+                           lr)
+        train_step, _ = make_step_fns(state, "model", bn, g)
+        metrics = train_step(x[rows])
+        out[tag] = dict(metrics={k: float(v) for k, v in metrics.items()},
+                        state={k: v.clone() for k, v in
+                               model.state_dict().items()})
+    _save(out_dir, rank, out)
+    bench.main(["--device", "cpu"])
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    globals()[sys.argv[1]](*sys.argv[2:])
