@@ -1,0 +1,42 @@
+"""The control comes out not correct: the reference with every matmul in
+fp8 (the precision below the configurations' bf16) put in the program's
+place, against each workload's own limits. On the CPU at a small size;
+with a card, at the workload's own sizes on three seeds
+(``benchmark.calibrate``), also with fp8 in the replayed steps alone."""
+
+import pytest
+
+from benchmark import calibrate, harness
+from benchmark.tests import small
+
+CELLS = sorted(small.workloads())
+
+
+def _fails(readings, limits) -> bool:
+    return any(readings[k] > limits[k] for k in limits)
+
+
+def _control(run):
+    lines = calibrate._train(run, control=True)
+    return {line["side"]: line["readings"] for line in lines}
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_fails_small(cell):
+    run = small.cpu_run(cell, 2 ** 31 + 17)
+    sides = _control(run)
+    assert _fails(sides["control"], run.workload["limits"]), sides
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_fails_on_the_card(cell, card):
+    import time
+    workload, config = small.files(cell)
+    for seed in (2 ** 31 + 101, 2 ** 31 + 102, 2 ** 31 + 103):
+        run = harness.Run(cell, seed, 0.0, False, workload, config, card,
+                          time.perf_counter(), {}, lambda msg: None)
+        sides = _control(run)
+        assert not _fails(sides["program"], workload["limits"]), sides
+        assert _fails(sides["control"], workload["limits"]), sides
+        assert _fails(sides["control_replay"], workload["limits"]), sides
