@@ -254,7 +254,8 @@ line each; any failure exits non-zero before the final line:
             ``nn_distance_grad_kernel``, K3 ``head_fwd_mma_kernel``, K4
             ``head_bwd_dx_kernel`` and ``head_bwd_dw_kernel`` and K5
             ``encoder_mma_kernel`` as often as one epoch launches them,
-            and the log line; each epoch's wall clock, profiled and not,
+            and the log line, then the line of the step phases' medians
+            (printed); each epoch's wall clock, profiled and not,
             and whether TensorBoard writers were made. Then ``StepTimer``
             around 10 bf16 steps: its p50 within the spread of
             ``step_timing``'s 10 host samples of its median.
@@ -4049,6 +4050,9 @@ def phase_profile(torch, counters, data, tmp, rng):
             text = f.read()
         require(text.count(f"profiler trace written to {prof_dir}") == 1,
                 "the log does not say once where the trace went")
+        phases = [line for line in text.splitlines()
+                  if line.startswith("step phases on the device")]
+        require(len(phases) == 1, f"the log's phase lines: {phases}")
         tensorboard = ("made" if getattr(logger, "_tb", None) else
                        "not made (torch.utils.tensorboard does not import)")
         say("profile", f"cli.train --profile_dir, {TRAIN_EPOCHS} bf16 "
@@ -4058,7 +4062,7 @@ def phase_profile(torch, counters, data, tmp, rng):
             f"the path's kernels in it {seen} as one epoch launches; "
             f"epoch wall clock profiled {walls[0]:.3f} s, unprofiled "
             f"{walls[1]:.3f} s; TensorBoard writers {tensorboard}; the log "
-            f"line ok")
+            f"line ok; {phases[0]}")
 
         # The background saves of the run's last epoch end first, so both
         # timings see the same host.

@@ -51,7 +51,14 @@ one device or as one rank of a data-parallel group:
 - Profiling (``profile_dir``): the first epoch that ``train()`` trains,
   its eval included, runs inside a ``torch.profiler`` trace
   (``utils/profiling.trace``), one file per rank, closed on every exit
-  from the epoch, a preemption included.
+  from the epoch, a preemption included. It holds the program's spans
+  (``utils/profiling.span``: an eager step's ``step.forward``,
+  ``step.loss``, ``step.backward``, ``step.update``; a replay's
+  ``step.inputs`` and ``step.launch``), and the log gives the medians of
+  the phase clocks of the train programs captured in the epoch (the
+  device's wall time of each phase), which a replayed graph does not
+  show in the trace. Those programs are released after it, so that the
+  next epochs capture them without the clocks.
 - Data parallelism: when this process is in a ``torch.distributed``
   process group of k ranks (``parallel.mesh.launch``, ``cli/train.py
   --data_parallel k`` or ``torchrun``), each rank runs one Trainer on its
@@ -853,6 +860,7 @@ class Trainer:
             for epoch in range(self.start_epoch, cfg.max_epoch):
                 self.logger.log(f"**** EPOCH {epoch:03d} ****")
                 traced = bool(cfg.profile_dir) and epoch == self.start_epoch
+                taken = 0 if self._steps is None else len(self._steps.phases)
                 with profiling.trace(cfg.profile_dir if traced else None,
                                      self.device):
                     steps = self.train_one_epoch(epoch)
@@ -862,6 +870,10 @@ class Trainer:
                 if traced:
                     self.logger.log(
                         f"profiler trace written to {cfg.profile_dir}")
+                    self.logger.log(self._phases_line(taken))
+                    if self._steps is not None:
+                        # The next epochs replay programs without clocks.
+                        self._steps.release_clocked()
                 if stopped:
                     # One device stops mid-epoch and restarts it on resume.
                     # Ranks stop where they agreed: an epoch that ran to
@@ -884,6 +896,27 @@ class Trainer:
         finally:
             restore_signals()
             self.flush()
+
+    def _phases_line(self, taken: int) -> str:
+        """The medians of the phase clocks' samples that this Trainer took
+        after it had taken ``taken`` (the traced epoch's), the last
+        step's taken now that the trace has synchronized the card: what
+        the trace cannot show of a replayed graph. Each phase is the
+        device's wall time between its boundaries, gaps included."""
+        if self._steps is None:
+            why = ("the CPU has no phase clocks" if self.device.type != "cuda"
+                   else "eager steps are not sampled")
+            return f"step phases on the device: none sampled ({why})"
+        self._steps.sample_phases()
+        samples = list(self._steps.phases)[taken:]
+        medians = profiling.phase_medians(samples)
+        if not medians:
+            return ("step phases on the device: none sampled (no train "
+                    "program captured in the epoch was replayed: the first "
+                    "call of each kind runs eager, as its warm-up)")
+        return (f"step phases on the device, median ms of {len(samples)} "
+                f"sampled steps: " + ", ".join(
+                    f"{p} {ms:.4f}" for p, ms in medians.items()))
 
     def flush(self) -> None:
         """Wait until every checkpoint submitted so far is on disk and

@@ -9,20 +9,29 @@ counter (``train/schedules.py``), and the optimizers of
 ``make_optimizer`` take the learning rate as that tensor: a step makes
 no host sync, so it can be captured as a CUDA graph
 (``utils/graphs.py``) and replayed with the values of each later step.
+
+A train step's phases (forward, loss, backward, update) are host spans
+(``utils/profiling.span``) while a ``torch.profiler`` session runs. A
+train program that ``StepPrograms`` captures while a session runs also
+marks them with five CUDA events, as event-record nodes, so that each of
+its replays stamps its own phases on the device; one captured with no
+session running holds no events, so the programs of a run that is not
+profiled replay nothing but the step.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import Tensor, nn
 
 from pointnet_autoencoder_tpu_torch.train.master import MasterOptimizer
 from pointnet_autoencoder_tpu_torch.train.schedules import Staircase
-from pointnet_autoencoder_tpu_torch.utils import roofline
+from pointnet_autoencoder_tpu_torch.utils import profiling, roofline
 from pointnet_autoencoder_tpu_torch.utils.graphs import ProgramCache
 
 
@@ -110,7 +119,14 @@ class TrainState:
 
     The schedules are ``train.schedules.Staircase``s: the step reads their
     ``tensor`` form of ``step_tensor``, so a replayed step reads each
-    later step's values."""
+    later step's values.
+
+    ``phase_clocks``: on a card, five timing events (external, so that a
+    captured step records them as graph nodes) that a train step records
+    on its stream before its forward and after its forward, loss,
+    backward and update while ``clocking`` is set (``StepPrograms`` sets
+    it for a capture while a profiler runs); each step overwrites them.
+    None on the CPU."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  lr_schedule: Staircase, step: int = 0):
@@ -125,6 +141,27 @@ class TrainState:
         # Bumped by load_state_dict, which replaces the optimizer's slot
         # tensors: a captured step of an older generation is stale.
         self.generation = 0
+        self.phase_clocks = (tuple(
+            torch.cuda.Event(enable_timing=True, external=True)
+            for _ in range(len(profiling.PHASES_OF_A_STEP) + 1))
+            if self._device.type == "cuda" else None)
+        self.clocking = False
+
+    def _clock(self, i: int) -> None:
+        """Record phase clock ``i`` on the device's current stream, while
+        ``clocking``."""
+        if self.clocking:
+            self.phase_clocks[i].record(
+                torch.cuda.current_stream(self._device))
+
+    def phase_ms(self) -> Optional[Tuple[float, ...]]:
+        """The device ms between the phase clocks of the last step that
+        recorded them, once the device has passed its last clock; None
+        before then, and on the CPU."""
+        clocks = self.phase_clocks
+        if clocks is None or not clocks[-1].query():
+            return None
+        return tuple(a.elapsed_time(b) for a, b in zip(clocks, clocks[1:]))
 
     @property
     def step(self) -> int:
@@ -191,23 +228,39 @@ class TrainState:
         collectives of a parallel step), the optimizer. The forward,
         loss and backward run inside ``context()``. Returns the loss, the
         metrics (detached), and the learning rate and BN momentum the step
-        applied, all 0-dim tensors on the device."""
-        bn_momentum = bn_schedule.tensor(self.step_tensor)
-        lr = self.set_lr()
-        with context():
-            pred, end_points = self.model(batch, train=True,
-                                          bn_momentum=bn_momentum)
+        applied, all 0-dim tensors on the device.
+
+        Each phase is a host span (``step.forward``: the schedules and the
+        forward; ``step.loss``; ``step.backward``: ``zero_grad``, backward
+        and ``reduce_gradients``; ``step.update``: the optimizer and the
+        step counts), and while ``clocking`` the phase clocks mark its
+        ends."""
+        self._clock(0)
+        with profiling.span("step.forward"):
+            bn_momentum = bn_schedule.tensor(self.step_tensor)
+            lr = self.set_lr()
+            with context():
+                pred, end_points = self.model(batch, train=True,
+                                              bn_momentum=bn_momentum)
+        self._clock(1)
+        with profiling.span("step.loss"), context():
             loss, metrics = loss_fn(pred, batch, end_points)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        if reduce_gradients is not None:
-            reduce_gradients(self.model.parameters())
-        # The update is the part of a step the card and the CPU run
-        # differently by design (utils/roofline.StepCost).
-        with roofline.region("optimizer"):
-            self.optimizer.step()
-        self._step += 1
-        self.step_tensor.add_(1)
+        self._clock(2)
+        with profiling.span("step.backward"):
+            with context():
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            if reduce_gradients is not None:
+                reduce_gradients(self.model.parameters())
+        self._clock(3)
+        with profiling.span("step.update"):
+            # The update is the part of a step the card and the CPU run
+            # differently by design (utils/roofline.StepCost).
+            with roofline.region("optimizer"):
+                self.optimizer.step()
+            self._step += 1
+            self.step_tensor.add_(1)
+        self._clock(4)
         out = {k: v.detach() for k, v in metrics.items()}
         out["loss"] = loss.detach()
         out["learning_rate"] = lr
@@ -238,7 +291,17 @@ class StepPrograms:
     needs a warm-up again. ``master``: a ``MasterOptimizer``, whose noise
     generators every train program registers, set to the program's first
     step's draw before each replay. ``log``: told each tape's graphs and
-    collectives at its capture."""
+    collectives at its capture.
+
+    A train program captured while a ``torch.profiler`` session runs
+    holds the state's phase clocks; ``release_clocked`` releases such
+    programs, so that the next calls capture them again without. While a
+    session runs, each ``run`` first samples the clocks of the last
+    replay of a clocked program into ``phases`` (``sample_phases``).
+    Every replay of a train program overwrites them, so a loop that
+    dispatches ahead gets a sample only after it waited for the device
+    (a metrics fetch); a program of several steps (the Trainer's chunk)
+    gives its last step's."""
 
     def __init__(self, state: TrainState, programs,
                  master=None, log: Optional[Callable[[str], None]] = None):
@@ -249,6 +312,33 @@ class StepPrograms:
         self._warmed: set = set()
         self._generation = state.generation
         self._logged: set = set()
+        # The keys of the programs captured with the phase clocks; the
+        # step whose phases the clocks hold after the last replay of one,
+        # and the last step sampled.
+        self._clocked_keys: set = set()
+        self._clocked: Optional[int] = None
+        self._sampled: Optional[int] = None
+        self.phases: Deque[profiling.PhaseSample] = collections.deque(
+            maxlen=profiling.RING)
+
+    def sample_phases(self) -> None:
+        """Append the phases of the last replayed clocked train step to
+        ``phases``, once, if the device has finished it."""
+        if self._clocked is None or self._clocked == self._sampled:
+            return
+        ms = self.state.phase_ms()
+        if ms is not None:
+            self.phases.append(profiling.PhaseSample(self._clocked, *ms))
+            self._sampled = self._clocked
+
+    def release_clocked(self) -> None:
+        """Release the programs captured with the phase clocks; the next
+        call of each captures it again, with the clocks only if a
+        profiler runs then."""
+        for key in self._clocked_keys:
+            self.programs.release(key)
+        self._clocked_keys.clear()
+        self._clocked = None
 
     def warm(self, kind: str) -> bool:
         """Whether ``kind`` has run its warm-up in this thread and in the
@@ -257,6 +347,8 @@ class StepPrograms:
             self.programs.clear()
             self._warmed.clear()
             self._generation = self.state.generation
+            self._clocked_keys.clear()
+            self._clocked = None
         return (threading.get_ident(), kind) in self._warmed
 
     def warm_up(self, kind: str, fn: Callable):
@@ -287,11 +379,22 @@ class StepPrograms:
         def record(*static):
             rows = step_rows(*static)
             self._count_steps(-steps)
+            if self.state.clocking:
+                self._clocked_keys.add(key)
             return rows
 
+        profiled = profiling.enabled()
+        if profiled:
+            self.sample_phases()
         if steps and self.master is not None:
             generators += self.master.generators
-        prog = self.programs.program(key, record, inputs, generators)
+        # A capture holds the phase clocks only while a profiler runs.
+        self.state.clocking = (profiled and steps > 0
+                               and self.state.phase_clocks is not None)
+        try:
+            prog = self.programs.program(key, record, inputs, generators)
+        finally:
+            self.state.clocking = False
         if prog.collectives and self.log and key not in self._logged:
             self._logged.add(key)
             per = max(steps, 1)
@@ -301,8 +404,14 @@ class StepPrograms:
                      f"a {'step' if steps else 'replay'})")
         if steps and self.master is not None:
             self.master.seek(self.state.step)
-        rows = prog.replay(*inputs)
+        kind = "step" if steps else "eval"
+        with profiling.span(f"{kind}.inputs"):
+            prog.load(*inputs)
+        with profiling.span(f"{kind}.launch"):
+            rows = prog.replay()
         self._count_steps(steps)
+        if key in self._clocked_keys:
+            self._clocked = self.state.step - 1
         return rows
 
 
@@ -310,23 +419,30 @@ def _captured(step: Callable, programs: StepPrograms, kind: str,
               train: bool) -> Callable:
     """``step`` (a batch -> 0-dim metric tensors) replayed from a captured
     program of ``programs`` per batch shape, after its warm-up; a train
-    step counts one step a replay."""
+    step counts one step a replay. Each call is the span ``step`` (a
+    train step) or ``eval``, holding ``<span>.inputs`` and
+    ``<span>.launch`` (``StepPrograms.run``) and ``<span>.outputs``: the
+    metrics copied out of the program's rows."""
     keys = {}
+    name = "step" if train else "eval"
 
     def call(batch: Tensor):
-        if not programs.warm(kind):
-            return programs.warm_up(kind, lambda: step(batch))
-        key = (kind, tuple(batch.shape), batch.dtype)
+        with profiling.span(name):
+            if not programs.warm(kind):
+                return programs.warm_up(kind, lambda: step(batch))
+            key = (kind, tuple(batch.shape), batch.dtype)
 
-        def rows(x):
-            out = step(x)
-            keys[key] = sorted(out)
-            return torch.stack([out[k].float() for k in keys[key]])
+            def rows(x):
+                out = step(x)
+                keys[key] = sorted(out)
+                return torch.stack([out[k].float() for k in keys[key]])
 
-        rows = programs.run(key, rows, (batch,), steps=int(train))
-        return dict(zip(keys[key], rows.clone().unbind()))
+            rows = programs.run(key, rows, (batch,), steps=int(train))
+            with profiling.span(f"{name}.outputs"):
+                return dict(zip(keys[key], rows.clone().unbind()))
 
     call.programs = programs.programs
+    call.step_programs = programs
     return call
 
 
@@ -339,7 +455,9 @@ def captured_step_fns(state: TrainState, train_step: Callable,
     each eager as its warm-up; the library steps of ``train/loop.py`` and
     ``parallel/sp.py``. The programs share one ``StepPrograms`` over a
     ``utils/graphs.ProgramCache`` (tapes when ``taped``: a rank of a gloo
-    group), held by each function as ``.programs``; a
+    group), held by each function as ``.programs`` (and the
+    ``StepPrograms``, whose ``phases`` hold the phase samples, as
+    ``.step_programs``); a
     ``MasterOptimizer``'s noise generators are registered with every
     train program, as the Trainer's are."""
     master = (state.optimizer if isinstance(state.optimizer,

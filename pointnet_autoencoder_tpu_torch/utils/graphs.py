@@ -211,14 +211,18 @@ class CapturedProgram:
         self.steps += [run, graph]
         graph.begin()
 
-    def replay(self, *inputs: torch.Tensor):
-        """Copy ``inputs`` into the static inputs and run the captured work
-        once (a tape's graphs and collectives in capture order); returns
-        ``outputs``."""
-        if self.steps is None:
-            raise RuntimeError("replay of a released program")
+    def load(self, *inputs: torch.Tensor) -> None:
+        """Copy ``inputs`` into the static inputs."""
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
+
+    def replay(self, *inputs: torch.Tensor):
+        """Copy ``inputs`` into the static inputs (``load``; none given:
+        the inputs as they are) and run the captured work once (a tape's
+        graphs and collectives in capture order); returns ``outputs``."""
+        if self.steps is None:
+            raise RuntimeError("replay of a released program")
+        self.load(*inputs)
         for i, step in enumerate(self.steps):
             if i % 2:
                 step()
@@ -299,13 +303,28 @@ class ProgramCache:
             self._programs[key] = prog
         return prog
 
+    def release(self, key: Hashable) -> None:
+        """Release the program of ``key``, if there is one."""
+        prog = self._programs.pop(key, None)
+        if prog is not None:
+            self._close([prog])
+
     def clear(self) -> None:
         """Release every program (before the state they captured is
         replaced)."""
-        for prog in self._programs.values():
+        programs, self._programs = list(self._programs.values()), {}
+        self._close(programs)
+
+    def _close(self, programs: List[CapturedProgram]) -> None:
+        """Release ``programs``, already out of the cache. Once the cache
+        holds none, later captures take a new pool: PyTorch's allocator
+        refuses a capture into a pool whose graphs were all released."""
+        for prog in programs:
             self._released_replays += prog.replays
             prog.close()
-        self._programs.clear()
+        if programs and not self._programs:
+            with torch.cuda.device(self.device):
+                self.pool = torch.cuda.graph_pool_handle()
 
     close = clear
 

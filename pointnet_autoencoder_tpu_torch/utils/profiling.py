@@ -3,16 +3,35 @@ package's ``utils/profiling.py``.
 
 The reference has no profiler integration, only wall-clock prints in its
 embedded benchmarks. Here: a step timer with percentile summaries for the
-training loop, and a thin wrapper over ``torch.profiler`` that writes a
-Chrome trace (viewable in Perfetto or chrome://tracing).
+training loop, a thin wrapper over ``torch.profiler`` that writes a
+Chrome trace (viewable in Perfetto or chrome://tracing), and what the
+program records of itself while a ``torch.profiler`` session runs:
+
+- Host spans (``span``): the library step's layers (``step``, and inside
+  it ``step.inputs``, ``step.launch``, ``step.outputs``; an eval step's
+  ``eval.*``) and the eager step's phases (``step.forward``,
+  ``step.loss``, ``step.backward``, ``step.update``). Each is a
+  ``torch.profiler.record_function`` range, so it sits in the session's
+  trace, the Trainer's ``--profile_dir`` Chrome trace included.
+- Phase clocks on the device: a train program that ``StepPrograms``
+  captures while a session runs holds five CUDA event records at the
+  phase boundaries of its steps, and ``StepPrograms`` reads them as
+  ``PhaseSample``s once a replay has completed: the device's wall time
+  from one boundary to the next (forward, loss, backward, update, the
+  gaps between their kernels included), which no host span can split
+  out of a replayed graph. A program captured with no session running
+  holds no clocks.
+
+With no session running, ``span`` checks one flag and does nothing else.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import statistics
 import time
-from typing import List, Optional
+from typing import Dict, Iterable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -130,3 +149,50 @@ def trace(log_dir: Optional[str], device=None):
             torch.cuda.synchronize(device)
         prof.stop()
         prof.export_chrome_trace(path)
+
+
+# Phase samples that a ``StepPrograms`` keeps: the newest, the oldest
+# dropped first.
+RING = 65536
+# The phases of a train step, in order; a clocked step marks their
+# boundaries with one CUDA event each, five in all.
+PHASES_OF_A_STEP = ("forward", "loss", "backward", "update")
+
+
+class PhaseSample(NamedTuple):
+    """One train step's phases, in ms, from its phase clocks: the device's
+    wall time between two boundaries, gaps included; ``step``: the steps
+    taken before it."""
+
+    step: int
+    forward_ms: float
+    loss_ms: float
+    backward_ms: float
+    update_ms: float
+
+
+def enabled() -> bool:
+    """Whether a ``torch.profiler`` session is running."""
+    return torch.autograd._profiler_enabled()
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks its block as the span ``name`` (a
+    ``torch.profiler.record_function`` range) while a ``torch.profiler``
+    session runs. With no session it is a shared no-op context, and the
+    flag check is all the work it does."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def phase_medians(samples: Iterable[PhaseSample]) -> Dict[str, float]:
+    """Each phase's median ms over ``samples`` ({} for none)."""
+    samples = list(samples)
+    if not samples:
+        return {}
+    return {p: statistics.median(getattr(s, f"{p}_ms") for s in samples)
+            for p in PHASES_OF_A_STEP}

@@ -1,9 +1,11 @@
 """StepTimer and trace (utils/profiling.py), the twin of the JAX package's
-tests/test_profiling.py, and the Trainer's --profile_dir trace on the CPU;
-also the synthetic fixture's real-archive scale (data/synthetic.py), the
-calibration input of full-dataset timings, against the JAX package's.
+tests/test_profiling.py, the program's spans and phase clocks, and the
+Trainer's --profile_dir trace on the CPU; also the synthetic fixture's
+real-archive scale (data/synthetic.py), the calibration input of
+full-dataset timings, against the JAX package's.
 """
 
+import contextlib
 import filecmp
 import json
 import os
@@ -15,13 +17,20 @@ import torch
 from pointnet_autoencoder_tpu.data import synthetic as jsynthetic
 from pointnet_autoencoder_tpu_torch.config import TrainConfig
 from pointnet_autoencoder_tpu_torch.data import synthetic
-from pointnet_autoencoder_tpu_torch.train.loop import Trainer
+from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
+from pointnet_autoencoder_tpu_torch.train import schedules
+from pointnet_autoencoder_tpu_torch.train.loop import Trainer, make_step_fns
+from pointnet_autoencoder_tpu_torch.train.state import (
+    StepPrograms, TrainState, _captured, make_optimizer)
+from pointnet_autoencoder_tpu_torch.utils import graphs, profiling
 from pointnet_autoencoder_tpu_torch.utils.profiling import StepTimer, trace
 
 torch.set_num_threads(2)
 
 NUM_POINT = 64
 BATCH = 4
+CPU = [torch.profiler.ProfilerActivity.CPU]
+PHASE_SPANS = ["step.forward", "step.loss", "step.backward", "step.update"]
 
 
 def test_step_timer_records_and_summarizes():
@@ -77,6 +86,253 @@ def test_step_timer_stop_without_start_raises():
     assert t.summary()["steps"] == 1
 
 
+def test_a_span_without_a_profiler_records_nothing(monkeypatch):
+    entered = []
+
+    class Counting:
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            entered.append(self.name)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.profiler, "record_function", Counting)
+    assert not profiling.enabled()
+    with profiling.span("outer"):
+        with profiling.span("inner"):
+            torch.ones(2).sum()
+    assert entered == []
+    # The same spans in a session enter the (counting) range.
+    with torch.profiler.profile(activities=CPU):
+        with profiling.span("outer"):
+            with profiling.span("inner"):
+                pass
+    assert entered == ["outer", "inner"]
+
+
+def test_spans_in_a_session_nest():
+    with torch.profiler.profile(activities=CPU) as prof:
+        with profiling.span("outer"):
+            with profiling.span("inner"):
+                torch.ones(8).sum()
+            with profiling.span("second"):
+                pass
+        with profiling.span("alone"):
+            pass
+    events = {}
+    for e in prof.events():
+        events.setdefault(e.name, []).append(e)
+    for name in ("outer", "inner", "second", "alone"):
+        assert len(events[name]) == 1, name
+    (outer,), (inner,), (second,), (alone,) = (
+        events[n] for n in ("outer", "inner", "second", "alone"))
+    assert inner.cpu_parent.name == "outer"
+    assert second.cpu_parent.name == "outer"
+    assert alone.cpu_parent is None
+    o, i, s2 = outer.time_range, inner.time_range, second.time_range
+    assert o.start <= i.start <= i.end <= s2.start <= s2.end <= o.end \
+        <= alone.time_range.start
+
+
+def test_phase_medians():
+    samples = [profiling.PhaseSample(s, s, 2 * s, 3 * s, 1.0)
+               for s in (1, 5, 3)]
+    assert profiling.phase_medians(samples) == {
+        "forward": 3, "loss": 6, "backward": 9, "update": 1.0}
+    assert profiling.phase_medians([]) == {}
+
+
+def _state(seed=0):
+    model = get_model_spec("model").make(
+        NUM_POINT, dtype=torch.float32,
+        generator=torch.Generator().manual_seed(seed))
+    lr = schedules.learning_rate_schedule(1e-3, 0.7, BATCH, 200000)
+    return TrainState(model, make_optimizer("adam", model.parameters()), lr)
+
+
+def _batches(n=3):
+    gen = torch.Generator().manual_seed(5)
+    return [torch.rand((BATCH, NUM_POINT, 3), generator=gen)
+            for _ in range(n)]
+
+
+def _names(prof):
+    """The names of the session's host events, in start order."""
+    return [e.name for e in sorted(prof.events(),
+                                   key=lambda e: e.time_range.start)]
+
+
+def test_the_eager_step_spans_its_phases_in_order():
+    state = _state()
+    assert state.phase_clocks is None  # no CUDA events on the CPU
+    loss_fn = get_model_spec("model").loss_fn
+    bn = schedules.bn_momentum_schedule(BATCH, 200000)
+    batch = _batches(1)[0]
+    with torch.profiler.profile(activities=CPU) as prof:
+        state.train_step(batch, loss_fn, bn)
+    assert [n for n in _names(prof) if n in PHASE_SPANS] == PHASE_SPANS
+    spans = {e.name: e.time_range for e in prof.events()
+             if e.name in PHASE_SPANS}
+    ranges = [spans[n] for n in PHASE_SPANS]
+    assert all(a.end <= b.start for a, b in zip(ranges, ranges[1:]))
+    assert state.phase_ms() is None
+
+
+def test_profiling_leaves_the_library_step_bit_equal():
+    bn = schedules.bn_momentum_schedule(BATCH, 200000)
+    losses, names = {}, []
+    for traced in (False, True):
+        state = _state()
+        step, _ = make_step_fns(state, "model", bn, compiled=False)
+        session = (torch.profiler.profile(activities=CPU) if traced
+                   else contextlib.nullcontext())
+        with session as prof:
+            losses[traced] = [step(b)["loss"] for b in _batches()]
+        if traced:
+            names = [n for n in _names(prof) if n in PHASE_SPANS]
+    assert all(torch.equal(a, b) for a, b in zip(losses[False],
+                                                 losses[True]))
+    assert names == PHASE_SPANS * 3
+
+
+class StandInGraph:
+    """A capture that runs the function once; a replay that runs nothing."""
+
+    def capture(self):
+        return contextlib.nullcontext()
+
+    def replay(self):
+        pass
+
+    def reset(self):
+        pass
+
+
+class StandInCache:
+    """``ProgramCache``'s calls on the CPU, over ``StandInGraph``s;
+    ``released``: the keys released one by one."""
+
+    def __init__(self):
+        self.programs = {}
+        self.released = []
+
+    def warm_up(self, fn):
+        return fn()
+
+    def program(self, key, fn, inputs=(), generators=()):
+        if key not in self.programs:
+            self.programs[key] = graphs.CapturedProgram(
+                fn, StandInGraph(), tuple(t.clone() for t in inputs))
+        return self.programs[key]
+
+    def release(self, key):
+        if self.programs.pop(key, None) is not None:
+            self.released.append(key)
+
+    def clear(self):
+        self.programs.clear()
+
+    close = clear
+
+
+class StandInEvent:
+    """A phase clock on the CPU: counts its records."""
+
+    def __init__(self):
+        self.records = 0
+
+    def record(self, stream):
+        self.records += 1
+
+
+CLOCKS = (1.0, 0.5, 2.0, 0.25)
+
+
+def _stand_in_clocks(state, monkeypatch, done):
+    """Phase clocks on ``state`` that count their records and read
+    ``CLOCKS`` ms once ``done["now"]``."""
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: None)
+    state.phase_clocks = tuple(StandInEvent() for _ in range(5))
+    monkeypatch.setattr(state, "phase_ms",
+                        lambda: CLOCKS if done["now"] else None)
+
+
+def test_the_library_step_spans_and_samples_each_step_once(monkeypatch):
+    """The captured library step under a stand-in cache: a call is a
+    ``step`` span over ``step.inputs``, ``step.launch`` and
+    ``step.outputs``; a capture in a session records the phase clocks,
+    and each call in a session first samples the last replayed step's
+    clocks, once, and only once they are done. A program captured with
+    no session, after ``release_clocked``, holds no clocks."""
+    state = _state()
+    loss_fn = get_model_spec("model").loss_fn
+    bn = schedules.bn_momentum_schedule(BATCH, 200000)
+    programs = StepPrograms(state, StandInCache())
+    step = _captured(lambda b: state.train_step(b, loss_fn, bn), programs,
+                     "train", True)
+    done = {"now": False}
+    _stand_in_clocks(state, monkeypatch, done)
+
+    def records():
+        return [e.records for e in state.phase_clocks]
+
+    batches = _batches(5)
+    with torch.profiler.profile(activities=CPU) as prof:
+        step(batches[0])   # warm-up, eager: no clocks, nothing to sample
+        assert records() == [0] * 5
+        step(batches[1])   # capture with the clocks, replays step 1
+        assert records() == [1] * 5
+        step(batches[2])   # step 1 still running: no sample; replays 2
+        done["now"] = True
+        step(batches[3])   # samples step 2, replays step 3
+    step(batches[4])       # no session: no sample, no span
+    assert list(programs.phases) == [profiling.PhaseSample(2, *CLOCKS)]
+    with torch.profiler.profile(activities=CPU):
+        programs.sample_phases()
+        programs.sample_phases()
+    assert [s.step for s in programs.phases] == [2, 4]
+    names = [n for n in _names(prof) if n.startswith("step")]
+    assert names.count("step") == 4
+    assert names[-4:] == ["step", "step.inputs", "step.launch",
+                          "step.outputs"]
+    assert state.step == 5
+
+    programs.release_clocked()
+    assert programs.programs.released == [("train", tuple(batches[0].shape),
+                                           batches[0].dtype)]
+    step(batches[0])       # captured again, with no session: no clocks
+    with torch.profiler.profile(activities=CPU):
+        step(batches[1])   # replays the program without clocks
+    programs.sample_phases()
+    assert records() == [1] * 5 and len(programs.phases) == 2
+    assert state.step == 7
+
+
+def test_a_new_generation_forgets_the_clocked_programs(monkeypatch):
+    """A loaded state (a new generation) releases every program: the
+    clocks of the old ones are neither sampled nor released again."""
+    state = _state()
+    loss_fn = get_model_spec("model").loss_fn
+    bn = schedules.bn_momentum_schedule(BATCH, 200000)
+    programs = StepPrograms(state, StandInCache())
+    step = _captured(lambda b: state.train_step(b, loss_fn, bn), programs,
+                     "train", True)
+    _stand_in_clocks(state, monkeypatch, {"now": True})
+    batches = _batches(2)
+    with torch.profiler.profile(activities=CPU):
+        step(batches[0])
+        step(batches[1])
+    state.generation += 1
+    assert not programs.warm("train") and programs.programs.programs == {}
+    programs.sample_phases()
+    programs.release_clocked()
+    assert len(programs.phases) == 0 and programs.programs.released == []
+
+
 @pytest.fixture(scope="module")
 def fixture_root(tmp_path_factory):
     """30 Chair shapes: 25 trainval (6 batches of 4), 5 test (1 batch)."""
@@ -109,11 +365,43 @@ def test_trainer_traces_only_its_first_epoch(fixture_root, tmp_path):
     with open(tmp_path / "prof" / files[0]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "aten::mm" in names  # the train steps and the eval are inside
+    assert set(PHASE_SPANS) <= names  # the eager steps' phases
     log = _log(tmp_path)
     assert log.count("profiler trace written to") == 1
     first = log.index("profiler trace written to")
-    assert log.index("---- EPOCH 000 EVALUATION ----") < first \
+    phases = log.index("step phases on the device: none sampled (the CPU "
+                       "has no phase clocks)")
+    assert log.index("---- EPOCH 000 EVALUATION ----") < first < phases \
         < log.index("**** EPOCH 001 ****")
+
+
+def test_the_trainer_logs_the_medians_of_its_own_samples(
+        fixture_root, tmp_path, monkeypatch):
+    """The Trainer's chunks under a stand-in cache with phase clocks that
+    read done: the traced epoch's line gives the medians of the samples
+    it took, and the programs captured with the clocks are released
+    after it, so that the next epoch captures them again without."""
+    trainer = Trainer(_config(fixture_root, tmp_path, max_epoch=2,
+                              log_every=2), device="cpu")
+    try:
+        trainer._steps = StepPrograms(trainer.state, StandInCache())
+        _stand_in_clocks(trainer.state, monkeypatch, {"now": True})
+        trainer.train()
+        taken = len(trainer._steps.phases)
+        released = trainer._steps.programs.released
+        records = [e.records for e in trainer.state.phase_clocks]
+        kept = sorted(trainer._steps.programs.programs)
+    finally:
+        trainer.close()
+    assert taken >= 1
+    assert (f"step phases on the device, median ms of {taken} sampled "
+            f"steps: forward 1.0000, loss 0.5000, backward 2.0000, update "
+            f"0.2500") in _log(tmp_path)
+    # Each train program of the first epoch held the clocks (a chunk of
+    # two steps records each clock twice), and was captured again.
+    assert released and all(key[0] == "train" for key in released)
+    assert records == [2 * len(released)] * 5
+    assert set(released) <= set(kept)
 
 
 def test_trainer_writes_the_trace_on_preemption(fixture_root, tmp_path):
