@@ -25,6 +25,19 @@ line each; any failure exits non-zero before the final line:
             also at model_hierachy's center term, B=32 with (N, M) =
             (64, 2048) and (2048, 64), bit-equal; K6 against float64 no
             worse than 2x the plain f32 version.
+3b. batch_norm_kernel: K7, training BatchNorm + ReLU, against its plain
+            version in f32 (a bf16 input upcast) on the card at the
+            training path's shapes ((65536,
+            64), (65536, 128), (262144, 64), (262144, 128), (32, 1024),
+            (128, 1024) in bf16; two in f32), ragged rows, channel counts
+            that take one element a thread, and an UpConv stage's
+            permuted 4-D activation through the autograd Function: the
+            moments, the moving statistics, the output, and dx, dgamma and
+            dbeta on the kernel's own moments and ReLU mask; two calls
+            bit-equal, a CUDA graph's replay bit-equal to eager. After
+            phase 8, each direction's CUDA-event and device time a call
+            at the main shapes beside its bound, the plain version's
+            time and F.batch_norm + F.relu's (the yardstick).
 4. session: the serving path (``--model model``, full width, num_point
             2048, batch 32, random weights from a numpy seed written as a
             reference-named .npz) through ``InferenceSession(device="cuda")``,
@@ -918,6 +931,235 @@ def phase_emd_kernel(torch, em, rng) -> float:
     return err
 
 
+# K7 at the training path's shapes: conv1-conv3 and conv4 at B=32 and
+# B=128 (rows B·2048, C 64 and 128) and fc1/fc2 (B rows, C 1024).
+BN_MAIN_SHAPES = ((65536, 64), (65536, 128), (262144, 64), (262144, 128),
+                  (32, 1024), (128, 1024))
+# K7 against its plain version in f32 on the card (a bf16 input upcast,
+# exactly): (rtol, atol as a share of the plain version's largest
+# element). The statistics sum in another order, and K7's output and dx
+# round once to bf16 (at most 2^-8 of the value) or stay f32; the plain
+# version, the autograd chain, rounds its f32 operations one by one.
+BN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 1e-4)}
+BN_STAT_TOL = (1e-5, 1e-6)
+
+
+def bn_inputs(torch, rng, rows, c, dtype):
+    """y (rows, c) with per-channel offsets and scales, the output's
+    cotangent g, gamma (a quarter negative), beta, moving statistics and a
+    0-dim momentum, on the card."""
+    dev = torch.device("cuda")
+    y = (rng.randn(rows, c) * rng.uniform(0.2, 3.0, c)
+         + rng.randn(c)).astype(np.float32)
+    g = rng.randn(rows, c).astype(np.float32)
+    gamma = ((1 + 0.5 * rng.rand(c))
+             * np.where(rng.rand(c) < 0.25, -1, 1)).astype(np.float32)
+    vec = [torch.from_numpy(a).to(dev) for a in (
+        gamma, (0.1 * rng.randn(c)).astype(np.float32),
+        (0.1 * rng.randn(c)).astype(np.float32),
+        (1 + rng.rand(c)).astype(np.float32))]
+    return (torch.from_numpy(y).to(dev, dtype),
+            torch.from_numpy(g).to(dev, dtype), *vec,
+            torch.full((), 0.7, device=dev))
+
+
+def bn_close(torch, got, want, tol) -> float:
+    """The largest |got - want| over (rtol |want| + atol max |want|);
+    at most 1 within ``tol``."""
+    got, want = got.detach().double(), want.detach().double()
+    rtol, atol = tol
+    scale = rtol * want.abs() + atol * float(want.abs().max()) + 1e-30
+    return float(((got - want).abs() / scale).max())
+
+
+def phase_batch_norm_kernel(torch, rng):
+    """K7 (ops/batch_norm.py over csrc/batch_norm.cu) against its plain
+    version in f32 on the card, bit-equal over two calls and under graph
+    capture to eager. See the module docstring, phase 3b."""
+    from pointnet_autoencoder_tpu_torch.ops import batch_norm as bn
+
+    def run(y, g, gamma, beta, mov_mean, mov_var, mom, relu):
+        mb, vb = mov_mean.clone(), mov_var.clone()
+        out, moments = bn.batch_norm_fwd_cuda(y, gamma, beta, mb, vb, mom,
+                                              EPS, relu)
+        dy, dgamma, dbeta = bn.batch_norm_bwd_cuda(g, y, moments, gamma,
+                                                   beta, EPS, relu)
+        return out, moments, mb, vb, dy, dgamma, dbeta
+
+    def case(rows, c, dtype, relu, graph=False, label=""):
+        y, g, gamma, beta, mov_mean, mov_var, mom = bn_inputs(
+            torch, rng, rows, c, dtype)
+        got = run(y, g, gamma, beta, mov_mean, mov_var, mom, relu)
+        again = run(y, g, gamma, beta, mov_mean, mov_var, mom, relu)
+        tag = (f"K7 ({rows}, {c}) {str(dtype).split('.')[-1]} "
+               f"{'relu' if relu else 'linear'}{label}")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"{tag}: two calls differ")
+        pm, pv = mov_mean.clone(), mov_var.clone()
+        yf = y.float()
+        out_p, mom_p = bn.batch_norm_fwd_plain(yf, gamma, beta, pm, pv, mom,
+                                               EPS, relu)
+        out, moments, mb, vb, dy, dgamma, dbeta = got
+        # The backward held on the kernel's ReLU mask (the plain backward
+        # without the ReLU, on g behind that mask): a mask that the
+        # kernel's backward recomputed otherwise would move whole elements
+        # of dx.
+        mask = out > 0 if relu else torch.ones_like(out, dtype=torch.bool)
+        dy_p, dgamma_p, dbeta_p = bn.batch_norm_bwd_plain(
+            torch.where(mask, g, torch.zeros_like(g)).float(), yf, mom_p,
+            gamma, beta, EPS, False)
+        torch.cuda.synchronize()
+        tol = BN_TOL[str(dtype).split(".")[-1]]
+        gaps = {"moments": bn_close(torch, moments, mom_p, BN_STAT_TOL),
+                "moving mean": bn_close(torch, mb, pm, BN_STAT_TOL),
+                "moving var": bn_close(torch, vb, pv, BN_STAT_TOL),
+                "out": bn_close(torch, out, out_p, tol),
+                "dx": bn_close(torch, dy, dy_p, tol),
+                "dgamma": bn_close(torch, dgamma, dgamma_p, (1e-4, 1e-5)),
+                "dbeta": bn_close(torch, dbeta, dbeta_p, (1e-4, 1e-5))}
+        worst = max(gaps, key=gaps.get)
+        require(gaps[worst] <= 1.0, f"{tag}: {worst} off by "
+                f"{gaps[worst]:.3f} of its tolerance ({gaps})")
+        flips = int(((out > 0) != (out_p > 0)).sum()) if relu else 0
+        require(flips <= 1e-4 * out.numel(), f"{tag}: the plain version's "
+                f"ReLU mask differs at {flips} of {out.numel()}")
+        note = ""
+        if graph:
+            # Captured fwd + bwd on static inputs, replayed from the same
+            # moving statistics: bit-equal to eager.
+            static_mb, static_vb = mov_mean.clone(), mov_var.clone()
+
+            def step():
+                out, moments = bn.batch_norm_fwd_cuda(
+                    y, gamma, beta, static_mb, static_vb, mom, EPS, relu)
+                return (out, moments) + bn.batch_norm_bwd_cuda(
+                    g, y, moments, gamma, beta, EPS, relu)
+
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step()
+            torch.cuda.current_stream().wait_stream(side)
+            graph_ = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph_):
+                outs = step()
+            static_mb.copy_(mov_mean)
+            static_vb.copy_(mov_var)
+            graph_.replay()
+            torch.cuda.synchronize()
+            replayed = (outs[0], outs[1], static_mb, static_vb) + outs[2:]
+            require(all(torch.equal(a, b) for a, b in zip(replayed, got)),
+                    f"{tag}: the graph's replay differs from eager")
+            note = ", a graph replay bit-equal to eager"
+        say("batch_norm_kernel", f"{tag}: within its tolerances (largest "
+            f"share {gaps[worst]:.3f}, {worst}), ReLU masks of the plain "
+            f"version differing {flips}; two calls bit-equal{note} ok")
+
+    for i, (rows, c) in enumerate(BN_MAIN_SHAPES):
+        case(rows, c, torch.bfloat16, True, graph=i in (0, 4))
+    case(65536, 64, torch.float32, True, graph=True)
+    case(128, 1024, torch.float32, False)
+    # Ragged rows, and channel counts that take one element a thread.
+    case(65533, 64, torch.bfloat16, True, label=" (ragged rows)")
+    case(1001, 36, torch.float32, True, label=" (ragged rows)")
+    case(1001, 37, torch.float32, True, label=" (one element a thread)")
+    case(517, 20, torch.bfloat16, False, label=" (one element a thread)")
+
+    # An UpConv stage's channels-last 4-D activation (model_upconv's
+    # upconv3 at B=32), a permuted view as ConvTranspose gives it, through
+    # the autograd Function.
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.randn(32, 256, 10, 20).astype(np.float32)).to(
+        dev, torch.bfloat16).permute(0, 2, 3, 1).requires_grad_()
+    _, g, gamma, beta, mov_mean, mov_var, mom = bn_inputs(
+        torch, rng, 32 * 10 * 20, 256, torch.bfloat16)
+    gamma.requires_grad_()
+    beta.requires_grad_()
+    mb, vb = mov_mean.clone(), mov_var.clone()
+    out = bn.batch_norm_train(x, gamma, beta, mb, vb, mom, EPS, relu=True)
+    out.backward(g.reshape(out.shape))
+    y2 = x.detach().contiguous().reshape(-1, 256).float()
+    out_p, mom_p = bn.batch_norm_fwd_plain(y2, gamma.detach(), beta.detach(),
+                                           mov_mean.clone(), mov_var.clone(),
+                                           mom, EPS, True)
+    mask = out.reshape(-1, 256) > 0
+    dy_p, dgamma_p, dbeta_p = bn.batch_norm_bwd_plain(
+        torch.where(mask, g, torch.zeros_like(g)).float(), y2, mom_p,
+        gamma.detach(), beta.detach(), EPS, False)
+    gaps = [bn_close(torch, out.reshape(-1, 256), out_p,
+                     BN_TOL["bfloat16"]),
+            bn_close(torch, x.grad.reshape(-1, 256), dy_p,
+                     BN_TOL["bfloat16"]),
+            bn_close(torch, gamma.grad, dgamma_p, (1e-4, 1e-5)),
+            bn_close(torch, beta.grad, dbeta_p, (1e-4, 1e-5))]
+    require(out.shape == x.shape and max(gaps) <= 1.0,
+            f"K7 UpConv (32, 10, 20, 256) bf16: out, dx, dgamma, dbeta at "
+            f"{gaps} of their tolerances")
+    say("batch_norm_kernel", f"K7 UpConv (32, 10, 20, 256) bf16 relu, a "
+        f"permuted view through the autograd Function: out, dx, dgamma, "
+        f"dbeta within their tolerances (largest share {max(gaps):.3f}) ok")
+    torch.cuda.empty_cache()
+
+
+def batch_norm_timings(torch, rng):
+    """K7's times at the main shapes, bf16 with the ReLU: each direction
+    by CUDA events and by device time a call, beside its bound, the plain
+    version's and F.batch_norm with F.relu's (the library yardstick, which
+    the port never calls). Run after phase timings, so that its traces
+    come first in the process (with K7's twelve traces first, K5's f32
+    trace there lost two events in each of its six takes)."""
+    from torch.nn import functional as F
+
+    from pointnet_autoencoder_tpu_torch.ops import batch_norm as bn
+
+    for rows, c in BN_MAIN_SHAPES:
+        y, g, gamma, beta, mov_mean, mov_var, mom = bn_inputs(
+            torch, rng, rows, c, torch.bfloat16)
+        out, moments = bn.batch_norm_fwd_cuda(y, gamma, beta, mov_mean,
+                                              mov_var, mom, EPS, True)
+
+        def fwd():
+            bn.batch_norm_fwd_cuda(y, gamma, beta, mov_mean, mov_var, mom,
+                                   EPS, True)
+
+        def bwd():
+            bn.batch_norm_bwd_cuda(g, y, moments, gamma, beta, EPS, True)
+
+        def plain():
+            o, m = bn.batch_norm_fwd_plain(y, gamma, beta, mov_mean, mov_var,
+                                           mom, EPS, True)
+            bn.batch_norm_bwd_plain(g, y, m, gamma, beta, EPS, True)
+
+        xl = y.detach().clone().requires_grad_()
+        rm, rv = mov_mean.clone(), mov_var.clone()
+
+        def library():
+            o = F.relu(F.batch_norm(xl, rm, rv, gamma, beta, training=True,
+                                    momentum=0.3, eps=EPS))
+            torch.autograd.grad(o, xl, g)
+
+        times = {}
+        for name, fn in (("fwd", fwd), ("bwd", bwd)):
+            dev_ms, counts = median_device_ms(torch, fn)
+            require(len(counts) == 3, f"K7 {name} ({rows}, {c}): kernels "
+                    f"{counts}, not 3")
+            times[name] = (cuda_ms(torch, fn), dev_ms)
+        try:
+            lib = f"{cuda_ms(torch, library):.4f}"
+        except RuntimeError as e:  # the library's own refusal
+            lib = f"not measured ({type(e).__name__}: {str(e)[:80]})"
+        kb = {k: bound(f"batch_norm_{k}", rows=rows, c=c, dtype="bf16")
+              for k in ("fwd", "bwd")}
+        say("batch_norm_kernel", f"K7 ({rows}, {c}) bf16 relu: fwd "
+            f"{times['fwd'][0]:.4f} ms, dev {times['fwd'][1]:.5f}, bound "
+            f"{kb['fwd']['bound_ms']:.5f} ({kb['fwd']['bound_by']}); bwd "
+            f"{times['bwd'][0]:.4f} ms, dev {times['bwd'][1]:.5f}, bound "
+            f"{kb['bwd']['bound_ms']:.5f} ({kb['bwd']['bound_by']}); plain "
+            f"fwd + bwd {cuda_ms(torch, plain):.4f} ms; F.batch_norm + "
+            f"F.relu fwd + bwd {lib} ms")
+    torch.cuda.empty_cache()
+
+
 def phase_session(torch, InferenceSession, weights, rng):
     gpu = InferenceSession("model", weights, NUM_POINT, batch_size=BATCH,
                            device="cuda")
@@ -1024,21 +1266,38 @@ def phase_server(weights, rng):
 
 def kernel_counters(ch, fe, fh, em):
     """Name -> the wrapper whose ``launches`` counts that kernel."""
+    from pointnet_autoencoder_tpu_torch.ops import batch_norm as bn
+
     return {"fused_encoder_eval": fe.encoder_extrema_cuda,
             "nn_distance": ch.nn_distance_cuda,
             "fused_head_fwd": fh.head_max_cuda,
             "fused_head_bwd": fh.head_bwd_cuda,
             "nn_distance_grad": ch.nn_distance_grad_cuda,
-            "emd_forward": em.emd_forward_cuda}
+            "emd_forward": em.emd_forward_cuda,
+            "batch_norm_fwd": bn.batch_norm_fwd_cuda,
+            "batch_norm_bwd": bn.batch_norm_bwd_cuda}
 
 
 # The kernels each training path must launch (its eval epoch included):
 # --model model trains on Chamfer (K1, K2) and --model model_emd on EMD
-# (K6), reporting Chamfer without its gradient.
+# (K6), reporting Chamfer without its gradient; both through K7.
 MODEL_PATH_KERNELS = ("fused_encoder_eval", "nn_distance", "fused_head_fwd",
-                      "fused_head_bwd", "nn_distance_grad")
+                      "fused_head_bwd", "nn_distance_grad", "batch_norm_fwd",
+                      "batch_norm_bwd")
 EMD_PATH_KERNELS = ("emd_forward", "fused_head_fwd", "fused_head_bwd",
-                    "nn_distance", "fused_encoder_eval")
+                    "nn_distance", "fused_encoder_eval", "batch_norm_fwd",
+                    "batch_norm_bwd")
+# Each family's training BatchNorms a step: K7 forward and backward calls
+# (conv1-conv4, the neck's and the decoder's; conv5's is K3/K4's).
+TRAIN_BN_LAYERS = {"model": 6, "model_emd": 6, "model_cpu": 6,
+                   "model_hierachy": 8, "model_upconv": 9,
+                   "model_fc_upconv": 11}
+
+
+def with_bn(want: dict, model: str, steps: int) -> dict:
+    """``want`` with K7's launches in ``steps`` train steps of ``model``."""
+    n = TRAIN_BN_LAYERS[model] * steps
+    return dict(want, batch_norm_fwd=n, batch_norm_bwd=n)
 
 
 def write_chair_fixture(tmp):
@@ -1256,9 +1515,10 @@ def phase_families(torch, counters, data, tmp, gen):
         try:
             steps = run["steps"]
             evals = TRAIN_EPOCHS * len(trainer.eval_pipe)
-            want = dict(fused_encoder_eval=evals, nn_distance=calls * (
-                steps + evals), fused_head_fwd=steps, fused_head_bwd=steps,
-                nn_distance_grad=calls * steps, emd_forward=0)
+            want = with_bn(dict(
+                fused_encoder_eval=evals, nn_distance=calls * (steps + evals),
+                fused_head_fwd=steps, fused_head_bwd=steps,
+                nn_distance_grad=calls * steps, emd_forward=0), name, steps)
             require(launches == want, f"{name}: launches {launches}, the "
                     f"path needs {want}")
             pcloss = [r["pcloss"] for r in run["test"]]
@@ -1496,11 +1756,6 @@ def shared_choices(store: dict, replay: bool, masks: bool = True):
         store["relu_made"] += mask.numel()
         return x * card.to(x.dtype) if masks else functional.relu(x)
 
-    # The layers reach ReLU through their module's ``F``: a copy of
-    # torch.nn.functional whose relu is the stand-in.
-    stand_in_f = types.SimpleNamespace(**vars(functional))
-    stand_in_f.relu = relu
-    layers.F = stand_in_f
     # A kernel wrapper counts its launches on the function its module's
     # name holds: the stand-in carries the count meanwhile.
     patched = ((ch, nn_name, nn_fn, nn), (fh, head_name, head_fn, head),
@@ -1509,13 +1764,41 @@ def shared_choices(store: dict, replay: bool, masks: bool = True):
         stand_in.launches = getattr(fn, "launches", 0)
         setattr(mod, name, stand_in)
     try:
-        yield
+        with relu_through(relu):
+            yield
     finally:
-        layers.F = functional
         for mod, name, fn, stand_in in patched:
             setattr(mod, name, fn)
             if hasattr(fn, "launches"):
                 fn.launches = stand_in.launches
+
+
+@contextlib.contextmanager
+def relu_through(relu):
+    """Within the block, every ReLU of the layers is ``relu``: the one a
+    training BatchNorm fuses (``ops/batch_norm.batch_norm_train`` runs
+    without it, K7 on the card, then ``relu`` takes its output; in f32
+    the same values as the fused ReLU) and ``nn/layers``' ``F.relu`` (a
+    layer without BN, and eval)."""
+    from pointnet_autoencoder_tpu_torch.nn import layers
+    from pointnet_autoencoder_tpu_torch.ops import batch_norm as bn_op
+
+    functional, real = layers.F, bn_op.batch_norm_train
+
+    def bn(x, *args, relu_on=False, **kw):
+        y = real(x, *args, relu=False, **kw)
+        return relu(y) if relu_on else y
+
+    stand_in_f = types.SimpleNamespace(**vars(functional))
+    stand_in_f.relu = relu
+    layers.F = stand_in_f
+    bn_op.batch_norm_train = (
+        lambda x, *args, relu=False, **kw: bn(x, *args, relu_on=relu, **kw))
+    try:
+        yield
+    finally:
+        layers.F = functional
+        bn_op.batch_norm_train = real
 
 
 def grad_gaps(got: dict, want: dict, hold: bool = True):
@@ -1761,9 +2044,6 @@ def dp_choices(store: dict, replay: bool, rows=slice(None), cols=None):
         mask = take("relu", x > 0)
         return functional.relu(x) if not replay else x * mask.to(x.dtype)
 
-    stand_in_f = types.SimpleNamespace(**vars(functional))
-    stand_in_f.relu = relu
-    layers.F = stand_in_f
     patched = ((ch, "nn_distance_cuda", nn_fn, nn),
                (fh, "head_max_cuda", head_fn, head),
                (em, "emd_forward_cuda", emd_fn, emd))
@@ -1771,9 +2051,9 @@ def dp_choices(store: dict, replay: bool, rows=slice(None), cols=None):
         stand_in.launches = fn.launches
         setattr(mod, name, stand_in)
     try:
-        yield
+        with relu_through(relu):
+            yield
     finally:
-        layers.F = functional
         for mod, name, fn, stand_in in patched:
             setattr(mod, name, fn)
             fn.launches = stand_in.launches
@@ -2203,12 +2483,14 @@ def phase_data_parallel(torch, counters, session, weights, data, tmp, rng):
     ranks = [torch.load(os.path.join(out_dir, f"dp_rank{r}.pt"))
              for r in range(DP_RANKS)]
     want_launches = {
-        "model": {"fused_head_fwd": 1, "fused_head_bwd": 1, "nn_distance": 1,
-                  "nn_distance_grad": 1, "emd_forward": 0,
-                  "fused_encoder_eval": 0},
-        "model_emd": {"fused_head_fwd": 1, "fused_head_bwd": 1,
-                      "nn_distance": 1, "nn_distance_grad": 0,
-                      "emd_forward": 1, "fused_encoder_eval": 0}}
+        "model": with_bn({"fused_head_fwd": 1, "fused_head_bwd": 1,
+                          "nn_distance": 1, "nn_distance_grad": 1,
+                          "emd_forward": 0, "fused_encoder_eval": 0},
+                         "model", 1),
+        "model_emd": with_bn({"fused_head_fwd": 1, "fused_head_bwd": 1,
+                              "nn_distance": 1, "nn_distance_grad": 0,
+                              "emd_forward": 1, "fused_encoder_eval": 0},
+                             "model_emd", 1)}
     for model in DP_STEP_MODELS:
         one, fl = single[model], floor[model]
         got = [r[model] for r in ranks]
@@ -2370,12 +2652,13 @@ def phase_data_parallel(torch, counters, session, weights, data, tmp, rng):
         with open(os.path.join(out_dir, f"train_rank{r}.json")) as f:
             reports.append(json.load(f))
     eval_batches = 64 // BATCH
-    want = {"fused_head_fwd": TRAIN_EPOCHS * steps_per_epoch,
-            "fused_head_bwd": TRAIN_EPOCHS * steps_per_epoch,
-            "nn_distance_grad": TRAIN_EPOCHS * steps_per_epoch,
-            "nn_distance": TRAIN_EPOCHS * (steps_per_epoch + eval_batches),
-            "fused_encoder_eval": TRAIN_EPOCHS * eval_batches,
-            "emd_forward": 0}
+    want = with_bn({"fused_head_fwd": TRAIN_EPOCHS * steps_per_epoch,
+                    "fused_head_bwd": TRAIN_EPOCHS * steps_per_epoch,
+                    "nn_distance_grad": TRAIN_EPOCHS * steps_per_epoch,
+                    "nn_distance": TRAIN_EPOCHS * (steps_per_epoch
+                                                   + eval_batches),
+                    "fused_encoder_eval": TRAIN_EPOCHS * eval_batches,
+                    "emd_forward": 0}, "model", TRAIN_EPOCHS * steps_per_epoch)
     for r, rep in enumerate(reports):
         require(rep["launches"] == want,
                 f"DP training rank {r} launches {rep['launches']}, the path "
@@ -2541,12 +2824,14 @@ def rank_report(out_dir, tag, trainer):
 
 def path_launches(steps, eval_batches, chamfer_grad=True):
     """Each kernel's launches on a `model` training path of ``steps``
-    steps and ``eval_batches`` eval batches: K3, K4 (and K2) per step, K5
-    per eval batch, K1 per step and eval batch."""
-    return {"fused_head_fwd": steps, "fused_head_bwd": steps,
-            "nn_distance_grad": steps if chamfer_grad else 0,
-            "nn_distance": steps + eval_batches,
-            "fused_encoder_eval": eval_batches, "emd_forward": 0}
+    steps and ``eval_batches`` eval batches: K3, K4 (and K2) per step, K7
+    six times a step each way, K5 per eval batch, K1 per step and eval
+    batch."""
+    return with_bn({"fused_head_fwd": steps, "fused_head_bwd": steps,
+                    "nn_distance_grad": steps if chamfer_grad else 0,
+                    "nn_distance": steps + eval_batches,
+                    "fused_encoder_eval": eval_batches, "emd_forward": 0},
+                   "model", steps)
 
 
 # ---------------------------------------------------------------------------
@@ -2820,9 +3105,6 @@ def sp_choices(store: dict, replay: bool, num_points: int = NUM_POINT,
 
         return nn
 
-    stand_in_f = types.SimpleNamespace(**vars(functional))
-    stand_in_f.relu = relu
-    layers.F = stand_in_f
     patched = [(name, getattr(ch, name)) for name in ("nn_distance_cuda",
                                                       "nn_distance_plain")]
     for name, fn in patched:
@@ -2830,9 +3112,9 @@ def sp_choices(store: dict, replay: bool, num_points: int = NUM_POINT,
         stand_in.launches = getattr(fn, "launches", 0)
         setattr(ch, name, stand_in)
     try:
-        yield
+        with relu_through(relu):
+            yield
     finally:
-        layers.F = functional
         for name, fn in patched:
             if hasattr(fn, "launches"):
                 fn.launches = getattr(ch, name).launches
@@ -3125,10 +3407,11 @@ def phase_point_parallel(torch, counters, data, tmp, rng):
         got = [r[model] for r in ranks]
         b = BATCH if model in SP_STEP_MODELS else SP_FAMILY_BATCH
         calls = chamfer_calls.get(model, 1)
-        want = {"fused_head_fwd": 1, "fused_head_bwd": 1,
-                "nn_distance": calls,
-                "nn_distance_grad": 0 if model == "model_emd" else calls,
-                "emd_forward": 0, "fused_encoder_eval": 0}
+        want = with_bn({"fused_head_fwd": 1, "fused_head_bwd": 1,
+                        "nn_distance": calls,
+                        "nn_distance_grad": 0 if model == "model_emd"
+                        else calls,
+                        "emd_forward": 0, "fused_encoder_eval": 0}, model, 1)
         for r, g in enumerate(got):
             require(g["launches"] == want,
                     f"{model} SP step rank {r} launches {g['launches']}, the "
@@ -3469,12 +3752,14 @@ def phase_tensor_parallel(torch, counters, data, tmp, rng):
         torch, "model TP 1 x 2 ranks over gloo (tape)",
         [r["captured"] for r in ranks]) + " ok")
     want_launches = {
-        "model": {"fused_head_fwd": 1, "fused_head_bwd": 1, "nn_distance": 1,
-                  "nn_distance_grad": 1, "emd_forward": 0,
-                  "fused_encoder_eval": 0},
-        "model_emd": {"fused_head_fwd": 1, "fused_head_bwd": 1,
-                      "nn_distance": 1, "nn_distance_grad": 0,
-                      "emd_forward": 1, "fused_encoder_eval": 0}}
+        "model": with_bn({"fused_head_fwd": 1, "fused_head_bwd": 1,
+                          "nn_distance": 1, "nn_distance_grad": 1,
+                          "emd_forward": 0, "fused_encoder_eval": 0},
+                         "model", 1),
+        "model_emd": with_bn({"fused_head_fwd": 1, "fused_head_bwd": 1,
+                              "nn_distance": 1, "nn_distance_grad": 0,
+                              "emd_forward": 1, "fused_encoder_eval": 0},
+                             "model_emd", 1)}
     for model in TP_STEP_MODELS:
         one, fl = single[model], floor[model]
         got = [r[model] for r in ranks]
@@ -3871,10 +4156,11 @@ def phase_dp_sp(torch, tmp):
         one = single[model]
         # model_emd: K1 for the pcloss metric, no K2; the per-shard EMD is
         # the dense form (no K6).
-        want_l = {"fused_head_fwd": 1, "fused_head_bwd": 1,
-                  "nn_distance": 1,
-                  "nn_distance_grad": 1 if model == "model" else 0,
-                  "emd_forward": 0, "fused_encoder_eval": 0}
+        want_l = with_bn({"fused_head_fwd": 1, "fused_head_bwd": 1,
+                          "nn_distance": 1,
+                          "nn_distance_grad": 1 if model == "model" else 0,
+                          "emd_forward": 0, "fused_encoder_eval": 0}, model,
+                         1)
         idx_equal = True
         buf_err = 0.0
         for r, rank in enumerate(ranks):
@@ -3996,7 +4282,9 @@ PROFILE_KERNELS = {"nn_distance_kernel": "nn_distance",
                    "head_fwd_mma_kernel": "fused_head_fwd",
                    "head_bwd_dx_kernel": "fused_head_bwd",
                    "head_bwd_dw_kernel": "fused_head_bwd",
-                   "encoder_mma_kernel": "fused_encoder_eval"}
+                   "encoder_mma_kernel": "fused_encoder_eval",
+                   "bn_apply_kernel": "batch_norm_fwd",
+                   "bn_dx_kernel": "batch_norm_bwd"}
 
 
 def phase_profile(torch, counters, data, tmp, rng):
@@ -4650,7 +4938,7 @@ def median_device_ms(torch, fn, reps=50, attempts=6, repeats=False):
 
 # Substrings of the device-side names of the port's kernels and memsets.
 OWN_KERNELS = ("encoder_", "reduce_tiles", "nn_distance", "head_", "emd_",
-               "Memset")
+               "bn_", "Memset")
 
 
 def device_trace(torch, fn, label, top=6, own=False) -> str:
@@ -4784,7 +5072,9 @@ COUNTER_KERNELS = {"fused_encoder_eval": ("reduce_tiles_kernel",),
                                       "head_fwd_tile_kernel"),
                    "fused_head_bwd": ("head_bwd_dw_kernel",),
                    "nn_distance_grad": ("nn_distance_grad_kernel",),
-                   "emd_forward": ("emd_cost_sum",)}
+                   "emd_forward": ("emd_cost_sum",),
+                   "batch_norm_fwd": ("bn_apply_kernel",),
+                   "batch_norm_bwd": ("bn_dx_kernel",)}
 
 
 def trace_launches(own: dict) -> dict:
@@ -5774,7 +6064,8 @@ def phase_compiled(torch, counters, data, weights, tmp, rng):
             setattr(benchmarks, name, fn)
     got = {k: fn.launches for k, fn in counters.items()}
     want = {"fused_encoder_eval": 0, "nn_distance": 21, "fused_head_fwd": 0,
-            "fused_head_bwd": 0, "nn_distance_grad": 21, "emd_forward": 6}
+            "fused_head_bwd": 0, "nn_distance_grad": 21, "emd_forward": 6,
+            "batch_norm_fwd": 0, "batch_norm_bwd": 0}
     require(rc == 0 and got == want,
             f"ops.benchmarks --quick: rc {rc}, launches {got}, want {want}")
     finals = []
@@ -5884,7 +6175,11 @@ def bench_rows_held(tag, extras, names):
 def phase_bench(tmp, model_step):
     """The port's benchmark script, as a user runs it. See the module
     docstring, phase 23."""
+    import torch
+
     t_phase = time.perf_counter()
+    # The script runs in a process of its own.
+    release_cache(torch, "bench")
     say("bench", nvidia_smi_line())
     busy, host = model_step
     rec, seconds = run_bench(tmp, "one_card",
@@ -5942,6 +6237,16 @@ def phase_bench(tmp, model_step):
     say("bench", f"phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+def release_cache(torch, phase: str) -> None:
+    """Hand back what this process's allocator holds cached before a phase
+    whose rank processes share the card, and say how much it held."""
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    say(phase, f"this process had {reserved / 2 ** 30:.2f} GiB reserved, "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB after emptying "
+        f"its cache")
+
+
 def main() -> int:
     try:
         import torch
@@ -5995,6 +6300,8 @@ def main() -> int:
         # earlier phases see the inputs they saw before it.
         errs["emd_forward"] = phase_emd_kernel(
             torch, em, np.random.RandomState(SEED + 1))
+        phase = "batch_norm_kernel"
+        phase_batch_norm_kernel(torch, np.random.RandomState(SEED + 3))
         counters = kernel_counters(ch, fe, fh, em)
 
         with tempfile.TemporaryDirectory() as tmp:
@@ -6032,6 +6339,7 @@ def main() -> int:
                 phase = "timings"
                 rows = phase_timings(torch, fe, ch, fh, em, session, trainer,
                                      emd_trainer, rng, launches, errs)
+                batch_norm_timings(torch, np.random.RandomState(SEED + 4))
             finally:
                 for closing in (trainer, logger, emd_trainer, emd_logger):
                     closing.close()
@@ -6047,21 +6355,26 @@ def main() -> int:
             phase = "preempt"
             phase_preempt(torch, data, tmp)
             phase = "data_parallel"
+            release_cache(torch, phase)
             phase_data_parallel(torch, counters, session, weights, data, tmp,
                                 np.random.RandomState(SEED + 20))
             phase = "master"
+            release_cache(torch, phase)
             phase_master(torch, counters, data, tmp,
                          np.random.RandomState(SEED + 60))
             phase = "point_parallel"
+            release_cache(torch, phase)
             phase_point_parallel(torch, counters, data, tmp,
                                  np.random.RandomState(SEED + 60))
             phase = "tensor_parallel"
+            release_cache(torch, phase)
             phase_tensor_parallel(torch, counters, data, tmp,
                                   np.random.RandomState(SEED + 71))
             phase = "pipeline_parallel"
             phase_pipeline_parallel(torch, fe, session, weights,
                                     np.random.RandomState(SEED + 75))
             phase = "dp_sp"
+            release_cache(torch, phase)
             phase_dp_sp(torch, tmp)
             phase = "hwcheck"
             phase_hwcheck(torch, counters)

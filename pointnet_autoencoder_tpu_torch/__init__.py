@@ -21,7 +21,8 @@ Ported so far, for every ``--model`` of the reference (``model``,
   with the conv5 head's forward and backward kernels
   (``ops/fused_head.py``), the Chamfer gradient kernel (``ops/chamfer.py``;
   ``model_cpu`` runs the dense Chamfer instead) or the approximate-EMD
-  kernel (``ops/emd.py``); its eval epoch runs the serving kernels;
+  kernel (``ops/emd.py``), and training BatchNorm with its ReLU
+  (``ops/batch_norm.py``); its eval epoch runs the serving kernels;
 - ``cli/parity.py``: the reference README's 201-epoch command, recorded
   in ``docs/RESULTS_TORCH.md``;
 - data parallelism (``parallel/mesh.py``): training on k ranks over

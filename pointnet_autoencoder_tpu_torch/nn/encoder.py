@@ -39,11 +39,12 @@ class MomentStatsPointMLP(PointMLP):
     """Dense + BN + ReLU whose training batch statistics come from the
     moments of the layer INPUT (``fused_head.head_stats``: one (C, P) @
     (P, C) product and O(C·F)) instead of two reductions of the (P, F)
-    activation; the same parameters, moving update and affine arithmetic
-    as ``PointMLP``, and the same eval. The statistics' gradient terms come
-    from ``head_stats``' autograd. ``bn.group`` averages the moments over
-    the ranks (data or point parallel), so the statistics stay the global
-    batch's."""
+    activation; the same parameters, moving update and eval as
+    ``PointMLP``, and its training affine as the card's fused BatchNorm
+    applies it: in f32, rounded once to the activation's type. The
+    statistics' gradient terms come from ``head_stats``' autograd.
+    ``bn.group`` averages the moments over the ranks (data or point
+    parallel), so the statistics stay the global batch's."""
 
     def forward(self, x: Tensor, train: bool = False,
                 bn_momentum: float = 0.9) -> Tensor:
@@ -54,7 +55,9 @@ class MomentStatsPointMLP(PointMLP):
             x.to(d.dtype), d.weight.t().to(d.dtype), d.bias.to(d.dtype),
             group=self.bn.group)
         self.bn.update(mean.detach(), var.detach(), bn_momentum)
-        return F.relu(self.bn.normalize(d(x), mean, var))
+        inv, shift = self.bn.fold(mean, var)
+        y = d(x)
+        return F.relu(y.float() * inv + shift).to(y.dtype)
 
 
 class PointNetEncoder(nn.Module):

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from pointnet_autoencoder_tpu_torch.ops import batch_norm
 from pointnet_autoencoder_tpu_torch.parallel import tp
 
 Tensor = torch.Tensor
@@ -66,12 +67,18 @@ class BatchNorm(nn.Module):
     ``inv = rsqrt(var + eps) * gamma`` and ``shift = beta - mean * inv``,
     then applied in the activation's dtype.
 
+    ``relu`` applies the layer's ReLU after the normalization. In
+    training the statistics, the moving update, the normalization and the
+    ReLU are one op, ``ops/batch_norm.batch_norm_train``: on a card K7,
+    which applies the affine in f32 and rounds once; on the CPU the
+    arithmetic above, op by op.
+
     ``group`` (a ``parallel.mesh.DataGroup``, None by default) makes the
-    training moments E[x] and E[x^2] the global batch's: one differentiable
-    all-reduce averages them over the ranks' equal shards, so every rank
-    normalizes with, and moves its moving statistics by, the same global
-    statistics, and the gradient flows through them to every rank's rows
-    (the JAX package's ``axis_name`` pmean)."""
+    training moments E[x] and E[x^2] the global batch's: one all-reduce
+    averages them over the ranks' equal shards, so every rank normalizes
+    with, and moves its moving statistics by, the same global statistics,
+    and one more in the backward carries the gradient through them to
+    every rank's rows (the JAX package's ``axis_name`` pmean)."""
 
     def __init__(self, features: int, epsilon: float = 1e-3,
                  device: Optional[torch.device] = None):
@@ -84,26 +91,25 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features, device=device))
 
     def forward(self, x: Tensor, train: bool,
-                momentum: Union[float, Tensor] = 0.9) -> Tensor:
+                momentum: Union[float, Tensor] = 0.9,
+                relu: bool = False) -> Tensor:
         if train:
-            axes = tuple(range(x.dim() - 1))
-            xf = x.float()
-            mean = xf.mean(dim=axes)
-            mean_sq = xf.square().mean(dim=axes)
-            if self.group is not None:
-                mean, mean_sq = self.group.all_reduce_mean(
-                    torch.stack([mean, mean_sq])).unbind()
-            var = torch.clamp_min(mean_sq - mean.square(), 0.0)
-            self.update(mean, var, momentum)
-        else:
-            mean, var = self.mean.float(), self.var.float()
-        return self.normalize(x, mean, var)
+            return batch_norm.batch_norm_train(
+                x, self.gamma, self.beta, self.mean, self.var, momentum,
+                self.epsilon, relu=relu, group=self.group)
+        y = self.normalize(x, self.mean.float(), self.var.float())
+        return F.relu(y) if relu else y
+
+    def fold(self, mean: Tensor, var: Tensor) -> Tuple[Tensor, Tensor]:
+        """(inv, shift) in f32 of the f32 statistics (mean, var) and the
+        affine: inv = rsqrt(var + eps) * gamma, shift = beta - mean * inv."""
+        inv = torch.rsqrt(var + self.epsilon) * self.gamma.float()
+        return inv, self.beta.float() - mean * inv
 
     def normalize(self, x: Tensor, mean: Tensor, var: Tensor) -> Tensor:
         """x normalized by the f32 statistics (mean, var) and the affine:
         folded in f32, applied in x's dtype."""
-        inv = torch.rsqrt(var + self.epsilon) * self.gamma.float()
-        shift = self.beta.float() - mean * inv
+        inv, shift = self.fold(mean, var)
         return x * inv.to(x.dtype) + shift.to(x.dtype)
 
     @torch.no_grad()
@@ -118,6 +124,15 @@ class BatchNorm(nn.Module):
                         device=self.mean.device))
         self.mean.mul_(m).add_((1.0 - m) * mean.float())
         self.var.mul_(m).add_((1.0 - m) * var.float())
+
+
+def _bn_relu(bn: Optional[BatchNorm], relu: bool, x: Tensor, train: bool,
+             momentum: Union[float, Tensor]) -> Tensor:
+    """A layer's BN (if any) and ReLU (if any) of its linear output: with
+    BN, one call that applies the ReLU too."""
+    if bn is not None:
+        return bn(x, train, momentum, relu=relu)
+    return F.relu(x) if relu else x
 
 
 class PointMLP(nn.Module):
@@ -154,9 +169,7 @@ class PointMLP(nn.Module):
 
     def activate(self, x: Tensor, train: bool, bn_momentum: float) -> Tensor:
         """BN (if any) and ReLU (if any) of the dense output ``x``."""
-        if self.bn is not None:
-            x = self.bn(x, train, bn_momentum)
-        return F.relu(x) if self.relu else x
+        return _bn_relu(self.bn, self.relu, x, train, bn_momentum)
 
     def forward(self, x: Tensor, train: bool = True,
                 bn_momentum: float = 0.9) -> Tensor:
@@ -245,10 +258,7 @@ class UpConv(nn.Module):
 
     def forward(self, x: Tensor, train: bool = True,
                 bn_momentum: float = 0.9) -> Tensor:
-        x = self.convt(x)
-        if self.bn is not None:
-            x = self.bn(x, train, bn_momentum)
-        return F.relu(x) if self.relu else x
+        return _bn_relu(self.bn, self.relu, self.convt(x), train, bn_momentum)
 
 
 def _same_pads(sizes, window, strides) -> Tuple[Tuple[int, int], ...]:
@@ -337,10 +347,7 @@ class Conv(nn.Module):
 
     def forward(self, x: Tensor, train: bool = True,
                 bn_momentum: float = 0.9) -> Tensor:
-        x = self.conv(x)
-        if self.bn is not None:
-            x = self.bn(x, train, bn_momentum)
-        return F.relu(x) if self.relu else x
+        return _bn_relu(self.bn, self.relu, self.conv(x), train, bn_momentum)
 
 
 def _pool(x: Tensor, kind: str, window: Sequence[int],

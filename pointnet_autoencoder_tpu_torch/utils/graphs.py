@@ -49,13 +49,14 @@ from typing import Callable, Dict, Hashable, Iterable, List, Optional, Tuple
 
 import torch
 
-from pointnet_autoencoder_tpu_torch.ops import chamfer, emd, fused_encoder
-from pointnet_autoencoder_tpu_torch.ops import fused_head
+from pointnet_autoencoder_tpu_torch.ops import batch_norm, chamfer, emd
+from pointnet_autoencoder_tpu_torch.ops import fused_encoder, fused_head
 
 # Every kernel wrapper that counts its launches.
 COUNTED = (chamfer.nn_distance_cuda, chamfer.nn_distance_grad_cuda,
            emd.emd_forward_cuda, fused_encoder.encoder_extrema_cuda,
-           fused_head.head_max_cuda, fused_head.head_bwd_cuda)
+           fused_head.head_max_cuda, fused_head.head_bwd_cuda,
+           batch_norm.batch_norm_fwd_cuda, batch_norm.batch_norm_bwd_cuda)
 
 
 def launch_counts() -> Tuple[int, ...]:

@@ -12,7 +12,7 @@ per pair are the card's and its kernels':
   outside the tensor cores 67 TFLOP/s; HBM 3.35 TB/s; the special-function
   units 16 results per SM per clock, 132 SMs at 1980 MHz. An f32
   operation that is not a fused multiply-add is charged as one flop.
-- ``kernel_bound(name, ...)``: each hand-written kernel (K1-K6), the least
+- ``kernel_bound(name, ...)``: each hand-written kernel (K1-K7), the least
   time the card could take for its function: the larger of its operations
   over its type's peak and its bytes (each input read once, each output
   written once) over the HBM rate. Where the work depends on the data
@@ -36,7 +36,7 @@ per pair are the card's and its kernels':
   forward): the flops of every matmul and convolution by
   ``torch.utils.flop_counter``'s formulas, and the bytes of every aten op
   (its tensor operands read once, its outputs written once; views 0). The
-  six kernels are opaque to it: inside each (``charge``) it adds the
+  seven kernels are opaque to it: inside each (``charge``) it adds the
   kernel's ``kernel_bound`` operations and bytes and counts none of the
   ops inside, so a step counts the same on the CPU, where the plain
   versions run, and on the card. The bytes are those of the op sequence
@@ -78,6 +78,11 @@ _CHAMFER_OPS_PER_PAIR = 10.0
 # index (4 B) and cotangent (4 B) read and its gradient (12 B) written.
 _CHAMFER_GRAD_OPS_PER_POINT = 13.0
 _CHAMFER_GRAD_BYTES_PER_POINT = 32.0
+# K7, per element of the (rows, C) activation: forward the column sum (1)
+# and sum of squares (2), the affine (2) and the ReLU (1); backward the
+# affine and the mask again (3), xhat (2), the two sums (3) and dx (4).
+_BN_FWD_OPS = 6.0
+_BN_BWD_OPS = 12.0
 # K6 counts the function's work once: per pair d2 (8), sqrt, max and
 # rsqrt; per pair and annealed level one exp2 on the SFUs and 19 f32
 # operations (level * d2; the two products of pass A and their sums, 4;
@@ -235,11 +240,24 @@ def emd_ops(batch: int, n: int, m: int) -> float:
     return _EMD_OPS_PER_PAIR * batch * n * m
 
 
-def _counts(kernel: str, b: int, n: int, m: Optional[int] = None,
+def _counts(kernel: str, b: int = 0, n: int = 0, m: Optional[int] = None,
             c: int = 128, f: int = 1024, dtype="f32",
             rows: Optional[int] = None) -> Tuple[float, float, float, float]:
     """(operations, bytes, their peak, SFU results) of one kernel call."""
     es = _bytes_of(dtype)
+    if kernel in ("batch_norm_fwd", "batch_norm_bwd"):
+        if rows is None:
+            raise ValueError(f"{kernel} needs rows, the activation's rows")
+        elements = rows * c
+        if kernel == "batch_norm_fwd":
+            # y read once, the output written once; gamma, beta and the
+            # moving statistics (read and written) per channel.
+            return (_BN_FWD_OPS * elements, 2.0 * elements * es + 6 * c * 4,
+                    PEAK_F32_FLOPS, 0.0)
+        # g and y read once, dx written once; the moments, gamma and beta
+        # read and dgamma and dbeta written per channel.
+        return (_BN_BWD_OPS * elements, 3.0 * elements * es + 6 * c * 4,
+                PEAK_F32_FLOPS, 0.0)
     if kernel == "nn_distance":
         return (chamfer_ops(b, n, m, backward=False), 20.0 * b * (n + m),
                 PEAK_F32_FLOPS, 0.0)
@@ -282,11 +300,13 @@ MATMUL_KERNELS = ("fused_head_fwd", "fused_head_bwd", "fused_encoder_eval")
 
 def kernel_bound(kernel: str, **shape) -> Dict:
     """{"ops", "bytes", "bound_ms", "bound_by"} of one call of ``kernel``
-    (K1-K6 by their launch counters' names: nn_distance, nn_distance_grad,
-    fused_head_fwd, fused_head_bwd, fused_encoder_eval, emd_forward) at
-    ``shape``: b, n (and m for the Chamfer and EMD kernels; c, f and
-    dtype for the head; dtype for K5, which takes only the encoder's
-    widths; rows, the distinct argmax rows of x, for K4). The bound is the
+    (K1-K7 by their launch counters' names: nn_distance, nn_distance_grad,
+    fused_head_fwd, fused_head_bwd, fused_encoder_eval, emd_forward,
+    batch_norm_fwd, batch_norm_bwd) at ``shape``: b, n (and m for the
+    Chamfer and EMD kernels; c, f and dtype for the head; dtype for K5,
+    which takes only the encoder's widths; rows, the distinct argmax rows
+    of x, for K4); for K7 rows, c and dtype of its (rows, C) activation.
+    The bound is the
     larger of the operations over their peak (K6: or its SFU results over
     the SFU rate) and the bytes over the HBM rate."""
     ops, nbytes, peak, sfu = _counts(kernel, **shape)

@@ -23,7 +23,6 @@ chip_smoke.py shares the card's with the CPU.
 """
 
 import contextlib
-import types
 
 import jax
 import jax.numpy as jnp
@@ -39,9 +38,9 @@ from pointnet_autoencoder_tpu_torch.convert import (from_flax_variables,
 from pointnet_autoencoder_tpu_torch.inference import InferenceSession
 from pointnet_autoencoder_tpu_torch.models.registry import (available_models,
                                                             get_model_spec)
-from pointnet_autoencoder_tpu_torch.nn import layers
 from pointnet_autoencoder_tpu_torch.nn.layers import PointMLP, UpConv
 from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
+from torch_dp_workers import relu_through
 
 torch.set_num_threads(2)
 
@@ -242,7 +241,6 @@ def _shared_relu_masks(model, masks, counts):
         lambda mod, args, name=name: current.append(name))
         for name, m in model.named_modules()
         if isinstance(m, (PointMLP, UpConv))]
-    functional = layers.F
 
     def relu(x):
         mask = masks[current[-1]]
@@ -251,13 +249,10 @@ def _shared_relu_masks(model, masks, counts):
         counts["differed"] += int(((x > 0) != mask).sum())
         return x * mask.to(x.dtype)
 
-    stand_in = types.SimpleNamespace(**vars(functional))
-    stand_in.relu = relu
-    layers.F = stand_in
     try:
-        yield
+        with relu_through(relu):
+            yield
     finally:
-        layers.F = functional
         for h in hooks:
             h.remove()
 

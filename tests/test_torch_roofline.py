@@ -164,6 +164,14 @@ BOUNDS = [
     ("fused_encoder_eval", dict(b=32, n=1024, dtype="bf16"), "0.00978",
      "operations"),
     ("emd_forward", dict(b=32, n=2048, m=2048), "0.3966", "operations"),
+    ("batch_norm_fwd", dict(rows=65536, c=64, dtype="bf16"), "0.00501",
+     "bytes"),
+    ("batch_norm_bwd", dict(rows=65536, c=64, dtype="bf16"), "0.00751",
+     "bytes"),
+    ("batch_norm_fwd", dict(rows=262144, c=128, dtype="bf16"), "0.04007",
+     "bytes"),
+    ("batch_norm_bwd", dict(rows=262144, c=128, dtype="bf16"), "0.06010",
+     "bytes"),
 ]
 
 
@@ -374,7 +382,8 @@ def test_model_step_counts_the_same_twice_and_its_matmuls():
     want = roofline.step_matmul_flops("model", 4, 256)
     assert sum(first.matmul_flops.values()) == want["network"] + want["stats"]
     assert set(first.kernels) == {"nn_distance", "nn_distance_grad",
-                                  "fused_head_fwd", "fused_head_bwd"}
+                                  "fused_head_fwd", "fused_head_bwd",
+                                  "batch_norm_fwd", "batch_norm_bwd"}
     # Adam's update is its own part; no copy between devices.
     parts = first.summary()["parts"]
     assert set(parts) == {"model", "optimizer"}

@@ -32,6 +32,7 @@ from pointnet_autoencoder_tpu_torch.config import TrainConfig
 from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
 from pointnet_autoencoder_tpu_torch.nn import layers
 from pointnet_autoencoder_tpu_torch.nn.layers import BatchNorm
+from pointnet_autoencoder_tpu_torch.ops import batch_norm as bn_op
 from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
 from pointnet_autoencoder_tpu_torch.ops import emd as em
 from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
@@ -94,6 +95,30 @@ def stats_rank(device, out_dir, bn_x, bn_w, head_x, head_w, head_b,
 
 
 @contextlib.contextmanager
+def relu_through(relu):
+    """Within the block, every ReLU of the layers is ``relu``: the one a
+    training BatchNorm fuses (``ops/batch_norm.batch_norm_train`` runs
+    without it, then ``relu`` takes its output) and ``layers.F.relu``
+    (a layer without BN, and eval)."""
+    functional, real = layers.F, bn_op.batch_norm_train
+
+    def bn(x, *args, relu_on=False, **kw):
+        y = real(x, *args, relu=False, **kw)
+        return relu(y) if relu_on else y
+
+    stand_in = types.SimpleNamespace(**vars(functional))
+    stand_in.relu = relu
+    layers.F = stand_in
+    bn_op.batch_norm_train = (
+        lambda x, *args, relu=False, **kw: bn(x, *args, relu_on=relu, **kw))
+    try:
+        yield
+    finally:
+        layers.F = functional
+        bn_op.batch_norm_train = real
+
+
+@contextlib.contextmanager
 def shared_choices(store: dict, replay: bool, rows=slice(None), cols=None):
     """Within the block, a train step's discrete choices (the Chamfer
     argmins, the head's argmax, every ReLU mask) and the EMD's outputs are
@@ -108,7 +133,6 @@ def shared_choices(store: dict, replay: bool, rows=slice(None), cols=None):
     split layer are its index's slice of the last axis."""
     nn_fn, head_fn, emd_fn = (ch.nn_distance_plain, fh.head_max_plain,
                               em.emd_forward_plain)
-    functional = layers.F
     store.setdefault("differed", 0)
     store.setdefault("made", 0)
     seen = {}
@@ -148,18 +172,15 @@ def shared_choices(store: dict, replay: bool, rows=slice(None), cols=None):
         mask = take("relu", x > 0)
         return x * mask.to(x.dtype)
 
-    stand_in = types.SimpleNamespace(**vars(functional))
-    stand_in.relu = relu
-    layers.F = stand_in
     patched = ((ch, "nn_distance_plain", nn_fn, nn),
                (fh, "head_max_plain", head_fn, head),
                (em, "emd_forward_plain", emd_fn, emd))
     for mod, name, _, fn in patched:
         setattr(mod, name, fn)
     try:
-        yield
+        with relu_through(relu):
+            yield
     finally:
-        layers.F = functional
         for mod, name, fn, _ in patched:
             setattr(mod, name, fn)
 
@@ -387,7 +408,7 @@ def replayed_choices(store: dict, num_points: int, points,
     shard. A near-tie falls either way under another summation order,
     and with the decoders' near-duplicate points at init (the upconv
     families) many do."""
-    functional, nn_fn = layers.F, ch.nn_distance_plain
+    nn_fn = ch.nn_distance_plain
     calls = {"relu": 0, "nn": 0}
     order = torch.arange(num_points)[points]
     position = torch.full((num_points,), -1, dtype=torch.long)
@@ -420,14 +441,11 @@ def replayed_choices(store: dict, num_points: int, points,
             return own[0], to_cloud, dist, to_label
         return dist, to_label, own[2], to_cloud
 
-    stand_in = types.SimpleNamespace(**vars(functional))
-    stand_in.relu = relu
-    layers.F = stand_in
     ch.nn_distance_plain = nn
     try:
-        yield
+        with relu_through(relu):
+            yield
     finally:
-        layers.F = functional
         ch.nn_distance_plain = nn_fn
 
 
