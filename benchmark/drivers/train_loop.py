@@ -23,13 +23,18 @@ after step 2, and the two are compared (``benchmark/compare.training``).
 Workload parameters (``traffic``): ``batch``, ``pool_batches``,
 ``fetch_every``, ``clouds`` (``benchmark/clouds.py``); ``profile``:
 ``groups`` (fetch groups in the traced stretch) and ``tries``.
+
+The driver's contract (``benchmark/README.md``): ``run``, ``calibration``
+(the sides that ``benchmark/calibrate.py`` prints), ``small`` (the CPU
+tests' preset) and ``TRAIN_STEP`` (it drives ``TrainState.train_step``,
+which the fault tests plant into).
 """
 
 from __future__ import annotations
 
 import gc
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +44,7 @@ from benchmark.harness import Outcome, Run, memory_peak, synchronize
 from benchmark.reference.model import ReferenceModel
 
 STREAM_WEIGHTS, STREAM_POOL = 0, 1
+TRAIN_STEP = True
 
 
 def fetch(pending: List[Dict[str, torch.Tensor]]) -> torch.Tensor:
@@ -287,3 +293,59 @@ def run(run: Run) -> Outcome:
                    checks=checks(run, side, ref), memory_peak_bytes=peak,
                    trace=traced)
 
+
+def small(workload: Dict, config: Dict) -> Tuple[Dict, Dict]:
+    """The CPU tests' preset: 64 points, 4 shapes a batch, a pool of 4
+    batches; everything else as the files state, limits included."""
+    config["num_point"] = 64
+    workload["params"].update(batch=4, pool_batches=4)
+    return workload, config
+
+
+def calibration(run: Run, control: bool) -> List[dict]:
+    """The readings of the program's set-up and first three steps, as a
+    run takes them (step 1 eager, steps 2 and 3 replays of the captured
+    step), each against the reference's; with ``control`` also the
+    control's and each fault's. One dict a side: ``side``, ``readings``
+    and ``worst`` (where each was worst).
+
+    - ``program``: the timed path as a run drives it.
+    - ``control``: the reference with every matmul in fp8
+      (``benchmark/reference/model.py``) put in the program's place: the
+      precision below the configuration's bf16. ``control_replay``: the
+      same in steps 2 and 3 only, the replayed steps.
+    - Faults, in the reference put in the program's place: ``half_batch``
+      (each step on half of its batch, the mean over the rest) and
+      ``half_batch_replay`` (steps 2 and 3 only); ``stale_input`` (step 3
+      on step 2's batch, as a replay that left its static input
+      unrefreshed would take it); ``unchanged`` (a step that leaves the
+      state as it was).
+    """
+    prog = TrainProgram(run)
+    first, variables, side = prog.first, prog.variables, prog.readings
+    resumed = prog.resumed
+    prog.release()
+
+    def reference(batches, precisions=("f32",) * 3):
+        return reference_readings(run.config, variables, batches,
+                                  resumed, precisions)
+
+    ref = reference(first)
+    out = [("program", compare.training(side, ref))]
+    if control:
+        half = [b[:b.shape[0] // 2] for b in first]
+        still = dict(ref, change={k: 0.0 for k in ref["change"]},
+                     bn1={k: torch.zeros_like(v)
+                          for k, v in ref["bn1"].items()},
+                     bn3={k: torch.zeros_like(v)
+                          for k, v in ref["bn3"].items()})
+        sides = {"control": reference(first, ("fp8",) * 3),
+                 "control_replay": reference(first, ("f32", "fp8", "fp8")),
+                 "half_batch": reference(half),
+                 "half_batch_replay": reference(first[:1] + half[1:]),
+                 "stale_input": reference(first[:2] + first[1:2]),
+                 "unchanged": still}
+        out += [(name, compare.training(reading, ref))
+                for name, reading in sides.items()]
+    return [{"side": s, "readings": {k: v for k, (v, _) in r.items()},
+             "worst": {k: w for k, (_, w) in r.items()}} for s, r in out]

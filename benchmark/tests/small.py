@@ -1,14 +1,16 @@
-"""A workload's files at a size a CPU test can hold: 64 points, 4 shapes
-a batch; everything else as the files state, limits included."""
+"""A workload's files at a size a CPU test can hold: the preset of the
+cell's own driver (``drivers/<driver>.py`` ``small``); everything else as
+the files state, limits included."""
 
 from __future__ import annotations
 
 import time
+from types import ModuleType
 from typing import Dict, Tuple
 
 import torch
 
-from benchmark import harness
+from benchmark import calibrate, harness
 
 
 def files(cell: str) -> Tuple[Dict, Dict]:
@@ -18,12 +20,15 @@ def files(cell: str) -> Tuple[Dict, Dict]:
                                        / f"{workload['config']}.json")
 
 
+def driver(cell: str) -> ModuleType:
+    """The driver that the workload file ``cell`` names."""
+    return calibrate.driver(files(cell)[0])
+
+
 def small(cell: str, compute_dtype: str = "") -> Tuple[Dict, Dict]:
-    workload, config = files(cell)
-    config["num_point"] = 64
+    workload, config = driver(cell).small(*files(cell))
     if compute_dtype:
         config["compute_dtype"] = compute_dtype
-    workload["params"].update(batch=4, pool_batches=4)
     return workload, config
 
 
@@ -37,9 +42,7 @@ def cpu_run(cell: str, seed: int, seconds: float = 0.3,
 
 def drive(run: harness.Run) -> harness.Outcome:
     """The rest of a run after the look for a card: the cell's driver."""
-    driver = harness.load_module(harness.ROOT / "drivers"
-                                 / f"{run.workload['driver']}.py")
-    return driver.run(run)
+    return calibrate.driver(run.workload).run(run)
 
 
 def correct(outcome: harness.Outcome) -> bool:
@@ -52,3 +55,10 @@ def workloads():
     """Every workload file, by name, with its driver."""
     return {p.stem: harness.load_json(p)["driver"]
             for p in sorted((harness.ROOT / "workloads").glob("*.json"))}
+
+
+def train_step_cells():
+    """The workload files whose driver drives the library train step
+    (``TRAIN_STEP``), which the fault tests plant into."""
+    return [cell for cell in workloads()
+            if getattr(driver(cell), "TRAIN_STEP", False)]

@@ -1,5 +1,7 @@
 """BENCHMARK.json against the contract's form: every entry resolves to its
-files, and every name, unit and text keeps to the allowed characters."""
+files, and every name, unit and text keeps to the allowed characters;
+every workload file's driver keeps to the driver contract
+(``benchmark/README.md``)."""
 
 import json
 import re
@@ -7,12 +9,20 @@ import re
 import pytest
 
 from benchmark import harness
+from benchmark.tests import small
 
 SPEC = harness.benchmark_spec()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
 CELLS = [w["name"] for w in SPEC["workloads"]]
+# Keys that name a width, which a cut may never change: a hidden,
+# intermediate, latent, state or projection size, a head size, an
+# expansion factor, the experts per token, and this repo's lists of layer
+# widths.
+WIDTH = re.compile(r"(_dim|_rank|_widths?)$|hidden|intermediate|latent|"
+                   r"state_size|^d_state$|projection|head_size|expan|"
+                   r"per_tok")
 
 
 def _text(s):
@@ -38,7 +48,15 @@ def test_config_resolves(entry):
     assert entry["file"].startswith("benchmark/configs/")
     config = harness.load_json(harness.REPO / entry["file"])
     assert config["name"] == entry["name"]
-    assert config["reduced"] == entry["reduced"] == []
+    assert config["reduced"] == entry["reduced"]
+    assert len(entry["reduced"]) <= 16
+    cuts = config.get("cuts", {})
+    assert set(cuts) == set(entry["reduced"])
+    for key in entry["reduced"]:
+        # A key of the file, cut in scale only; the file says what the
+        # source publishes and the deployment the cut stands for.
+        assert NAME.match(key) and key in config and not WIDTH.search(key)
+        assert _text(cuts[key]) and cuts[key].strip()
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -76,3 +94,15 @@ def test_metric_form(metric):
     moves = next(m for m in SPEC["end_to_end"] if m["name"] == metric["moves"])
     assert set(metric["workloads"]) <= set(moves.get("workloads", CELLS))
     assert (harness.ROOT / "metrics" / f"{metric['name']}.py").is_file()
+
+
+@pytest.mark.parametrize("cell", sorted(small.workloads()))
+def test_driver_contract(cell):
+    driver = small.driver(cell)
+    assert callable(driver.run) and callable(driver.calibration)
+    assert isinstance(getattr(driver, "TRAIN_STEP", False), bool)
+    workload, config = small.files(cell)
+    limits = dict(workload["limits"])
+    out = driver.small(workload, config)
+    assert isinstance(out, tuple) and len(out) == 2
+    assert out[0]["limits"] == limits

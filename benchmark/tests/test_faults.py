@@ -1,6 +1,8 @@
 """A run with the timed path broken underneath comes out not correct: the
-harness's look for a card skipped, the rest of the run driven, against
-the cells' own limits. On the CPU at a small size, one case for each
+harness's look for a card skipped, the rest of the run driven through the
+cell's own driver, against the cells' own limits. Every cell whose driver
+drives the library train step (``TRAIN_STEP``) is taken. On the CPU at
+the driver's small preset, one case for each
 fault a cell can have: a train step that leaves its state as it was; a
 train step on half of its batch, the mean over the rest. On a card, at
 the cells' own sizes, faults planted inside the captured program that the
@@ -19,7 +21,7 @@ from benchmark.tests import small
 from pointnet_autoencoder_tpu_torch.train.state import TrainState
 from pointnet_autoencoder_tpu_torch.utils import graphs
 
-TRAIN = [c for c, d in small.workloads().items() if d == "train_loop"]
+TRAIN = small.train_step_cells()
 
 
 def _unchanged(monkeypatch):
@@ -72,11 +74,11 @@ def _captured_half_batch(monkeypatch):
 
 
 def _stale_input(monkeypatch):
-    def replay(self, *inputs):
-        return replay.sound(self)         # the new inputs never copied in
-
-    replay.sound = graphs.CapturedProgram.replay
-    monkeypatch.setattr(graphs.CapturedProgram, "replay", replay)
+    # The new inputs never copied in: every replay (``StepPrograms.run``
+    # loads the inputs apart from the replay) takes the static input as it
+    # was captured.
+    monkeypatch.setattr(graphs.CapturedProgram, "load",
+                        lambda self, *inputs: None)
 
 
 @pytest.mark.card
