@@ -23,8 +23,10 @@ line each; any failure exits non-zero before the final line:
             and 2047; K2 bit-equal to its plain version on the CPU (and at
             B=1, N=M=65536, past one block's shared memory); K1 and K2
             also at model_hierachy's center term, B=32 with (N, M) =
-            (64, 2048) and (2048, 64), bit-equal; K6 against float64 no
-            worse than 2x the plain f32 version.
+            (64, 2048) and (2048, 64), bit-equal; K1 and K2 at PCN's
+            fine Chamfer, B=32 with N=M=16384 (K2 in its scratch
+            buffer), bit-equal; K6 against float64 no worse than 2x the
+            plain f32 version, and at PCN's coarse EMD, B=32 N=M=1024.
 3b. batch_norm_kernel: K7, training BatchNorm + ReLU, against its plain
             version in f32 (a bf16 input upcast) on the card at the
             training path's shapes ((65536,
@@ -98,6 +100,18 @@ line each; any failure exits non-zero before the final line:
             step runs them); one f32 step at B=8 on the card against the
             CPU's, as in phase 6, for the three families with Chamfer
             kernels.
+9b. pcn_emd: ``--model pcn_emd`` at its published widths and the cell
+            train.pcn_emd.b32's shapes (B=32, 2048 input points, a
+            16,384-point target), bf16, through ``make_step_fns``'
+            captured step from step 50,001. Launch counters zeroed
+            before each call: exactly one K1, one K2 and one K6 call and
+            nothing else in the eager first call, in the call that
+            captures the program and in a replay (which counts the
+            program's captured launches); a traced replay shows one
+            graph launch and each of the three kernels once, and the
+            program counts 5 replays. Finite losses. (Phase 3 holds K1 and K2 to
+            their plain versions at B=32, N=M=16384 and K6 at B=32,
+            N=M=1024, the step's shapes.)
 10. cli_test: ``cli.test.main`` on phase 6's best checkpoint (16 shapes,
             4 decoder groups, F-score at 0.01): K5 launched once and K1
             twice per shape (chamfer and fscore) and nothing else, each
@@ -433,6 +447,11 @@ EMD_STEP_BATCH = 8
 # model_hierachy's first stage: 64 centers, held against the label by the
 # Chamfer kernels.
 HIER_CENTERS = 64
+# PCN (--model pcn_emd, the cell train.pcn_emd.b32): 2048 input points,
+# 1024 coarse points held to the target's first 1024 by K6, 16,384 fine
+# points held to the 16,384-point target by K1 and K2, at B=32.
+PCN_COARSE = 1024
+PCN_FINE = 16384
 
 
 class PhaseError(RuntimeError):
@@ -830,6 +849,20 @@ def phase_kernels(torch, fe, ch, fh, rng) -> dict:
         chamfer_case(x1, x2, f"B={BATCH} N={n} M={m}")
         chamfer_grad_case(x1, x2, f"B={BATCH} N={n} M={m}", gen=hier,
                           long_segments=True)
+    # PCN's fine Chamfer: B=32, N=M=16384, K1's query tiles combined over
+    # many shapes and K2's workspace in its scratch buffer for each of
+    # them; the plain version in row chunks of 512 (about 1 GiB a chunk).
+    # Own seed.
+    pcn = np.random.RandomState(SEED + 13)
+    x1, x2 = clouds(pcn, BATCH, PCN_FINE), clouds(pcn, BATCH, PCN_FINE)
+    chamfer_case(x1, x2, f"B={BATCH} N=M={PCN_FINE}",
+                 plain=lambda a, b: nn_plain_chunked(torch, ch, a, b,
+                                                     rows=512))
+    words = ch.nn_distance_grad_scratch_words(BATCH, PCN_FINE, PCN_FINE)
+    require(words > 0, f"B={BATCH} N=M={PCN_FINE} should need the scratch "
+            f"buffer")
+    chamfer_grad_case(x1, x2, f"B={BATCH} N=M={PCN_FINE} ({words} scratch "
+                      f"words)", gen=pcn)
     return errs
 
 
@@ -928,6 +961,11 @@ def phase_emd_kernel(torch, em, rng) -> float:
     say("kernels", f"emd B={b} N=M={n}: {peak} bytes allocated during the "
         f"call (outputs and scratch {want})")
     emd_case(x1, x2, f"B={b} N=M={n}")
+    # PCN's coarse EMD: the coarse cloud against the target's first 1024
+    # points, B=32. Own seed.
+    pcn = np.random.RandomState(SEED + 14)
+    emd_case(clouds(pcn, BATCH, PCN_COARSE), clouds(pcn, BATCH, PCN_COARSE),
+             f"B={BATCH} N=M={PCN_COARSE}")
     return err
 
 
@@ -1481,6 +1519,72 @@ FAMILY_CHAMFER_CALLS = {"model_cpu": 0, "model_hierachy": 2,
 # The batch of a family's f32 card-vs-CPU step, as model_emd's
 # (EMD_STEP_BATCH): it keeps the two CPU steps short.
 FAMILY_STEP_BATCH = 8
+
+
+# The launches of one pcn_emd train step: K6 on the coarse cloud, K1 and
+# K2 on the fine one, none of PointNet's kernels.
+PCN_STEP_LAUNCHES = {"nn_distance": 1, "nn_distance_grad": 1,
+                     "emd_forward": 1}
+
+
+def phase_pcn_emd(torch, counters):
+    """``--model pcn_emd`` at its published widths and the cell's shapes,
+    bf16, through ``make_step_fns``' captured step: each call's launches
+    (the eager first call, the capturing call, a replay) and a traced
+    replay's kernels. See the module docstring, phase 9b."""
+    from pointnet_autoencoder_tpu_torch.models.registry import get_model_spec
+    from pointnet_autoencoder_tpu_torch.train import schedules
+    from pointnet_autoencoder_tpu_torch.train.loop import make_step_fns
+    from pointnet_autoencoder_tpu_torch.train.state import (PairedBatch,
+                                                            TrainState,
+                                                            make_optimizer)
+
+    dev = torch.device("cuda")
+    model = get_model_spec("pcn_emd").make(
+        NUM_POINT, dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(SEED + 15)).to(dev)
+    state = TrainState(model, make_optimizer("adam", model.parameters()),
+                       schedules.Staircase(1e-4, 0.7, 1, 50000, floor=1e-6),
+                       step=50001)
+    step, _ = make_step_fns(state, "pcn_emd",
+                            schedules.bn_momentum_schedule(BATCH, 50000))
+    gen = torch.Generator(dev).manual_seed(SEED + 15)
+    pairs = []
+    for _ in range(3):
+        target = 0.5 * torch.randn(BATCH, PCN_FINE, 3, generator=gen,
+                                   device=dev)
+        pairs.append(PairedBatch(target[:, :NUM_POINT].contiguous(), target))
+
+    def launches(pair):
+        for c in counters.values():
+            c.launches = 0
+        loss = float(step(pair)["loss"])
+        require(np.isfinite(loss), f"pcn_emd: loss {loss}")
+        return {k: c.launches for k, c in counters.items() if c.launches}
+
+    # A replay counts its program's launches, as captured.
+    for label, pair in zip(("eager", "capturing", "replayed"), pairs):
+        got = launches(pair)
+        require(got == PCN_STEP_LAUNCHES, f"pcn_emd {label} call: "
+                f"launches {got}, the step's are {PCN_STEP_LAUNCHES}")
+    want = dict(dict.fromkeys(COUNTER_KERNELS, 0), **PCN_STEP_LAUNCHES)
+
+    def replay():
+        step(pairs[2])["loss"].item()
+
+    t = overhead_trace(torch, replay, "pcn_emd_step",
+                       accept=lambda t: trace_launches(t["own"]) == want)
+    seen = trace_launches(t["own"])
+    require(seen == want and t["graph_launches"] == 1,
+            f"pcn_emd traced replay: kernels {seen}, graph launches "
+            f"{t['graph_launches']}; the step's are {want} in one graph")
+    require(step.programs.replays == 2 + 3, f"pcn_emd: "
+            f"{step.programs.replays} replays of the captured step, not 5")
+    step.programs.close()
+    say("pcn_emd", f"B={BATCH} {NUM_POINT} -> {PCN_COARSE} + {PCN_FINE} "
+        f"points: one K1, K2 and K6 launch each in the eager, the "
+        f"capturing and a replayed call; a traced replay "
+        f"{_overhead_str(t)}, its kernels {seen} ok")
 
 
 def phase_families(torch, counters, data, tmp, gen):
@@ -6346,6 +6450,8 @@ def main() -> int:
             phase = "families"
             phase_families(torch, counters, data, tmp,
                            np.random.RandomState(SEED + 9))
+            phase = "pcn_emd"
+            phase_pcn_emd(torch, counters)
             phase = "cli_test"
             phase_cli_test(torch, counters, fe, ch, data, best_path, tmp,
                            np.random.RandomState(SEED + 11))

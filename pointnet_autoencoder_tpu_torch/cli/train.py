@@ -6,7 +6,13 @@
 
 Every flag of ``pointnet_autoencoder_tpu/cli/train.py`` is accepted, plus
 ``--device`` (``cuda`` by default, which fails without a card; ``cpu``
-runs the kernels' plain PyTorch versions). ``--gpu`` is accepted for
+runs the kernels' plain PyTorch versions) and ``--num_gt_point``.
+``--model pcn_emd`` (PCN) trains on (input, target) pairs: each shape is
+loaded with ``--num_gt_point`` points (16,384 by default, at least its
+1024 coarse points), the target, and its first ``--num_point`` are the
+input; the network keeps PCN's widths whatever the two sizes; its ``--decay_step`` counts
+steps, so PCN's recipe is ``--learning_rate 1e-4 --decay_rate 0.7
+--decay_step 50000 --lr_floor 1e-6``. ``--gpu`` is accepted for
 reference compatibility and ignored: ``--device cuda:N`` picks a card.
 ``--input_mode`` is ``device`` (the dataset on the card, batches built
 there) or ``host`` (host assembly, pinned copies); checkpoints are
@@ -65,6 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Log dir [default: log]")
     p.add_argument("--num_point", type=int, default=d.num_point,
                    help="Point Number [default: 2048]")
+    p.add_argument("--num_gt_point", type=int, default=None,
+                   help="Target points of --model pcn_emd, whose input is "
+                        "the first --num_point of them; the data's size "
+                        "alone, at least 1024 [default: 16384]")
     p.add_argument("--max_epoch", type=int, default=d.max_epoch,
                    help="Epoch to run [default: 201]")
     p.add_argument("--batch_size", type=int, default=d.batch_size,
@@ -149,7 +159,8 @@ def build_parser() -> argparse.ArgumentParser:
 def config_from_args(args) -> TrainConfig:
     return TrainConfig(
         model=args.model, category=args.category, log_dir=args.log_dir,
-        num_point=args.num_point, max_epoch=args.max_epoch,
+        num_point=args.num_point, num_gt_point=args.num_gt_point,
+        max_epoch=args.max_epoch,
         batch_size=args.batch_size, learning_rate=args.learning_rate,
         momentum=args.momentum, optimizer=args.optimizer,
         decay_step=args.decay_step, decay_rate=args.decay_rate,

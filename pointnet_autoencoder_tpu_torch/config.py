@@ -12,7 +12,10 @@ every shape's points instead of the batch (``parallel/sp.py``);
 ``model_parallel`` m splits the decoder's FC layers over m ranks of each
 data shard (``parallel/tp.py``; k*m ranks in all). ``bf16_params`` and
 ``bf16_moments`` store the matmul parameters and their optimizer moments
-in bfloat16 (``train/master.py``).
+in bfloat16 (``train/master.py``). ``num_gt_point`` is the target's
+points of a family whose input and target differ (``pcn_emd``), whose
+input is the first ``num_point`` of them; it sets the data's size, not
+the network's.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ class TrainConfig:
     category: Optional[str] = None
     log_dir: str = "log"
     num_point: int = 2048
+    num_gt_point: Optional[int] = None  # a pair family's target points
+                                        # (pcn_emd: 16384 when unset)
     max_epoch: int = 201
     batch_size: int = 32
     learning_rate: float = 0.001

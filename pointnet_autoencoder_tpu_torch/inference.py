@@ -185,7 +185,8 @@ class InferenceSession:
 
     Args:
       model: registry name (``available_models()``); raises ValueError
-        if its decoder cannot emit ``num_point`` points.
+        if its decoder cannot emit ``num_point`` points, or for a family
+        that is not served (``pcn_emd``).
       model_path: reference-named ``.npz``, a serving bundle of the port,
         a ``.pt`` state_dict or a training checkpoint of the port. A
         ``--bf16_params`` checkpoint's bf16 weights load into the
@@ -226,6 +227,7 @@ class InferenceSession:
                  device: str = "cuda", data_parallel: Optional[int] = None,
                  devices: Optional[Sequence] = None,
                  model_parallel: int = 1, compiled: bool = True):
+        get_model_spec(model).require("serving")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if not os.path.exists(model_path):

@@ -14,6 +14,23 @@ command lines carry over:
   points;
 - ``model_hierachy``: a (512, 512) neck, the hierarchical decoder and its
   two-level Chamfer loss, num_point a multiple of 64.
+
+One family more than the reference, which the JAX package does not have
+(``reference_models`` lists the six it shares):
+
+- ``pcn_emd``: PCN (Yuan et al., 3DV 2018; github.com/wentaoyuan/pcn
+  ``models/pcn_emd.py``): the two-stage encoder, the coarse decoder to
+  1024 points and the folding decoder to 16,384, trained on the EMD of
+  the coarse cloud plus alpha times the sqrt-Chamfer of the fine one.
+  Its widths are the published ones whatever the data. Its input
+  (``--num_point``) and its target (``--num_gt_point``, 16,384 by
+  default, the fine cloud's size, and at least the 1024 coarse points)
+  differ: the target is the loaded cloud, the input its first
+  ``num_point`` points. Its learning-rate
+  staircase counts steps (``--decay_step`` is PCN's ``lr_decay_steps``).
+  It trains and checkpoints on one card; serving (and so pipeline
+  parallelism, which serves a session) and tensor and point parallelism
+  refuse it.
 """
 
 from __future__ import annotations
@@ -26,7 +43,11 @@ from pointnet_autoencoder_tpu_torch.models.autoencoder import (
     chamfer_x100_loss,
     emd_loss_fn,
     hierarchy_loss_fn,
+    PCN_GRID_SIZE,
+    PCN_NUM_COARSE,
+    PCNLoss,
 )
+from pointnet_autoencoder_tpu_torch.train.schedules import pcn_alpha_schedule
 
 _REGISTRY: Dict[str, ModelSpec] = {
     spec.name: spec for spec in (
@@ -48,8 +69,17 @@ _REGISTRY: Dict[str, ModelSpec] = {
                   point_constraint=lambda n: n % 64 == 0,
                   constraint_msg="hierarchical decoder needs num_point "
                                  "divisible by 64"),
+        ModelSpec(name="pcn_emd", decoder="folding",
+                  loss_fn=PCNLoss(pcn_alpha_schedule()),
+                  fold=(PCN_NUM_COARSE, PCN_GRID_SIZE), decay_per_step=True,
+                  unsupported=("serving", "tensor parallelism",
+                               "point parallelism"),
+                  log_keys=("emd_coarse", "cd_fine")),
     )
 }
+# The families of the published reference, which the JAX package has too.
+_REFERENCE = ("model", "model_cpu", "model_emd", "model_fc_upconv",
+              "model_hierachy", "model_upconv")
 
 
 def get_model_spec(name: str) -> ModelSpec:
@@ -62,3 +92,8 @@ def get_model_spec(name: str) -> ModelSpec:
 
 def available_models() -> List[str]:
     return sorted(_REGISTRY)
+
+
+def reference_models() -> List[str]:
+    """The published reference's families, the JAX package's registry."""
+    return sorted(_REFERENCE)

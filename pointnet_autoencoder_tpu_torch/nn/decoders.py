@@ -1,4 +1,5 @@
-"""Decoder families: fc, upconv, fc_upconv, hierarchy.
+"""Decoder families: fc, upconv, fc_upconv, hierarchy; and PCN's coarse
+and folding decoders (``CoarseDecoder``, ``FoldingDecoder``).
 
 Counterpart of ``pointnet_autoencoder_tpu/nn/decoders.py``, with the same
 submodule names and output geometry. Each decoder takes the global feature
@@ -22,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from pointnet_autoencoder_tpu_torch.nn.layers import FC, UpConv
 
@@ -166,3 +168,87 @@ class HierarchicalDecoder(nn.Module):
         pc2_xyz = self.fc_conv3(pc2).reshape(b, 64, -1, 3)
         pc2_xyz = pc2_xyz + pc1_xyz[:, :, None, :]  # local -> global
         return pc2_xyz.reshape(b, self.num_point, 3), {"pc1_xyz": pc1_xyz}
+
+
+class CoarseDecoder(nn.Module):
+    """PCN's coarse decoder (``models/pcn_emd.py`` ``create_decoder``, its
+    ``mlp``): the code through 1024 -> 1024 (ReLU each) -> num_coarse * 3,
+    linear, as (B, num_coarse, 3) points."""
+
+    def __init__(self, num_coarse: int, in_features: int = 1024,
+                 dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_coarse = num_coarse
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.fc1 = FC(in_features, 1024, **kw)
+        self.fc2 = FC(1024, 1024, **kw)
+        self.fc3 = FC(1024, num_coarse * 3, relu=False, **kw)
+
+    def forward(self, code: Tensor) -> Tensor:
+        x = self.fc3(self.fc2(self.fc1(code)))
+        return x.reshape(code.shape[0], self.num_coarse, 3)
+
+
+def folding_grid(grid_size: int, grid_scale: float,
+                 device: Optional[torch.device] = None) -> Tensor:
+    """PCN's folding grid, (grid_size**2, 2) f32: TF's ``meshgrid`` of
+    ``linspace(-scale, scale, grid_size)`` twice ("xy" indexing), stacked
+    on the last axis and flattened, so row i * grid_size + j is
+    (lin[j], lin[i])."""
+    lin = torch.linspace(-grid_scale, grid_scale, grid_size,
+                         dtype=torch.float32, device=device)
+    y, x = torch.meshgrid(lin, lin, indexing="ij")
+    return torch.stack([x, y], dim=2).reshape(-1, 2)
+
+
+class FoldingDecoder(nn.Module):
+    """PCN's folding decoder (``models/pcn_emd.py`` ``create_decoder``,
+    scope ``folding``): each coarse point gets a grid_size x grid_size
+    patch of 2-D grid offsets; each of the num_coarse * grid_size**2 fine
+    rows is [grid (2), its coarse point (3), the code (C)] and goes
+    through 512 -> 512 (ReLU each) -> 3, linear, PCN's ``mlp_conv``; the
+    coarse point is added back as the patch's centre. Fine row
+    c * grid_size**2 + g belongs to coarse point c and grid row g, PCN's
+    tiling order. The fine cloud is f32: the matmuls take the layer's
+    compute type, and the centre is added in f32.
+
+    The rows are padded with zero columns to a width that is a multiple
+    of 8, and ``conv1``'s weight with zero columns to match: a bf16 GEMM over rows of 2 + 3 + 1024 = 1029 elements is
+    unaligned, and the library falls back to its slowest kernels for it.
+    A zero column adds an exact zero to every product."""
+
+    def __init__(self, grid_size: int = 4, grid_scale: float = 0.05,
+                 in_features: int = 1024,
+                 dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.grid_size = grid_size
+        self.width = 2 + 3 + in_features
+        self.padded = -(-self.width // 8) * 8
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.conv1 = FC(self.width, 512, **kw)
+        self.conv2 = FC(512, 512, **kw)
+        self.conv3 = FC(512, 3, relu=False, **kw)
+        self.register_buffer("grid", folding_grid(grid_size, grid_scale,
+                                                  device), persistent=False)
+
+    def forward(self, code: Tensor, coarse: Tensor) -> Tensor:
+        b, num_coarse, _ = coarse.shape
+        g = self.grid.shape[0]
+        dense = self.conv1.dense
+        dtype = dense.dtype
+        rows = (b, num_coarse, g)
+        centre = coarse[:, :, None, :].expand(*rows, 3)
+        feat = torch.cat([
+            self.grid.to(dtype).expand(*rows, 2), centre.to(dtype),
+            code.to(dtype)[:, None, None, :].expand(*rows, code.shape[1]),
+            code.new_zeros((), dtype=dtype).expand(
+                *rows, self.padded - self.width)], dim=3)
+        weight = F.pad(dense.weight.to(dtype), (0, self.padded - self.width))
+        x = F.relu(F.linear(feat, weight, dense.bias.to(dtype)))
+        x = self.conv3(self.conv2(x))
+        fine = x.float() + centre.float()
+        return fine.reshape(b, num_coarse * g, 3)

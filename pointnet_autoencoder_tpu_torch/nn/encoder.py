@@ -1,4 +1,5 @@
-"""PointNet encoder: (B, N, 3) points -> (B, 1024) feature.
+"""Encoders: PointNet's, (B, N, 3) points -> (B, 1024) feature; and
+PCN's two-stage encoder (``PCNEncoder``), the same shapes.
 
 Counterpart of ``pointnet_autoencoder_tpu/nn/encoder.py``: five per-point
 Dense+BN+ReLU layers (conv1..conv5, 64-64-64-128-1024) and a max over
@@ -28,7 +29,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from pointnet_autoencoder_tpu_torch.nn.layers import PointMLP
+from pointnet_autoencoder_tpu_torch.nn.layers import FC, PointMLP
 from pointnet_autoencoder_tpu_torch.ops import fused_encoder, fused_head
 from pointnet_autoencoder_tpu_torch.parallel import sp
 
@@ -131,3 +132,33 @@ class PointNetEncoder(nn.Module):
         if self.point_group is not None:
             out = sp.max_point_sharded(out, self.point_group)
         return out.to(x.dtype)
+
+
+class PCNEncoder(nn.Module):
+    """PCN's encoder (Yuan et al., 3DV 2018; github.com/wentaoyuan/pcn,
+    ``models/pcn_emd.py`` ``create_encoder``): two per-point stages of
+    Dense layers with biases and no BatchNorm, each PCN's ``mlp_conv``
+    (ReLU between its layers, the last linear). Stage 1 (``conv1``,
+    ``conv2``): 3 -> 128 -> 256; its max over points is tiled back onto
+    every point and concatenated after the point's own features, 512
+    wide; stage 2 (``conv3``, ``conv4``): 512 -> 512 -> 1024, then the max
+    over points. Every cloud has its N points (PCN's ragged ``npts``
+    batches are fixed-size here)."""
+
+    WIDTHS = ((3, 128, True), (128, 256, False), (512, 512, True),
+              (512, 1024, False))
+
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        for i, (c, f, relu) in enumerate(self.WIDTHS):
+            self.add_module(f"conv{i + 1}", FC(
+                c, f, relu=relu, dtype=dtype, device=device,
+                generator=generator))
+
+    def forward(self, points: Tensor) -> Tensor:
+        x = self.conv2(self.conv1(points))                  # (B, N, 256)
+        pooled = x.amax(dim=1, keepdim=True).expand_as(x)
+        x = self.conv4(self.conv3(torch.cat([x, pooled], dim=2)))
+        return x.amax(dim=1)                                # (B, 1024)

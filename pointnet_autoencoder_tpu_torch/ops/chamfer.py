@@ -17,6 +17,9 @@ as the reference op's registered gradient.
 - ``nn_distance_plain`` is the dense (B, N, M) form in plain PyTorch, with
   the outer differences summed in the reference's ``sqdist_matrix`` order
   ((dx*dx + dy*dy) + dz*dz), which the kernel reproduces bit for bit.
+- ``chamfer_sqrt`` is PCN's Chamfer (``models/pcn_emd.py``'s
+  ``chamfer``): the mean of the square roots of each direction's
+  distances, the two means averaged; K2 takes its per-point gradients.
 - ``nn_distance_grad_plain`` is the reference's scatter form
   (chamfer.py:392-402): a gather, then ``index_add_`` of -t into zeros,
   plus t. On the CPU ``index_add_`` adds in index order, which is the
@@ -272,6 +275,16 @@ def chamfer_loss_dense(pred: Tensor, label: Tensor) -> Tensor:
     ``--model model_cpu`` on every device."""
     d1, _, d2, _ = nn_distance_dense(pred, label)
     return _chamfer_mean(d1, d2)
+
+
+def chamfer_sqrt(pcd1: Tensor, pcd2: Tensor) -> Tensor:
+    """PCN's Chamfer distance: (mean sqrt(dist1) + mean sqrt(dist2)) / 2,
+    each mean over the batch and its cloud's points, through
+    ``nn_distance`` (K1 and K2 on the card). No epsilon under the root, as
+    PCN has none: a point that lands exactly on its neighbour gives an
+    infinite gradient there."""
+    d1, _, d2, _ = nn_distance(pcd1, pcd2)
+    return (torch.sqrt(d1).mean() + torch.sqrt(d2).mean()) / 2.0
 
 
 def fscore(pred: Tensor, target: Tensor,

@@ -16,6 +16,9 @@ multiR = N // M or 1). Per level:
 - Plan-based, plain PyTorch: ``approx_match`` (no gradient, (B, M, N)),
   ``match_cost`` (closed-form backward, plan constant) and
   ``emd_loss_via_match``.
+- ``earth_mover``: PCN's EMD loss (``models/pcn_emd.py``), the cost of
+  its first cloud against its second over the points, averaged over the
+  batch.
 - Fused, plan-free: ``emd_cost`` folds the moved mass into the cost and
   both gradients level by level. On CUDA tensors it runs the kernel of
   ``csrc/emd.cu`` (``emd_forward_cuda``) for every shape, or raises. On
@@ -318,6 +321,17 @@ def emd_loss(pred: Tensor, label: Tensor) -> Tensor:
     training loss (models/model_emd.py:86-88): not divided by N, not
     scaled."""
     return emd_cost(label, pred).mean()
+
+
+def earth_mover(pcd1: Tensor, pcd2: Tensor) -> Tensor:
+    """PCN's ``earth_mover``: mean over the batch of
+    ``match_cost(pcd1, pcd2, approx_match(pcd1, pcd2)) / N``, pcd1 matched
+    against pcd2 in that order (not ``emd_loss``'s label-first order),
+    both (B, N, 3) with the same N."""
+    if pcd1.shape[1] != pcd2.shape[1]:
+        raise ValueError(f"earth_mover takes clouds of one size, got "
+                         f"{tuple(pcd1.shape)} and {tuple(pcd2.shape)}")
+    return (emd_cost(pcd1, pcd2) / pcd1.shape[1]).mean()
 
 
 def emd_loss_via_match(pred: Tensor, label: Tensor) -> Tensor:

@@ -7,7 +7,9 @@ one device or as one rank of a data-parallel group:
 - A train step is forward, loss, backward, optimizer step and the BN
   moving-statistics update (in place, during the forward), with
   bn_momentum = bn_decay(step) and the learning rate lr(step) read at the
-  step before it advances. The label is the input batch.
+  step before it advances. The label is the input batch; for
+  ``pcn_emd`` the batch holds ``num_gt_point`` points a shape, the label,
+  and the input is its first ``num_point`` (a ``PairedBatch``).
 - Input (``input_mode``): ``"device"`` (the default) keeps the dataset
   on the device and builds each batch there (``data/device_pipeline.py``);
   ``"host"`` assembles batches on a host thread (``data/pipeline.py``).
@@ -144,6 +146,7 @@ from pointnet_autoencoder_tpu_torch.train.logging import (
 from pointnet_autoencoder_tpu_torch.train.schedules import Staircase
 from pointnet_autoencoder_tpu_torch.train.state import (
     SCHEDULE_KEYS,
+    PairedBatch,
     StepPrograms,
     TrainState,
     captured_step_fns,
@@ -213,7 +216,9 @@ def make_step_fns(state: TrainState, name: str, bn_schedule: Staircase,
                   group: Optional[DataGroup] = None, compiled: bool = True):
     """(train_step, eval_step) of ``--model name`` on ``state``, the JAX
     package's ``make_step_fns`` for a caller that drives its own loop
-    without the Trainer. Each takes a batch (B, N, 3), its own label, and
+    without the Trainer. Each takes a batch (B, N, 3), its own label, or
+    for a family whose input and target differ (``pcn_emd``) a
+    ``train.state.PairedBatch`` (input, target), and
     returns 0-dim tensors on the device: the loss's metrics and ``loss``,
     and from the train step also the ``learning_rate`` and ``bn_decay``
     it applied (read at the step before it advances ``state``).
@@ -280,6 +285,14 @@ class Trainer:
         self.spec = get_model_spec(config.model)
         # A decoder that cannot emit num_point fails before any data loads.
         self.spec.check_num_point(config.num_point)
+        if config.model_parallel > 1:
+            self.spec.require("tensor parallelism")
+        if config.point_parallel:
+            self.spec.require("point parallelism")
+        # The points of every loaded shape: the target's of a pair family,
+        # whose input is the first num_point of them.
+        self._gt_point = self.spec.gt_points(config.num_gt_point)
+        self._cloud_point = self._gt_point or config.num_point
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # Full f32 products, as the reference's HIGHEST precision: TF32
@@ -341,11 +354,11 @@ class Trainer:
 
         class_choice = [config.category] if config.category else None
         self.train_dataset = train_dataset or PartDataset(
-            config.data_path, npoints=config.num_point,
+            config.data_path, npoints=self._cloud_point,
             class_choice=class_choice, split="trainval", seed=config.seed,
             cache_dir=config.cache_dir)
         self.test_dataset = test_dataset or PartDataset(
-            config.data_path, npoints=config.num_point,
+            config.data_path, npoints=self._cloud_point,
             class_choice=class_choice, split="test", seed=config.seed + 1,
             cache_dir=config.cache_dir)
         self.input_mode = config.input_mode
@@ -417,7 +430,8 @@ class Trainer:
         self.state = TrainState(
             model, optimizer,
             schedules.learning_rate_schedule(
-                config.learning_rate, config.decay_rate, config.batch_size,
+                config.learning_rate, config.decay_rate,
+                1 if self.spec.decay_per_step else config.batch_size,
                 config.decay_step, floor=config.lr_floor))
         # Captured programs on a card; the reason, where the steps run
         # eager. A gloo rank's collectives cannot be captured: its
@@ -479,6 +493,13 @@ class Trainer:
 
     # -- steps --------------------------------------------------------------
 
+    def _paired(self, batch: torch.Tensor):
+        """The step's batch: the loaded one, its own label, or for a pair
+        family (input, target), the input its first num_point points."""
+        if self._gt_point is None:
+            return batch
+        return PairedBatch(batch[:, :self.config.num_point], batch)
+
     def _eager_train_step(self, batch: torch.Tensor) -> Metrics:
         if self.sp_active:
             reduce = self.group.sum_gradients
@@ -486,14 +507,15 @@ class Trainer:
             reduce = self.group.average_gradients
         else:
             reduce = None
-        metrics = self.state.train_step(batch, self.loss_fn,
+        metrics = self.state.train_step(self._paired(batch), self.loss_fn,
                                         self.bn_schedule, reduce,
                                         self._replicated)
         self._keys["train"] = sorted(metrics)
         return metrics
 
     def _eager_eval_step(self, batch: torch.Tensor) -> Metrics:
-        metrics = self.state.eval_step(batch, self.loss_fn, self._replicated)
+        metrics = self.state.eval_step(self._paired(batch), self.loss_fn,
+                                       self._replicated)
         self._keys["eval"] = sorted(metrics)
         return metrics
 
@@ -572,7 +594,7 @@ class Trainer:
         """This rank's part of the batch of shapes ``idxs``, built on the
         device from ``pipe``'s generator."""
         return assemble_batch(data.data, data.lengths, idxs, pipe.generator,
-                              self.config.num_point, rotate, rows=self._rows,
+                              self._cloud_point, rotate, rows=self._rows,
                               points=self._points)
 
     # -- data and model parallelism -----------------------------------------
@@ -777,8 +799,16 @@ class Trainer:
         log = self.logger
         log.log(f" -- {batches:03d} / {num_batches:03d} --")
         log.log(f"mean loss: {means['loss']:.6f}")
-        log.log(f"mean pc loss: {means['pcloss']:.6f}")
+        self._log_losses("mean", means)
         log.scalars("train", step, means)
+
+    def _log_losses(self, prefix: str, means: Dict[str, float]) -> None:
+        """The loss's parts: the Chamfer ``pcloss`` where the family
+        reports it, and its ``log_keys``."""
+        if "pcloss" in means:
+            self.logger.log(f"{prefix} pc loss: {means['pcloss']:.6f}")
+        for k in self.spec.log_keys:
+            self.logger.log(f"{prefix} {k}: {means[k]:.6f}")
 
     def _train_epoch_device(self, start_step: int, num_batches: int) -> int:
         """Device-input epoch: ``log_every`` steps per dispatch (a replayed
@@ -842,7 +872,7 @@ class Trainer:
             return float("inf")
         means, = self._fetch_windows(metrics, [(0, metrics.count)])
         log.log(f"eval mean loss: {means['loss']:.6f}")
-        log.log(f"eval mean pc loss: {means['pcloss']:.6f}")
+        self._log_losses("eval mean", means)
         log.scalars("test", self.state.step, means)
         return means["loss"]
 

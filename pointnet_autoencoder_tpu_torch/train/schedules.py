@@ -6,6 +6,8 @@
   training script, so there is no floor unless ``floor`` is given.
 - bn_decay (the BatchNorm momentum): min(0.99, 1 - 0.5 * 0.5 **
   floor(step * batch_size / decay_step)), ramping 0.5 -> 0.99.
+- PCN's loss weight alpha (``pcn_alpha_schedule``), piecewise constant
+  in the step (``PiecewiseConstant``, TF's ``piecewise_constant``).
 
 Each schedule has two forms, which compute as the JAX package does in
 f32 and give the same values:
@@ -93,3 +95,37 @@ def bn_momentum_schedule(batch_size: int, decay_step: int) -> Staircase:
     """bn_decay(step): the moving-average momentum fed to BatchNorm."""
     return Staircase(BN_INIT_DECAY, BN_DECAY_RATE, batch_size, decay_step,
                      complement=True, clip=BN_DECAY_CLIP)
+
+
+class PiecewiseConstant:
+    """TF's ``tf.train.piecewise_constant(step, boundaries, values)``:
+    ``values[0]`` while ``step <= boundaries[0]``, ``values[i]`` while
+    ``boundaries[i - 1] < step <= boundaries[i]``, and ``values[-1]``
+    past the last boundary, in f32. The same two forms as ``Staircase``:
+    ``tensor(step)`` on the step counter's device with no host sync,
+    ``f32(step)`` on the host."""
+
+    def __init__(self, boundaries, values):
+        if len(values) != len(boundaries) + 1:
+            raise ValueError(f"{len(boundaries)} boundaries need "
+                             f"{len(boundaries) + 1} values, got "
+                             f"{len(values)}")
+        self.boundaries = tuple(int(b) for b in boundaries)
+        self.values = tuple(float(np.float32(v)) for v in values)
+
+    def f32(self, step: int) -> float:
+        passed = sum(int(step) > b for b in self.boundaries)
+        return self.values[passed]
+
+    def tensor(self, step: Tensor) -> Tensor:
+        value = torch.full((), self.values[0], dtype=torch.float32,
+                           device=step.device)
+        for b, v in zip(self.boundaries, self.values[1:]):
+            value = torch.where(step > b, v, value)
+        return value
+
+
+def pcn_alpha_schedule() -> PiecewiseConstant:
+    """PCN's weight of the fine Chamfer term (``train.py``: ``alpha``):
+    0.01, 0.1, 0.5, then 1.0 past steps 10k, 20k and 50k."""
+    return PiecewiseConstant((10000, 20000, 50000), (0.01, 0.1, 0.5, 1.0))

@@ -37,7 +37,40 @@ from pointnet_autoencoder_tpu_torch.utils.graphs import ProgramCache
 
 # The metrics a train step reports of its schedules: the values it
 # applied, the same on every rank of a parallel step.
-SCHEDULE_KEYS = ("learning_rate", "bn_decay")
+SCHEDULE_KEYS = ("learning_rate", "bn_decay", "alpha")
+
+
+class PairedBatch(tuple):
+    """An (input, target) batch, for a family whose input and target
+    differ (PCN): a tuple of the two tensors whose ``shape`` is the
+    input's and whose slices take the same rows of both, so code that
+    handles a batch by its rows handles a pair alike."""
+
+    def __new__(cls, inputs: Tensor, target: Tensor):
+        return super().__new__(cls, (inputs, target))
+
+    @property
+    def shape(self) -> torch.Size:
+        return tuple.__getitem__(self, 0).shape
+
+    def __getitem__(self, index):
+        if isinstance(index, slice):
+            return PairedBatch(*(t[index] for t in self))
+        return tuple.__getitem__(self, index)
+
+
+def split_batch(batch) -> Tuple[Tensor, Tensor]:
+    """(input, label) of a batch: a ``PairedBatch``'s two parts, or a
+    tensor twice (its own label)."""
+    if isinstance(batch, PairedBatch):
+        return batch[0], batch[1]
+    return batch, batch
+
+
+def loss_kwargs(loss_fn: Callable, step: Tensor) -> Dict[str, Tensor]:
+    """The keywords a loss takes beyond (pred, label, end_points): the
+    step counter, for a loss that reads a schedule of it (PCN's alpha)."""
+    return {"step": step} if getattr(loss_fn, "reads_step", False) else {}
 
 
 def combined_metrics(metrics: Dict[str, Any], group,
@@ -221,10 +254,12 @@ class TrainState:
                    reduce_gradients: Optional[Callable] = None,
                    context: Callable = contextlib.nullcontext
                    ) -> Dict[str, Tensor]:
-        """One optimizer step on ``batch``, its own label: forward with
+        """One optimizer step on ``batch``, its own label, or on a
+        ``PairedBatch`` (input, label): forward of the input with
         bn_momentum = bn_schedule(step) and the learning rate lr(step)
-        (both read before the step advances), ``loss_fn(pred, batch,
-        end_points)``, backward, ``reduce_gradients(parameters)`` (the
+        (both read before the step advances), ``loss_fn(pred, label,
+        end_points)`` (with ``step=step_tensor`` for a loss that
+        ``reads_step``), backward, ``reduce_gradients(parameters)`` (the
         collectives of a parallel step), the optimizer. The forward,
         loss and backward run inside ``context()``. Returns the loss, the
         metrics (detached), and the learning rate and BN momentum the step
@@ -235,16 +270,18 @@ class TrainState:
         and ``reduce_gradients``; ``step.update``: the optimizer and the
         step counts), and while ``clocking`` the phase clocks mark its
         ends."""
+        inputs, label = split_batch(batch)
         self._clock(0)
         with profiling.span("step.forward"):
             bn_momentum = bn_schedule.tensor(self.step_tensor)
             lr = self.set_lr()
             with context():
-                pred, end_points = self.model(batch, train=True,
+                pred, end_points = self.model(inputs, train=True,
                                               bn_momentum=bn_momentum)
         self._clock(1)
         with profiling.span("step.loss"), context():
-            loss, metrics = loss_fn(pred, batch, end_points)
+            loss, metrics = loss_fn(pred, label, end_points,
+                                    **loss_kwargs(loss_fn, self.step_tensor))
         self._clock(2)
         with profiling.span("step.backward"):
             with context():
@@ -271,10 +308,13 @@ class TrainState:
     def eval_step(self, batch: Tensor, loss_fn: Callable,
                   context: Callable = contextlib.nullcontext
                   ) -> Dict[str, Any]:
-        """The loss and metrics of the eval forward on ``batch``."""
+        """The loss and metrics of the eval forward on ``batch`` (or a
+        ``PairedBatch``), at the step's schedules."""
+        inputs, label = split_batch(batch)
         with context():
-            pred, end_points = self.model(batch, train=False)
-            loss, metrics = loss_fn(pred, batch, end_points)
+            pred, end_points = self.model(inputs, train=False)
+            loss, metrics = loss_fn(pred, label, end_points,
+                                    **loss_kwargs(loss_fn, self.step_tensor))
         out = dict(metrics)
         out["loss"] = loss
         return out
@@ -419,7 +459,8 @@ def _captured(step: Callable, programs: StepPrograms, kind: str,
               train: bool) -> Callable:
     """``step`` (a batch -> 0-dim metric tensors) replayed from a captured
     program of ``programs`` per batch shape, after its warm-up; a train
-    step counts one step a replay. Each call is the span ``step`` (a
+    step counts one step a replay. A ``PairedBatch`` is a program of two
+    static inputs, per pair of shapes. Each call is the span ``step`` (a
     train step) or ``eval``, holding ``<span>.inputs`` and
     ``<span>.launch`` (``StepPrograms.run``) and ``<span>.outputs``: the
     metrics copied out of the program's rows."""
@@ -430,14 +471,20 @@ def _captured(step: Callable, programs: StepPrograms, kind: str,
         with profiling.span(name):
             if not programs.warm(kind):
                 return programs.warm_up(kind, lambda: step(batch))
-            key = (kind, tuple(batch.shape), batch.dtype)
+            if isinstance(batch, PairedBatch):
+                inputs = tuple(batch)
+                key = (kind,) + tuple((tuple(t.shape), t.dtype)
+                                      for t in inputs)
+            else:
+                inputs = (batch,)
+                key = (kind, tuple(batch.shape), batch.dtype)
 
-            def rows(x):
-                out = step(x)
+            def rows(*x):
+                out = step(x[0] if len(x) == 1 else PairedBatch(*x))
                 keys[key] = sorted(out)
                 return torch.stack([out[k].float() for k in keys[key]])
 
-            rows = programs.run(key, rows, (batch,), steps=int(train))
+            rows = programs.run(key, rows, inputs, steps=int(train))
             with profiling.span(f"{name}.outputs"):
                 return dict(zip(keys[key], rows.clone().unbind()))
 

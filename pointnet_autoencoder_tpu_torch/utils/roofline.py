@@ -17,6 +17,8 @@ per pair are the card's and its kernels':
   over its type's peak and its bytes (each input read once, each output
   written once) over the HBM rate. Where the work depends on the data
   (K4's distinct argmax rows), the caller passes what these inputs need.
+- ``pcn_step_matmul_flops``: the matmul flops of a ``pcn_emd`` step
+  (PCN), by part.
 - ``step_floor_ms``: what one train step executes, not the JAX module's
   uniform 3 x forward: conv1 has no input gradient, conv5's backward is
   K4's sparse product (4·B·F·C operations), and ``head_stats``' moment
@@ -168,6 +170,30 @@ def network_matmul_flops(batch: int, num_point: int,
     fwd = batch * (num_point * 2.0 * ENCODER_MACS_PER_POINT
                    + _decoder_flops(config, num_point))
     return 3.0 * fwd
+
+
+# PCN's per-point and per-row dense chains (models/pcn_emd.py).
+_PCN_ENCODER = ((3, 128), (128, 256), (512, 512), (512, 1024))
+_PCN_CODE = 1024
+
+
+def pcn_step_matmul_flops(batch: int, num_point: int, num_coarse: int,
+                          grid_size: int) -> Dict[str, float]:
+    """Matmul flops one ``pcn_emd`` train step executes, forward and
+    backward, by part: {"encoder", "coarse", "folding", "network" (their
+    sum)}. Forward 2 a multiply-add; backward the gradient to each weight
+    and to each layer's input, but the encoder's first layer's input (the
+    points) takes none. The folding's rows are the num_coarse *
+    grid_size**2 fine points of every shape, each 2 + 3 + 1024 wide."""
+    points = batch * num_point
+    fine = batch * num_coarse * grid_size ** 2
+    encoder = sum((2.0 if i == 0 else 3.0) * 2.0 * points * cin * cout
+                  for i, (cin, cout) in enumerate(_PCN_ENCODER))
+    coarse = 3.0 * batch * _fc_chain_flops(
+        (_PCN_CODE, 1024, 1024, 3 * num_coarse))
+    folding = 3.0 * fine * _fc_chain_flops((2 + 3 + _PCN_CODE, 512, 512, 3))
+    return {"encoder": encoder, "coarse": coarse, "folding": folding,
+            "network": encoder + coarse + folding}
 
 
 def head_stats_flops(points: int, c: int, f: int,

@@ -37,7 +37,8 @@ from pointnet_autoencoder_tpu_torch.convert import (from_flax_variables,
                                                     from_reference_arrays)
 from pointnet_autoencoder_tpu_torch.inference import InferenceSession
 from pointnet_autoencoder_tpu_torch.models.registry import (available_models,
-                                                            get_model_spec)
+                                                            get_model_spec,
+                                                            reference_models)
 from pointnet_autoencoder_tpu_torch.nn.layers import PointMLP, UpConv
 from pointnet_autoencoder_tpu_torch.ops import chamfer as ch
 from torch_dp_workers import relu_through
@@ -131,8 +132,10 @@ def test_available_models_match_the_jax_registry():
     from pointnet_autoencoder_tpu.models.registry import \
         available_models as javailable
 
-    assert available_models() == javailable()
-    for name in available_models():
+    # The port's registry holds the JAX package's families and pcn_emd.
+    assert reference_models() == javailable()
+    assert available_models() == sorted(reference_models() + ["pcn_emd"])
+    for name in reference_models():
         assert get_model_spec(name).neck == jspec(name).neck, name
         assert get_model_spec(name).decoder == jspec(name).decoder, name
 

@@ -50,8 +50,8 @@ from pointnet_autoencoder_tpu_torch.config import TrainConfig
 from pointnet_autoencoder_tpu_torch.convert import from_flax_variables
 from pointnet_autoencoder_tpu_torch.data import synthetic
 from pointnet_autoencoder_tpu_torch.inference import InferenceSession
-from pointnet_autoencoder_tpu_torch.models.registry import (available_models,
-                                                            get_model_spec)
+from pointnet_autoencoder_tpu_torch.models.registry import (get_model_spec,
+                                                            reference_models)
 from pointnet_autoencoder_tpu_torch.train import checkpoint, master
 from pointnet_autoencoder_tpu_torch.train.loop import Trainer
 
@@ -161,7 +161,7 @@ def test_sr_accumulates_tiny_updates():
 # -- the matmul class ---------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", available_models())
+@pytest.mark.parametrize("name", reference_models())
 def test_matmul_selection_equals_jax_leaf_for_leaf(name):
     num_point = 2048 if "upconv" in name else 128
     _, jvars = jspec(name).init_variables(jax.random.PRNGKey(0), num_point)

@@ -50,8 +50,8 @@ from pointnet_autoencoder_tpu.parallel import mesh as jmesh
 from pointnet_autoencoder_tpu.train import schedules as jschedules
 from pointnet_autoencoder_tpu_torch.config import TrainConfig
 from pointnet_autoencoder_tpu_torch.convert import from_flax_variables
-from pointnet_autoencoder_tpu_torch.models.registry import (available_models,
-                                                            get_model_spec)
+from pointnet_autoencoder_tpu_torch.models.registry import (get_model_spec,
+                                                            reference_models)
 from pointnet_autoencoder_tpu_torch.nn.layers import BatchNorm, PointMLP
 from pointnet_autoencoder_tpu_torch.ops import fused_head as fh
 from pointnet_autoencoder_tpu_torch.parallel import mesh
@@ -390,7 +390,7 @@ def dp_steps(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dp_steps")
     cases, singles = {}, {}
     momentum = 0.5
-    for name in available_models():
+    for name in reference_models():
         num_point, n_in = STEP_SIZES[name]
         batch = np.random.RandomState(7).randn(
             STEP_BATCH, n_in, 3).astype(np.float32)

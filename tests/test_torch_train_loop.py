@@ -158,13 +158,17 @@ def test_model_emd_cli_run_and_session(fixture_root, tmp_path):
 def test_parser_has_the_reference_flags_and_device():
     ours = {a.dest for a in cli.build_parser()._actions} - {"help"}
     theirs = {a.dest for a in jcli.build_parser()._actions} - {"help"}
-    assert ours == theirs | {"device"}
+    # --num_gt_point: the target's points of pcn_emd, a family the JAX
+    # package does not have.
+    assert ours == theirs | {"device", "num_gt_point"}
     args = cli.build_parser().parse_args([])
     assert args.device == "cuda" and args.bf16
+    assert args.num_gt_point is None
     cfg = cli.config_from_args(args)
     defaults = jconfig.TrainConfig()
     assert set(TrainConfig.__dataclass_fields__) == set(
-        jconfig.TrainConfig.__dataclass_fields__)
+        jconfig.TrainConfig.__dataclass_fields__) | {"num_gt_point"}
+    assert cfg.num_gt_point is None
     for field in jconfig.TrainConfig.__dataclass_fields__:
         assert getattr(cfg, field) == getattr(defaults, field), field
         assert getattr(TrainConfig(), field) == getattr(defaults, field), field
